@@ -1,0 +1,43 @@
+"""Architecture config registry: ``get_config(arch_id)`` / ``ARCHS``.
+
+The port's own copy of ``repro.configs``. Only the architectures whose model
+family the port runs are listed; the rest arrive with their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from importlib import import_module
+
+ARCHS = [
+    "granite-moe-3b-a800m",
+]
+
+_ALIASES = {
+    "llama3.2-3b": "llama3_2-3b",
+    "qwen2-1.5b": "qwen2-1_5b",
+    "mamba2-1.3b": "mamba2-1_3b",
+}
+
+
+def canonical(arch: str) -> str:
+    return _ALIASES.get(arch, arch)
+
+
+def _module(arch: str):
+    name = canonical(arch)
+    if name not in ARCHS:
+        raise NotImplementedError(
+            f"{arch!r} is not ported yet; the port serves {ARCHS}")
+    return import_module(f"repro_torch.configs.{name.replace('-', '_')}")
+
+
+def get_config(arch: str, **overrides):
+    cfg = _module(arch).config()
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def get_smoke_config(arch: str):
+    return _module(arch).smoke_config()

@@ -1,0 +1,1 @@
+"""Hopper CUDA kernels (``csrc/``), their wrappers and plain versions."""

@@ -1,0 +1,124 @@
+"""Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
+
+Each source in ``csrc/`` becomes one shared library with a plain C
+interface, compiled for Hopper (``sm_90a``) into ``build/repro_torch/`` at the
+repository root. A library's file name carries a hash of its sources and
+flags, so an edited source is rebuilt and an unchanged one is reused. All
+missing libraries are compiled in parallel, one ``nvcc`` each.
+
+Building happens at the first launch (or through :func:`build_all`), never at
+import: the CPU tests import every module on machines without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+HEADERS = ("gmm_common.cuh",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Kernel name → (source file, C entry point).
+KERNELS = {
+    "gmm": ("gmm.cu", "gmm_launch"),
+    "gmm_swiglu": ("gmm_swiglu.cu", "gmm_swiglu_launch"),
+}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# Every entry: (x, w, y, E, C, K, N_or_F, dtype, stream) -> cudaError_t.
+_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path("/usr/local/cuda/bin/nvcc")
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels are built with the "
+                       "CUDA toolkit on the machine that has the card")
+
+
+def lib_path(name: str) -> Path:
+    """Where kernel ``name``'s library lives for the current sources."""
+    src, _ = KERNELS[name]
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in (src, *HEADERS):
+        h.update((CSRC / f).read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None) -> dict[str, Path]:
+    """Compile every kernel library that is missing, in parallel.
+
+    Returns ``{name: library path}``; raises with the compiler's output if a
+    build fails. The compiler's report (registers, spills) is kept beside
+    each library as ``<library>.log``.
+    """
+    names = list(KERNELS if names is None else names)
+    paths = {n: lib_path(n) for n in names}
+    todo = [n for n in names if not paths[n].exists()]
+    if not todo:
+        return paths
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for n in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / KERNELS[n][0])]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        paths[n].with_name(paths[n].name + ".log").write_text(out)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
+        else:
+            os.replace(tmp, paths[n])
+    if failed:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load(name: str):
+    """The C entry point of kernel ``name``, building its library if needed."""
+    if name not in _loaded:
+        lib = ctypes.CDLL(str(build_all([name])[name]))
+        fn = getattr(lib, KERNELS[name][1])
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+        _loaded[name] = lib
+    return getattr(_loaded[name], KERNELS[name][1])
+
+
+def launch(name: str, x, w, out, n_cols: int) -> None:
+    """Launch kernel ``name`` on ``x``'s current stream; raise on an error.
+
+    ``x`` [E, C, K], ``w`` and ``out`` are checked, contiguous CUDA tensors of
+    one dtype; ``n_cols`` is N (gmm) or F (gmm_swiglu).
+    """
+    import torch
+    E, C, K = x.shape
+    code = {torch.float32: 0, torch.bfloat16: 1}[x.dtype]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = load(name)(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                        E, C, K, n_cols, code, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

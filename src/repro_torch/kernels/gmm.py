@@ -1,0 +1,61 @@
+"""Grouped GEMM — wrapper of the Hopper kernel ``csrc/gmm.cu``.
+
+Counterpart of ``repro.kernels.gmm.gmm``: ``[E, C, K] × [E, K, N] → [E, C, N]``
+with fp32 sums and the output in x's dtype. The CUDA kernel masks ragged
+C, N and K itself, so there is no block choice (``_pick_block``) and no VMEM
+budget here. On a CPU tensor the plain version ``ref.gmm_ref`` runs; on a
+CUDA tensor the kernel launches or the call raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import build
+from .ref import gmm_ref
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+launches = 0   # kernel launches since the last reset (CPU calls not counted)
+
+
+def check_operands(x, w, n_w: int) -> None:
+    """Shared operand checks of the grouped-GEMM wrappers.
+
+    ``w`` must be [E, K, n_w] for x [E, C, K], on x's device, in x's dtype.
+    """
+    if x.dim() != 3 or w.dim() != 3:
+        raise ValueError(f"expected 3-d x and w, got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}")
+    E, _, K = x.shape
+    if tuple(w.shape) != (E, K, n_w):
+        raise ValueError(f"w {tuple(w.shape)} does not fit x "
+                         f"{tuple(x.shape)}: want {(E, K, n_w)}")
+    if x.dtype not in _DTYPES or w.dtype != x.dtype:
+        raise TypeError(f"x and w must both be float32 or bfloat16, got "
+                        f"{x.dtype}, {w.dtype}")
+    if w.device != x.device:
+        raise ValueError(f"x on {x.device}, w on {w.device}")
+    if x.device.type == "cuda":
+        if not (x.is_contiguous() and w.is_contiguous()):
+            raise ValueError("the CUDA kernel takes contiguous x and w")
+        if E > 65535:
+            raise ValueError(f"E={E} exceeds the kernel grid's 65535")
+
+
+def gmm(x, w):
+    """x: [E, C, K] expert-grouped tokens; w: [E, K, N] → [E, C, N]."""
+    global launches
+    check_operands(x, w, w.shape[-1] if w.dim() == 3 else -1)
+    if x.device.type == "cpu":
+        return gmm_ref(x, w)
+    if x.device.type != "cuda":
+        raise ValueError(f"gmm runs on cuda or cpu tensors, not {x.device}")
+    E, C, _ = x.shape
+    N = w.shape[-1]
+    out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    build.launch("gmm", x, w, out, N)
+    launches += 1
+    return out

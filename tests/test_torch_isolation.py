@@ -1,0 +1,89 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points refuse to run on the CPU unless asked to."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for n in names:
+    importlib.import_module(n)
+sys.argv = ["chip_smoke.py"]
+import chip_smoke  # module import only; main() is not run
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+assert not bad, bad
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=str(REPO),
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    n_modules = int(proc.stdout.split()[0])
+    assert n_modules >= 15           # every package and module was imported
+
+
+def _require_no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+
+
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
+    _require_no_cuda()
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import ContinuousBatcher, main
+    from repro_torch.models.model import init_cache, init_params
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 2, 8)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ContinuousBatcher(cfg, params, n_slots=2, max_len=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--smoke", "--requests", "1"])
+
+
+def test_unported_families_raise():
+    import dataclasses
+
+    from repro_torch.models.model import init_params
+    from repro_torch.configs import get_smoke_config, get_config
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                              family="ssm")
+    with pytest.raises(NotImplementedError, match="ssm"):
+        init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        get_config("qwen2-1.5b")
+
+
+def test_init_params_is_seeded_and_typed():
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import init_params
+    cfg = get_smoke_config("granite-moe-3b-a800m")          # bf16 compute
+    a = init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    b = init_params(cfg, torch.Generator().manual_seed(5), device="cpu")
+    assert torch.equal(a["blocks"][1]["moe"]["w_in"],
+                       b["blocks"][1]["moe"]["w_in"])
+    assert a["embed"].dtype == torch.bfloat16
+    assert a["blocks"][0]["moe"]["router"].dtype == torch.float32
+    n = sum(t.numel() for blk in a["blocks"] for d in blk.values()
+            for t in (d.values() if isinstance(d, dict) else [d])
+            if t.dim() > 1) + a["embed"].numel() + a["unembed"].numel()
+    assert n == cfg.param_count()

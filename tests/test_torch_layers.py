@@ -1,0 +1,153 @@
+"""Port layer primitives vs ``repro.models.layers`` on the same numpy
+inputs."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.models import layers as JL  # noqa: E402
+from repro_torch.models import layers as TL  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _rand(shape, seed, scale=1.0):
+    return (np.random.default_rng(seed).standard_normal(shape,
+                                                        dtype=np.float32)
+            * np.float32(scale))
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **(tol or TOL))
+
+
+def test_norms_match():
+    x, w, b = _rand((2, 5, 48), 0), _rand((48,), 1, 0.1), _rand((48,), 2)
+    _close(TL.rms_norm(torch.from_numpy(x), torch.from_numpy(w)),
+           JL.rms_norm(jnp.asarray(x), jnp.asarray(w)))
+    _close(TL.layer_norm(torch.from_numpy(x), torch.from_numpy(w),
+                         torch.from_numpy(b)),
+           JL.layer_norm(jnp.asarray(x), jnp.asarray(w), jnp.asarray(b)))
+    p_t = {"ln1": torch.from_numpy(w), "ln1_b": torch.from_numpy(b)}
+    p_j = {"ln1": jnp.asarray(w), "ln1_b": jnp.asarray(b)}
+    for kind in ("rmsnorm", "layernorm", "nonparam_ln"):
+        _close(TL.apply_norm(kind, torch.from_numpy(x), p_t, "ln1"),
+               JL.apply_norm(kind, jnp.asarray(x), p_j, "ln1"))
+    # bf16 in, bf16 out, fp32 inside
+    xb = torch.from_numpy(x).bfloat16()
+    _close(TL.rms_norm(xb, torch.from_numpy(w)),
+           JL.rms_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w)),
+           rtol=2e-2, atol=2e-2)
+
+
+def test_rope_matches():
+    pos = np.array([[0, 1, 2, 7], [5, 6, 7, 300]], np.int32)
+    jc, js = JL.rope_tables(jnp.asarray(pos), 16, 10000.0)
+    tc, ts = TL.rope_tables(torch.from_numpy(pos), 16, 10000.0)
+    _close(tc, jc)
+    _close(ts, js)
+    x = _rand((2, 4, 3, 16), 3)
+    _close(TL.apply_rope(torch.from_numpy(x), tc, ts),
+           JL.apply_rope(jnp.asarray(x), jc, js))
+
+
+@pytest.mark.parametrize("window", [0, 5])
+@pytest.mark.parametrize("Sk,block", [(20, 8), (16, 16), (9, 1024)])
+def test_blockwise_attention_matches(Sk, block, window):
+    B, H, K, hd = 2, 4, 2, 8
+    q = _rand((B, Sk, H, hd), 4)
+    k, v = _rand((B, Sk, K, hd), 5), _rand((B, Sk, K, hd), 6)
+    want = JL.blockwise_attention(jnp.asarray(q), jnp.asarray(k),
+                                  jnp.asarray(v), causal=True, q_offset=0,
+                                  sliding_window=window, block=block)
+    got = TL.blockwise_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), causal=True,
+                                 q_offset=0, sliding_window=window,
+                                 block=block)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("lens", [7, [3, 12, 1]])
+def test_decode_attention_matches(lens):
+    B, S, H, K, hd = 3, 12, 6, 2, 8
+    q = _rand((B, 1, H, hd), 7)
+    kc, vc = _rand((B, S, K, hd), 8), _rand((B, S, K, hd), 9)
+    ln = np.asarray(lens, np.int32)
+    want = JL.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                               jnp.asarray(vc), jnp.asarray(ln))
+    got = TL.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                              torch.from_numpy(vc), torch.from_numpy(ln))
+    _close(got, want)
+
+
+def _attn_params(d, H, K, hd):
+    jp = JL.init_attention(jax.random.PRNGKey(0), d, H, K, hd)
+    return jp, {n: torch.from_numpy(np.array(a)) for n, a in jp.items()}
+
+
+KW = dict(n_heads=4, n_kv_heads=2, head_dim=8, rope_theta=10000.0)
+
+
+def test_attention_without_cache_matches():
+    jp, tp = _attn_params(32, 4, 2, 8)
+    x = _rand((2, 10, 32), 10)
+    jo, jc = JL.attention(jp, jnp.asarray(x), block=4, **KW)
+    to, tc = TL.attention(tp, torch.from_numpy(x), block=4, **KW)
+    assert jc is None and tc is None
+    _close(to, jo)
+
+
+def test_attention_prefill_then_per_slot_decode_matches():
+    """Prefill into an empty cache (scalar len), then one-token decodes with
+    per-slot [B] lengths, one of them at the end of the cache (the write
+    index is clamped, as JAX's dynamic_update_slice clamps it)."""
+    jp, tp = _attn_params(32, 4, 2, 8)
+    B, S, W = 3, 6, 10
+    x = _rand((B, S, 32), 11)
+    jcache = {"k": jnp.zeros((B, W, 2, 8)), "v": jnp.zeros((B, W, 2, 8)),
+              "len": jnp.int32(0)}
+    tcache = {"k": torch.zeros(B, W, 2, 8), "v": torch.zeros(B, W, 2, 8),
+              "len": torch.zeros((), dtype=torch.int32)}
+    jo, jc = JL.attention(jp, jnp.asarray(x), cache=jcache, block=4, **KW)
+    to, tc = TL.attention(tp, torch.from_numpy(x), cache=tcache, block=4,
+                          **KW)
+    _close(to, jo)
+    for n in ("k", "v", "len"):
+        _close(tc[n], jc[n])
+
+    lens = np.array([6, 2, W + 3], np.int32)     # slot 2 is past the end
+    jc = dict(jc, len=jnp.asarray(lens))
+    tc = dict(tc, len=torch.from_numpy(lens))
+    for step in range(2):
+        xt = _rand((B, 1, 32), 12 + step)
+        jo, jc = JL.attention(jp, jnp.asarray(xt), cache=jc, **KW)
+        to, tc = TL.attention(tp, torch.from_numpy(xt), cache=tc, **KW)
+        _close(to, jo)
+        for n in ("k", "v", "len"):
+            _close(tc[n], jc[n])
+
+
+def test_attention_rejects_window_caches():
+    _, tp = _attn_params(32, 4, 2, 8)
+    cache = {"k": torch.zeros(1, 4, 2, 8), "v": torch.zeros(1, 4, 2, 8),
+             "len": torch.zeros((), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError):
+        TL.attention(tp, torch.zeros(1, 1, 32), cache=cache,
+                     sliding_window=2, **KW)
+    with pytest.raises(NotImplementedError):
+        TL.attention(tp, torch.zeros(1, 6, 32), cache=cache, **KW)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu"])
+def test_glu_act_matches(act):
+    h = _rand((3, 5, 16), 13)
+    _close(TL.glu_act(torch.from_numpy(h), act),
+           JL.glu_act(jnp.asarray(h), act))
