@@ -5,17 +5,31 @@
 Phases, each printing one JSON line:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — both CUDA kernels compiled for ``sm_90a`` from ``src/repro_torch``;
+2. build — the three CUDA kernels compiled for ``sm_90a`` from
+   ``src/repro_torch``, one ``nvcc`` each, in parallel;
 3. kernel checks — each kernel against its plain PyTorch version on the card,
    at the serving path's shapes (granite-moe-3b-a800m: 48 experts, C = 1 and
-   2 in decode, 27 in a 128-token prefill) and at ragged test shapes, in
+   2 in decode, 27 in a 128-token prefill), at the training shape (C = 854:
+   4096 tokens x top-8 / 48 experts x 1.25) and at ragged test shapes, in
    bf16 and fp32, with CUDA-event times beside the plain version's, the
-   ``torch.bmm`` yardstick's and the bytes/operations bound;
+   ``torch.bmm`` yardstick's and the bytes/operations bound. The training
+   shape also checks ``moe_expert_ffn(trainable=True)``'s three grads
+   against autograd through the plain expert FFN;
 4. slice — full-width, 32-layer granite-moe-3b-a800m in bf16 with random
    weights from a seed: one prefill through the kernels against the plain
    expert FFN, then ``launch.serve.serve`` answers 16 requests of 128-token
-   prompts with 8 slots and 32 new tokens each. Both kernels' launch counts
-   must equal 32 x (prefills + decode steps).
+   prompts with 8 slots and 32 new tokens each. Both forward kernels' launch
+   counts must equal 32 x (prefills + decode steps);
+5. train_parity — the same model cut to 2 layers (full width): loss and
+   grads of one 4096-token batch through the kernels against the plain
+   expert FFN, on the same params;
+6. train — ``launch.train`` at full width and depth: AdamW steps on
+   ``SyntheticStream`` batches of 1 x 4096 tokens (the repo's train_4k
+   sequence; its global batch of 256 cut to 1 for one card), per-layer
+   remat. Finite losses and grad norms; per layer per step, with remat,
+   gmm_swiglu 2 launches (forward, recompute), gmm 4 (forward, recompute,
+   dx and dw of the backward) and gmm_swiglu_bwd 1. Then the step's time
+   split into each kernel's time x launches and the rest.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
@@ -24,9 +38,11 @@ CUDA device nothing is printed to stdout.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -39,14 +55,19 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa
+from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu as swiglu_mod  # noqa: E402
-from repro_torch.kernels.ref import (gmm_ref, gmm_swiglu_ref,  # noqa: E402
-                                     moe_ffn_ref)
+from repro_torch.kernels import gmm_swiglu_bwd as bwd_mod  # noqa: E402
+from repro_torch.kernels.ref import (gmm_ref, gmm_swiglu_bwd_ref,  # noqa
+                                     gmm_swiglu_ref, moe_ffn_ref)
 from repro_torch.launch import serve as serve_mod  # noqa: E402
+from repro_torch.launch import steps as steps_mod  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.moe import capacity, moe_grouped  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 ARCH = "granite-moe-3b-a800m"
 SLOTS, REQUESTS, PROMPT_LEN, MAX_NEW = 8, 16, 128, 32
@@ -58,6 +79,14 @@ TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # One prefill's last-token logits, kernels vs plain expert FFN, bf16 through
 # 32 layers: |diff| <= LOGIT_TOL * max|logit|.
 LOGIT_TOL = 5e-2
+# Training: B x S tokens per step (the repo's train_4k sequence, global batch
+# cut from 256 to 1), steps of which the first is warm-up.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 4
+# 2-layer train-step parity, kernels vs plain FFN (starting tolerances):
+# loss within LOSS_TOL relative, each grad leaf's norm within GNORM_TOL.
+PARITY_LAYERS, LOSS_TOL, GNORM_TOL = 2, 1e-2, 5e-2
+# Launches per layer per training step, with per-layer remat.
+TRAIN_LAUNCHES = {"gmm_swiglu": 2, "gmm": 4, "gmm_swiglu_bwd": 1}
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -67,7 +96,22 @@ KERNELS = {
     "gmm": dict(fn=gmm_mod.gmm, plain=gmm_ref, two=False,
                 source="src/repro_torch/kernels/csrc/gmm.cu",
                 replaces="src/repro/kernels/gmm.py:43"),
+    "gmm_swiglu_bwd": dict(
+        fn=bwd_mod.gmm_swiglu_bwd, plain=gmm_swiglu_bwd_ref,
+        source="src/repro_torch/kernels/csrc/gmm_swiglu_bwd.cu",
+        replaces="src/repro/kernels/gmm_swiglu_bwd.py:91"),
 }
+COUNTERS = {"gmm_swiglu": swiglu_mod, "gmm": gmm_mod,
+            "gmm_swiglu_bwd": bwd_mod}
+
+
+def reset_launches() -> None:
+    for mod in COUNTERS.values():
+        mod.launches = 0
+
+
+def read_launches() -> dict:
+    return {name: mod.launches for name, mod in COUNTERS.items()}
 
 
 def emit(obj) -> None:
@@ -88,6 +132,12 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _bound(nbytes, n_ops, dtype):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS[dtype]
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
 def bound(E, C, K, N, two, dtype):
     """Least time (ms) for the call and what sets it: each input read once,
     the output written once, over HBM; 2 ops per multiply-add over the
@@ -95,10 +145,17 @@ def bound(E, C, K, N, two, dtype):
     item = torch.finfo(dtype).bits // 8
     w_cols = 2 * N if two else N
     nbytes = (E * C * K + E * K * w_cols + E * C * N) * item
-    ops = 2 * E * C * K * w_cols
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return _bound(nbytes, 2 * E * C * K * w_cols, dtype)
+
+
+def bwd_bound(E, C, K, F, dtype):
+    """gmm_swiglu_bwd: x, w_in and dout read once, the fp32 dx and dw
+    written once; the recompute of g and u, dx and dW are three products of
+    2·E·C·K·2F operations."""
+    item = torch.finfo(dtype).bits // 8
+    nbytes = ((E * C * K + E * K * 2 * F + E * C * F) * item
+              + (E * C * K + E * K * 2 * F) * 4)
+    return _bound(nbytes, 3 * 2 * E * C * K * 2 * F, dtype)
 
 
 def kernel_case(name, E, C, K, N, dtype, gen, timed):
@@ -129,12 +186,74 @@ def kernel_case(name, E, C, K, N, dtype, gen, timed):
     return row
 
 
+def bwd_case(E, C, K, F, dtype, gen, timed):
+    """gmm_swiglu_bwd against its plain version: both fp32 outputs."""
+    spec = KERNELS["gmm_swiglu_bwd"]
+    x = torch.randn((E, C, K), generator=gen, device="cuda").to(dtype)
+    w4 = (torch.randn((E, K, 2, F), generator=gen, device="cuda")
+          * K ** -0.5).to(dtype)
+    dout = torch.randn((E, C, F), generator=gen, device="cuda").to(dtype)
+    got = spec["fn"](x, w4, dout)
+    want = spec["plain"](x, w4, dout)
+    torch.cuda.synchronize()
+    tol = TOL[dtype]
+    err, ok = 0.0, True
+    for g, p in zip(got, want):
+        e = (g - p).abs()
+        err = max(err, float(e.max()))
+        ok = ok and bool((e <= tol + tol * p.abs()).all())
+    row = {"kernel": "gmm_swiglu_bwd", "E": E, "C": C, "K": K, "N": F,
+           "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
+           "tol": tol, "ok": ok}
+    if not ok:
+        raise AssertionError(f"gmm_swiglu_bwd disagrees with its plain "
+                             f"version: {row}")
+    if timed:
+        b_ms, b_by = bwd_bound(E, C, K, F, dtype)
+        row.update(ms=cuda_ms(lambda: spec["fn"](x, w4, dout), 10, 2),
+                   plain_ms=cuda_ms(lambda: spec["plain"](x, w4, dout),
+                                    10, 2),
+                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+    return row
+
+
+def trainable_ffn_case(E, C, D, Fe, gen):
+    """moe_expert_ffn(trainable=True)'s dx, dw_in and dw_down against
+    autograd through the plain expert FFN, same bf16 leaves and dy."""
+    dt = torch.bfloat16
+    x = torch.randn((E, C, D), generator=gen, device="cuda").to(dt)
+    w_in = (torch.randn((E, D, 2 * Fe), generator=gen, device="cuda")
+            * D ** -0.5).to(dt)
+    w_down = (torch.randn((E, Fe, D), generator=gen, device="cuda")
+              * Fe ** -0.5).to(dt)
+    dy = torch.randn((E, C, D), generator=gen, device="cuda").to(dt)
+    grads = []
+    for fn in (lambda *a: ops.moe_expert_ffn(*a, trainable=True),
+               moe_ffn_ref):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w_in, w_down)]
+        fn(*leaves).backward(dy)
+        grads.append([t.grad for t in leaves])
+    torch.cuda.synchronize()
+    tol, out, ok = TOL[dt], {}, True
+    for name, g, p in zip(("dx", "dw_in", "dw_down"), *grads):
+        e = (g.float() - p.float()).abs()
+        out[name] = float(e.max())
+        ok = ok and bool((e <= tol + tol * p.float().abs()).all())
+    if not ok:
+        raise AssertionError(f"trainable expert FFN grads differ from "
+                             f"autograd of the plain FFN: {out}")
+    return {"kernel": "moe_expert_ffn(trainable=True)", "E": E, "C": C,
+            "D": D, "F": Fe, "dtype": "bfloat16", "max_abs_err": out,
+            "tol": tol, "ok": ok}
+
+
 def check_kernels(cfg):
     """Phase 3: every kernel against its plain version on the card."""
     mc = cfg.moe
     E, D, Fe = mc.e_total, cfg.d_model, mc.d_expert
     c_dec8, c_dec4 = capacity(SLOTS, mc), capacity(SLOTS // 2, mc)
     c_pre = capacity(PROMPT_LEN, mc)
+    c_train = capacity(TRAIN_BATCH * TRAIN_SEQ, mc)
     gen = torch.Generator(device="cuda").manual_seed(1)
     rows = []
     # The serving path's shapes: (C, K, N) of gmm_swiglu (K=D, N=F) and gmm
@@ -147,6 +266,25 @@ def check_kernels(cfg):
                                 timed=dtype == torch.bfloat16)
                 r["shape"] = tag
                 rows.append(r)
+    # The training shape, bf16: the forward kernels (gmm's too as the two
+    # calls of GMM2's backward: dx = dy·wᵀ sums over D, dw = xᵀ·dy over C),
+    # then the backward kernel.
+    for tag, name, C, K, N in (
+            ("train", "gmm_swiglu", c_train, D, Fe),
+            ("train", "gmm", c_train, Fe, D),
+            ("train_bwd_dx", "gmm", c_train, D, Fe),
+            ("train_bwd_dw", "gmm", Fe, c_train, D)):
+        r = kernel_case(name, E, C, K, N, torch.bfloat16, gen, timed=True)
+        r["shape"] = tag
+        rows.append(r)
+    r = bwd_case(E, c_train, D, Fe, torch.bfloat16, gen, timed=True)
+    r["shape"] = "train"
+    rows.append(r)
+    rows.append(trainable_ffn_case(E, c_train, D, Fe, gen))
+    for dtype in (torch.bfloat16, torch.float32):
+        for E_, C, K, F in ((2, 128, 64, 128), (3, 64, 96, 64),
+                            (3, 27, 1536, 40), (3, 1, 1536, 18)):
+            rows.append(bwd_case(E_, C, K, F, dtype, gen, False))
         # Ragged shapes of the CPU tests (N = 160 and 18 are not multiples
         # of the 64-column tile; 18 is not a multiple of the 4-wide vectors).
         for E_, C, K, N in ((1, 128, 64, 128), (4, 256, 192, 256),
@@ -159,7 +297,8 @@ def check_kernels(cfg):
                             (3, 2, 1536, 40), (3, 27, 1536, 160)):
             rows.append(kernel_case("gmm_swiglu", E_, C, K, F, dtype, gen,
                                     False))
-    return rows, {"decode8": c_dec8, "decode4": c_dec4, "prefill": c_pre}
+    return rows, {"decode8": c_dec8, "decode4": c_dec4, "prefill": c_pre,
+                  "train": c_train}
 
 
 def plain_moe_impl(cfg):
@@ -198,12 +337,11 @@ def run_slice(cfg):
                              f"{logit_scale}")
 
     torch.cuda.reset_peak_memory_stats()
-    gmm_mod.launches = 0
-    swiglu_mod.launches = 0
+    reset_launches()
     with torch.inference_mode():
         b, stats = serve_mod.serve(cfg, params, prompts, n_slots=SLOTS,
                                    max_new=MAX_NEW, device="cuda")
-    launches = {"gmm_swiglu": swiglu_mod.launches, "gmm": gmm_mod.launches}
+    launches = read_launches()
     want = cfg.n_layers * (stats["prefills"] + stats["decode_steps"])
     if stats["requests"] != REQUESTS:
         raise AssertionError(f"served {stats['requests']} of {REQUESTS}")
@@ -212,7 +350,8 @@ def run_slice(cfg):
     if stats["nonfinite_steps"]:
         raise AssertionError(f"{stats['nonfinite_steps']} steps had "
                              f"non-finite logits")
-    if any(n != want for n in launches.values()):
+    if (launches["gmm_swiglu"], launches["gmm"],
+            launches["gmm_swiglu_bwd"]) != (want, want, 0):
         raise AssertionError(f"launch counts {launches} != {want} = "
                              f"{cfg.n_layers} x (prefills + decode steps)")
     out = {"phase": "slice", "arch": cfg.name, "dtype": cfg.dtype,
@@ -224,6 +363,104 @@ def run_slice(cfg):
            "launches": launches, "expected_launches": want,
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
     out.update(stats)
+    return out, launches
+
+
+def plain_train_impl(cfg):
+    """The MoE block with autograd through the plain expert FFN (check
+    only)."""
+    def ffn(x, w_in, w_down, act):
+        return moe_ffn_ref(x, w_in.to(x.dtype), w_down.to(x.dtype))
+    return partial(moe_grouped, act=cfg.act, gmm_fn=ffn)
+
+
+def train_batch(cfg, step=0):
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                        global_batch=TRAIN_BATCH))
+    return stream.batch(step, "cuda")
+
+
+def run_train_parity(cfg):
+    """Phase 5: one 4096-token batch's loss and grads at full width on
+    PARITY_LAYERS layers, through the kernels and through the plain FFN."""
+    pcfg = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    params = adamw.cast_params(M.init_params(
+        pcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"),
+        pcfg.compute_dtype)
+    batch = train_batch(pcfg)
+    lk, gk = steps_mod.value_and_grad(pcfg, params, batch)
+    lp, gp = steps_mod.value_and_grad(pcfg, params, batch,
+                                      moe_impl=plain_train_impl(pcfg))
+    lk, lp = float(lk), float(lp)
+    if not (math.isfinite(lk) and math.isfinite(lp)):
+        raise AssertionError(f"non-finite parity losses {lk}, {lp}")
+    loss_gap = abs(lk - lp) / abs(lp)
+    gaps = [abs(float(a.float().norm()) - float(b.float().norm()))
+            / max(float(b.float().norm()), 1e-30)
+            for a, b in zip(adamw.tree_leaves(gk), adamw.tree_leaves(gp))]
+    out = {"phase": "train_parity", "n_layers": PARITY_LAYERS,
+           "tokens": TRAIN_BATCH * TRAIN_SEQ, "loss_kernels": lk,
+           "loss_plain": lp, "loss_rel_gap": loss_gap, "loss_tol": LOSS_TOL,
+           "grad_leaves": len(gaps), "grad_norm_rel_gap_max": max(gaps),
+           "grad_norm_rel_gap_median": statistics.median(gaps),
+           "grad_norm_tol": GNORM_TOL}
+    if loss_gap > LOSS_TOL or max(gaps) > GNORM_TOL:
+        raise AssertionError(f"kernel train step differs from the plain "
+                             f"FFN's: {out}")
+    return out
+
+
+def run_train(cfg, rows):
+    """Phase 6: ``launch.train`` at full width and depth on one card."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t = time.perf_counter()
+    run = train_mod.main(["--arch", ARCH, "--seq", str(TRAIN_SEQ),
+                          "--global-batch", str(TRAIN_BATCH),
+                          "--steps", str(TRAIN_STEPS)])
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    log = run.metrics_log
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in log):
+        raise AssertionError(f"non-finite training metrics: {log}")
+    per_step = {k: cfg.n_layers * TRAIN_STEPS * n
+                for k, n in TRAIN_LAUNCHES.items()}
+    if launches != per_step:
+        raise AssertionError(f"training launch counts {launches} != "
+                             f"{per_step} = {cfg.n_layers} layers x "
+                             f"{TRAIN_STEPS} steps x {TRAIN_LAUNCHES}")
+    step_ms = statistics.median(m["step_ms"] for m in log[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    # Where a step's time goes: each kernel's measured time at the training
+    # shape x its launches per step; the rest is plain ops and host time.
+    by_shape = {(r["kernel"], r.get("shape")): r["ms"] for r in rows
+                if r.get("shape", "").startswith("train") and "ms" in r}
+    L = cfg.n_layers
+    kernel_ms = {
+        "gmm_swiglu": 2 * L * by_shape[("gmm_swiglu", "train")],
+        "gmm (forward, recompute)": 2 * L * by_shape[("gmm", "train")],
+        "gmm (backward dx)": L * by_shape[("gmm", "train_bwd_dx")],
+        "gmm (backward dw)": L * by_shape[("gmm", "train_bwd_dw")],
+        "gmm_swiglu_bwd": L * by_shape[("gmm_swiglu_bwd", "train")],
+    }
+    out = {"phase": "train", "arch": cfg.name, "dtype": cfg.dtype,
+           "n_layers": cfg.n_layers, "remat": cfg.remat,
+           "params": cfg.param_count(), "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "capacity": capacity(tokens, cfg.moe),
+           "steps": TRAIN_STEPS, "wall_s": wall,
+           "losses": [m["loss"] for m in log],
+           "grad_norms": [m["grad_norm"] for m in log],
+           "step_ms": [m["step_ms"] for m in log],
+           "step_ms_median_after_warmup": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "launches": launches, "expected_launches": per_step,
+           "step_breakdown_ms": dict(
+               kernel_ms, rest=step_ms - sum(kernel_ms.values()))}
+    del run
+    torch.cuda.empty_cache()
     return out, launches
 
 
@@ -250,23 +487,33 @@ def main() -> int:
     rows, caps = check_kernels(cfg)
     emit({"phase": "kernel_checks", "capacities": caps, "rows": rows})
 
-    slice_out, launches = run_slice(cfg)
+    slice_out, serve_launches = run_slice(cfg)
     emit(slice_out)
+    emit(run_train_parity(cfg))
+    train_out, train_launches = run_train(cfg, rows)
+    emit(train_out)
 
     kernels = []
+    timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, spec in KERNELS.items():
-        # The headline shape: a decode step of the 8-slot batch, the call
-        # the serving path makes most often.
+        # The headline shape: for the forward kernels a decode step of the
+        # 8-slot batch, the call the serving path makes most often; for the
+        # backward the training shape, its only one.
+        tag = "train" if name == "gmm_swiglu_bwd" else "decode8"
         r = next(r for r in rows if r["kernel"] == name
-                 and r.get("shape") == "decode8" and r["dtype"] == "bfloat16")
+                 and r.get("shape") == tag and r["dtype"] == "bfloat16")
+        t = next(r for r in rows if r["kernel"] == name
+                 and r.get("shape") == "train")
         worst = max(x["max_abs_err"] for x in rows if x["kernel"] == name)
         kernels.append({
             "name": name, "route": "cuda", "source": spec["source"],
-            "replaces": spec["replaces"], "launches": launches[name],
-            "max_abs_err": worst, "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["library_ms"],
-            "shape": {k: r[k] for k in ("E", "C", "K", "N", "dtype")}})
+            "replaces": spec["replaces"],
+            "launches": serve_launches[name] + train_launches[name],
+            "launches_by_path": {"serving": serve_launches[name],
+                                 "training": train_launches[name]},
+            "max_abs_err": worst, **{k: r[k] for k in timing},
+            "shape": {k: r[k] for k in ("E", "C", "K", "N", "dtype")},
+            "train_shape": {k: t[k] for k in ("C", "K", "N", *timing)}})
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError(f"non-finite kernel time: {kernels}")
     emit({"kernels": kernels})

@@ -26,16 +26,23 @@ HEADERS = ("gmm_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Kernel name → (source file, C entry point).
-KERNELS = {
-    "gmm": ("gmm.cu", "gmm_launch"),
-    "gmm_swiglu": ("gmm_swiglu.cu", "gmm_swiglu_launch"),
-}
-
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# Every entry: (x, w, y, E, C, K, N_or_F, dtype, stream) -> cudaError_t.
-_ARGTYPES = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+
+# Kernel name → (source file, C entry point, its argtypes). Every entry point
+# takes its tensors' pointers, then its ints, then the dtype code and the
+# stream, and returns a cudaError_t.
+KERNELS = {
+    # (x, w, y, E, C, K, N, dtype, stream)
+    "gmm": ("gmm.cu", "gmm_launch", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # (x, w_in, y, E, C, K, F, dtype, stream)
+    "gmm_swiglu": ("gmm_swiglu.cu", "gmm_swiglu_launch",
+                   (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # (x, w_in, dout, dx, dw, dgu, E, C, K, F, dtype, stream)
+    "gmm_swiglu_bwd": ("gmm_swiglu_bwd.cu", "gmm_swiglu_bwd_launch",
+                       (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+}
+DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -53,7 +60,7 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     """Where kernel ``name``'s library lives for the current sources."""
-    src, _ = KERNELS[name]
+    src = KERNELS[name][0]
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (src, *HEADERS):
         h.update((CSRC / f).read_bytes())
@@ -100,25 +107,43 @@ def load(name: str):
     """The C entry point of kernel ``name``, building its library if needed."""
     if name not in _loaded:
         lib = ctypes.CDLL(str(build_all([name])[name]))
-        fn = getattr(lib, KERNELS[name][1])
-        fn.argtypes = _ARGTYPES
+        _, entry, argtypes = KERNELS[name]
+        fn = getattr(lib, entry)
+        fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _loaded[name] = lib
     return getattr(_loaded[name], KERNELS[name][1])
 
 
-def launch(name: str, x, w, out, n_cols: int) -> None:
-    """Launch kernel ``name`` on ``x``'s current stream; raise on an error.
+def c_args(name: str, args, dtype) -> list:
+    """The C arguments of kernel ``name`` but the stream: each tensor's
+    pointer, each int, then the dtype code. Raises if they do not fit the
+    entry point's argtypes."""
+    import torch
+    argtypes = KERNELS[name][2]
+    out = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
+           for a in args]
+    out.append(DTYPE_CODES[str(dtype).replace("torch.", "")])
+    if len(out) + 1 != len(argtypes) or any(
+            isinstance(a, torch.Tensor) != (t is _P)
+            for a, t in zip(args, argtypes)):
+        raise TypeError(f"{name} takes {len(argtypes)} C arguments "
+                        f"{argtypes}; got {len(out) + 1}")
+    return out
 
-    ``x`` [E, C, K], ``w`` and ``out`` are checked, contiguous CUDA tensors of
-    one dtype; ``n_cols`` is N (gmm) or F (gmm_swiglu).
+
+def launch(name: str, *args, dtype) -> None:
+    """Launch kernel ``name`` on the current stream of its first tensor's
+    device; raise on an error.
+
+    ``args`` are the entry point's arguments before the dtype code: checked,
+    contiguous CUDA tensors, then ints.
     """
     import torch
-    E, C, K = x.shape
-    code = {torch.float32: 0, torch.bfloat16: 1}[x.dtype]
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = load(name)(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                        E, C, K, n_cols, code, stream)
+    dev = args[0].device
+    cargs = c_args(name, args, dtype)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = load(name)(*cargs, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")

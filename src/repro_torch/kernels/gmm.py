@@ -5,6 +5,10 @@ with fp32 sums and the output in x's dtype. The CUDA kernel masks ragged
 C, N and K itself, so there is no block choice (``_pick_block``) and no VMEM
 budget here. On a CPU tensor the plain version ``ref.gmm_ref`` runs; on a
 CUDA tensor the kernel launches or the call raises.
+
+``gmm_trainable`` adds the gradient that the JAX ``gmm`` lacks (it is a bare
+``pallas_call`` with no VJP): two more calls of the same kernel on
+transposed operands, each keeping its reduction whole in one CTA.
 """
 
 from __future__ import annotations
@@ -56,6 +60,27 @@ def gmm(x, w):
     out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    build.launch("gmm", x, w, out, N)
+    build.launch("gmm", x, w, out, E, C, x.shape[2], N, dtype=x.dtype)
     launches += 1
     return out
+
+
+class _GmmTrainable(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return gmm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dy = dy.contiguous()
+        dx = gmm(dy, w.transpose(1, 2).contiguous())      # sum over N
+        dw = gmm(x.transpose(1, 2).contiguous(), dy)      # sum over C
+        return dx, dw
+
+
+def gmm_trainable(x, w):
+    """``gmm`` with its gradient through the same kernel: x [E, C, K],
+    w [E, K, N] → [E, C, N]; dx = dy·wᵀ, dw = xᵀ·dy."""
+    return _GmmTrainable.apply(x, w)

@@ -35,6 +35,7 @@ def gmm_swiglu(x, w_in):
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    build.launch("gmm_swiglu", x, w_in, out, F)
+    build.launch("gmm_swiglu", x, w_in, out, E, C, x.shape[2], F,
+                 dtype=x.dtype)
     launches += 1
     return out

@@ -8,8 +8,9 @@ the ``bm``/``bn`` arguments of the JAX wrappers have no counterpart.
 
 from __future__ import annotations
 
-from .gmm import gmm
+from .gmm import gmm, gmm_trainable
 from .gmm_swiglu import gmm_swiglu
+from .gmm_swiglu_bwd import gmm_swiglu_trainable
 
 
 def grouped_gemm(x, w):
@@ -25,13 +26,16 @@ def fused_gmm_swiglu(x, w_in):
 def moe_expert_ffn(x, w_in, w_down, act: str = "swiglu", *,
                    trainable: bool = False):
     """Full expert FFN through the kernels — drop-in ``gmm_fn`` for
-    ``models.moe.moe_grouped``. Non-swiglu acts take the einsum path."""
+    ``models.moe.moe_grouped``. Non-swiglu acts take the einsum path.
+
+    ``trainable=True`` makes it differentiable: GMM1 + SwiGLU backs onto the
+    ``gmm_swiglu_bwd`` kernel and GMM2 onto two more ``gmm`` calls. (The JAX
+    function's ``trainable=True`` cannot be differentiated: its ``gmm`` has
+    no VJP. The port does what that docstring says.)"""
     if act != "swiglu":
         from repro_torch.models.moe import expert_ffn
         return expert_ffn(w_in, w_down, x, act)
+    w_in, w_down = w_in.to(x.dtype), w_down.to(x.dtype)
     if trainable:
-        raise NotImplementedError(
-            "trainable=True needs the gmm_swiglu_bwd kernel, which comes "
-            "with the port's training slice")
-    g = fused_gmm_swiglu(x, w_in.to(x.dtype))
-    return grouped_gemm(g, w_down.to(x.dtype))
+        return gmm_trainable(gmm_swiglu_trainable(x, w_in), w_down)
+    return grouped_gemm(fused_gmm_swiglu(x, w_in), w_down)

@@ -1,0 +1,100 @@
+"""Where a training step's time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_train
+
+Trains granite-moe-3b-a800m at full width and depth with the shapes of
+``chip_smoke.py``'s training phase: batches of 1 x 4096 tokens from
+``SyntheticStream``, bf16, per-layer remat, AdamW. It runs ``WARMUP`` steps,
+times ``STEPS`` more on the host clock, unprofiled, then traces ``STEPS``
+steps with ``torch.profiler`` and prints one JSON line: the unprofiled and
+the profiled host ms per step, the device's busy ms per step (the sum of
+kernel times; the port runs on one stream, so kernels do not overlap), the
+idle share of the unprofiled step, the kernel launches per step, the device
+ms per step of the port's own CUDA kernels (``gmm_swiglu`` and ``gmm``;
+the three GEMMs of ``gmm_swiglu_bwd``) against all other kernels, and the
+kernels with the most device time. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from ..configs import get_config
+from ..data.pipeline import DataConfig, SyntheticStream
+from ..device import resolve_device
+from ..models import model as M
+from ..optim import adamw
+from . import steps as St
+
+ARCH, BATCH, SEQ = "granite-moe-3b-a800m", 1, 4096
+WARMUP, STEPS = 1, 2
+# Device kernels of the port's CUDA sources, by their C++ namespaces.
+OWN = {"gmm_swiglu and gmm (gmmk::)": "gmmk::",
+       "gmm_swiglu_bwd (gsb::)": "gsb::"}
+
+
+def _device_us(evt) -> float:
+    return float(evt.self_device_time_total)
+
+
+def main():
+    dev = resolve_device("cuda")
+    cfg = get_config(ARCH)
+    params = adamw.cast_params(
+        M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                      device=dev), cfg.compute_dtype)
+    state = adamw.init_opt_state(params)
+    step = St.make_train_step(cfg, adamw.OptConfig(
+        lr=1e-3, warmup_steps=2, total_steps=WARMUP + 2 * STEPS))
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
+                                        global_batch=BATCH))
+    batches = [stream.batch(i, dev) for i in range(WARMUP + 2 * STEPS)]
+    for b in batches[:WARMUP]:
+        params, state, _ = step(params, state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches[WARMUP:WARMUP + STEPS]:
+        params, state, _ = step(params, state, b)
+    torch.cuda.synchronize()
+    plain_wall = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for b in batches[WARMUP + STEPS:]:
+            params, state, _ = step(params, state, b)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    kernels = [e for e in prof.key_averages() if _device_us(e) > 0
+               and "CUDA" in str(getattr(e, "device_type", ""))]
+    busy_us = sum(_device_us(e) for e in kernels)
+    own = {label: sum(_device_us(e) for e in kernels if part in e.key)
+           / 1e3 / STEPS for label, part in OWN.items()}
+    top = sorted(kernels, key=_device_us, reverse=True)[:15]
+    step_ms = 1e3 * plain_wall / STEPS
+    busy_ms = busy_us / 1e3 / STEPS
+    out = {
+        "arch": cfg.name, "batch": BATCH, "seq": SEQ, "steps": STEPS,
+        "device": torch.cuda.get_device_name(0),
+        "step_ms": step_ms,
+        "step_ms_profiled": 1e3 * wall / STEPS,
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / step_ms if busy_us else None,
+        "kernel_launches_per_step": sum(e.count for e in kernels) / STEPS,
+        "own_kernels_device_ms_per_step": own,
+        "other_kernels_device_ms_per_step": busy_ms - sum(own.values()),
+        "top_kernels": [{"name": e.key[:90], "calls_per_step":
+                         e.count / STEPS,
+                         "device_ms_per_step": _device_us(e) / 1e3 / STEPS}
+                        for e in top],
+    }
+    print(json.dumps(out), flush=True)
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,4 @@
-"""Models from a ModelConfig: init / forward / prefill / decode —
+"""Models from a ModelConfig: init / forward / loss / prefill / decode —
 counterpart of ``repro.models.model``.
 
 ``ModelConfig`` keeps every field of the JAX dataclass, so configs compare
@@ -9,7 +9,8 @@ dict per layer in ``params["blocks"]`` (the JAX tree stacks them as
 
 The MoE block defaults to ``moe_grouped`` with ``gmm_fn=ops.moe_expert_ffn``,
 the JAX package's kernel-backed configuration: on the card every MoE block
-launches the ``gmm_swiglu`` and ``gmm`` kernels.
+launches the ``gmm_swiglu`` and ``gmm`` kernels. ``loss_fn`` takes the
+trainable variant, whose backward launches ``gmm_swiglu_bwd`` and ``gmm``.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from functools import partial
 from typing import Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
@@ -62,7 +64,8 @@ class ModelConfig:
     n_patches: int = 0            # vlm patch-prefix length (stub)
     vocab_pad: int = 256
     dtype: str = "bfloat16"
-    # Training-only fields, kept so configs compare field by field.
+    # Training: ``remat`` recomputes each layer in the backward (policy
+    # "full"); the others are kept so configs compare field by field.
     remat: bool = True
     remat_policy: str = "full"
     scan_layers: bool = True
@@ -165,6 +168,12 @@ def default_moe_impl(cfg: ModelConfig) -> Callable:
     return partial(moe_grouped, act=cfg.act, gmm_fn=ops.moe_expert_ffn)
 
 
+def train_moe_impl(cfg: ModelConfig) -> Callable:
+    """The kernel-backed MoE with the kernels' backward (``loss_fn``)."""
+    return partial(moe_grouped, act=cfg.act,
+                   gmm_fn=partial(ops.moe_expert_ffn, trainable=True))
+
+
 def block_apply(cfg: ModelConfig, btype: str, p, x, cache=None,
                 moe_impl: Optional[Callable] = None):
     """One residual block. Returns (x, new_cache)."""
@@ -197,8 +206,21 @@ def embed_inputs(cfg: ModelConfig, params, batch):
 
 def _run_stack(cfg: ModelConfig, params, x, caches=None, moe_impl=None):
     """Apply all layers in a Python loop. caches: list of per-layer dicts or
-    None."""
+    None.
+
+    With ``cfg.remat`` and autograd recording, each layer runs under
+    ``torch.utils.checkpoint``: only its input is kept, and the backward
+    recomputes the layer (JAX: ``jax.checkpoint`` around the scan body,
+    policy "full").
+    """
     btype = cfg.layer_types()[0]
+    if caches is None and cfg.remat and torch.is_grad_enabled():
+        for bp in params["blocks"]:
+            x = checkpoint(
+                lambda h, bp=bp: block_apply(cfg, btype, bp, h, None,
+                                             moe_impl)[0],
+                x, use_reentrant=False)
+        return x, None
     new_caches = []
     for i, bp in enumerate(params["blocks"]):
         x, nc = block_apply(cfg, btype, bp, x,
@@ -207,19 +229,70 @@ def _run_stack(cfg: ModelConfig, params, x, caches=None, moe_impl=None):
     return x, (None if caches is None else new_caches)
 
 
+def _unembedding(cfg: ModelConfig, params):
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
 def _final(cfg: ModelConfig, params, x):
     x = L.apply_norm(cfg.norm, x, params, "ln_f")
-    unembed = (params["embed"].T if cfg.tie_embeddings
-               else params["unembed"])
-    return x, unembed.to(x.dtype)
+    return x, _unembedding(cfg, params).to(x.dtype)
 
 
 def forward(cfg: ModelConfig, params, batch, moe_impl=None):
     """Full forward → logits [B, S, Vp]."""
+    x = final_hidden(cfg, params, batch, moe_impl)
+    return x @ _unembedding(cfg, params).to(x.dtype)
+
+
+def final_hidden(cfg: ModelConfig, params, batch, moe_impl=None):
+    """Forward to the final (pre-unembedding) hidden states."""
     x = embed_inputs(cfg, params, batch)
     x, _ = _run_stack(cfg, params, x, None, moe_impl)
-    x, unembed = _final(cfg, params, x)
-    return x @ unembed
+    return L.apply_norm(cfg.norm, x, params, "ln_f")
+
+
+def _ce_chunk(cfg: ModelConfig, x, labels, unembed):
+    """CE over one sequence chunk → (summed nll, token count), fp32; the
+    logits exist only inside this function."""
+    logits = (x @ unembed.to(x.dtype)).float()
+    if cfg.padded_vocab != cfg.vocab:
+        pad = torch.arange(cfg.padded_vocab, device=x.device) >= cfg.vocab
+        logits = torch.where(pad[None, None, :], -1e30, logits)
+    lse = torch.logsumexp(logits, dim=-1)
+    # Labels < 0 are masked; clamp them so the gather stays in range.
+    picked = torch.gather(logits, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return torch.sum((lse - picked) * mask), torch.sum(mask)
+
+
+def loss_fn(cfg: ModelConfig, params, batch, moe_impl=None,
+            ce_chunk: int = 512):
+    """Next-token cross entropy, fp32, vocab-pad masked.
+
+    The MoE defaults to :func:`train_moe_impl`. The unembedding and
+    logsumexp run in sequence chunks, each under ``checkpoint`` while
+    autograd records, so the full [B, S, V] logits never materialize.
+    """
+    x = final_hidden(cfg, params, batch, moe_impl or train_moe_impl(cfg))
+    labels = batch["labels"]
+    unembed = _unembedding(cfg, params)
+    B, S, _ = x.shape
+    n = max(1, S // max(1, min(ce_chunk, S)))
+    while S % n:
+        n -= 1
+    step = S // n
+    nll = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        x_c, l_c = x[:, i * step:(i + 1) * step], labels[:, i * step:
+                                                          (i + 1) * step]
+        if torch.is_grad_enabled():
+            nll_c, cnt_c = checkpoint(_ce_chunk, cfg, x_c, l_c, unembed,
+                                      use_reentrant=False)
+        else:
+            nll_c, cnt_c = _ce_chunk(cfg, x_c, l_c, unembed)
+        nll, cnt = nll + nll_c, cnt + cnt_c
+    return nll / torch.clamp(cnt, min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -59,8 +59,10 @@ def router_topk(p_router, x, mc: MoEConfig):
     """Top-k routing with renormalized softmax probs.
 
     x: [T, d] → (probs [T, k], idx [T, k]).  Padding experts are masked out.
+    The logits are fp32 whatever the router's dtype, as JAX's einsum promotes
+    a bf16 router (training casts every float leaf to bf16).
     """
-    logits = x.float() @ p_router
+    logits = x.float() @ p_router.float()
     if mc.n_padding_experts:
         pad_mask = torch.arange(mc.e_total, device=x.device) >= mc.n_experts
         logits = torch.where(pad_mask[None, :], -1e30, logits)

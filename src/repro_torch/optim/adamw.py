@@ -1,0 +1,160 @@
+"""AdamW with cosine schedule, global-norm clipping and grad accumulation —
+counterpart of ``repro.optim.adamw``.
+
+Parameter trees are nested dicts and lists of tensors (the port's params).
+State mirrors the JAX state: fp32 ``m``/``v`` moments and fp32 ``master``
+weights of the same tree, and an int ``step``.
+
+Unlike the pure JAX functions, :func:`apply_updates` works in place: it
+scales the grads, updates ``m``, ``v`` and ``master`` and copies the new
+masters into ``params``, one tensor at a time. At granite's 3.98 B parameters
+that keeps the temporaries to two fp32 copies of the largest tensor instead
+of new trees the size of the whole model.
+
+One difference in what is decayed: the JAX tree stacks the layers, so its
+``ndim >= 2`` test also decays the per-layer norm scales (``[L, d]``). The
+port keeps one tensor per layer, and decays matrices only, as that
+function's comment says.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    betas: tuple = (0.9, 0.95)
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_frac: float = 0.1
+
+
+def tree_leaves(tree) -> list:
+    """The tensors of a tree of dicts (in sorted-key order, as JAX flattens
+    them) and lists."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` and the matching leaves of
+    ``rest``, in :func:`tree_leaves` order, keeping the structure."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest))
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def schedule(oc: OptConfig, step: int) -> float:
+    """Learning rate at ``step``: linear warm-up, then cosine to
+    ``min_lr_frac``. Computed in fp32, as the JAX function is."""
+    f32 = torch.float32
+    s = torch.tensor(float(step), dtype=f32)
+    warm = s / max(1.0, oc.warmup_steps)
+    prog = (s - oc.warmup_steps) / max(1.0, oc.total_steps - oc.warmup_steps)
+    prog = torch.clamp(prog, 0.0, 1.0)
+    cos = oc.min_lr_frac + (1 - oc.min_lr_frac) * 0.5 * (
+        1 + torch.cos(torch.tensor(math.pi, dtype=f32) * prog))
+    return float(oc.lr * (warm if step < oc.warmup_steps else cos))
+
+
+def cast_params(params, dtype=torch.bfloat16):
+    """Compute-precision copy of the parameter tree (float leaves only)."""
+    return tree_map(lambda p: p.to(dtype) if p.is_floating_point() else p,
+                    params)
+
+
+def init_opt_state(params) -> dict:
+    """m/v moments + fp32 master weights (params at the step boundary are
+    the compute copies; masters only appear in the update math)."""
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    return {"m": tree_map(zeros, params),
+            "v": tree_map(zeros, params),
+            "master": tree_map(
+                lambda p: p.detach().to(torch.float32, copy=True), params),
+            "step": 0}
+
+
+def global_norm(tree):
+    """sqrt of the sum of the leaves' squares, in fp32 (a 0-d tensor)."""
+    leaves = tree_leaves(tree)
+    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    for g in leaves:
+        total = total + torch.sum(torch.square(g.float()))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def clip_by_global_norm(grads, max_norm: float):
+    """Scale ``grads`` in place so their global norm is at most
+    ``max_norm``; returns (grads, norm before clipping)."""
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    for g in tree_leaves(grads):
+        g.mul_(scale.to(g.dtype))
+    return grads, norm
+
+
+@torch.no_grad()
+def apply_updates(params, grads, state, oc: OptConfig):
+    """One AdamW step on the fp32 masters; refreshes the compute params.
+
+    Returns ``(params, state, metrics)``. ``params``, ``grads`` and the
+    tensors of ``state`` are updated in place (see the module docstring);
+    ``state["step"]`` is a new int. The JAX ``grad_transform`` hook comes
+    with the port's sharding slice.
+    """
+    grads, gnorm = clip_by_global_norm(grads, oc.clip_norm)
+    step = state["step"] + 1
+    lr = schedule(oc, step)
+    b1, b2 = oc.betas
+    bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** step)
+    bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** step)
+    for p, g, m, v, master in zip(
+            tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+            tree_leaves(state["v"]), tree_leaves(state["master"])):
+        g = g.float()
+        m.mul_(b1).add_(g, alpha=1 - b1)
+        v.mul_(b2).addcmul_(g, g, value=1 - b2)
+        delta = (m / bc1).div_((v / bc2).sqrt_().add_(oc.eps))
+        if master.dim() >= 2:         # decoupled weight decay on matrices
+            delta.add_(master, alpha=oc.weight_decay)
+        master.add_(delta, alpha=-lr)
+        p.copy_(master)
+    state["step"] = step
+    return params, state, {"grad_norm": gnorm, "lr": lr}
+
+
+def accumulate_grads(loss_and_grad_fn, params, microbatches):
+    """Microbatch gradient accumulation: the mean loss and the mean fp32
+    grads of ``loss_and_grad_fn(params, mb)``.
+
+    ``microbatches``: a tree of tensors with a leading [n_micro] dim; a
+    Python loop over it replaces the JAX scan.
+    """
+    n = tree_leaves(microbatches)[0].shape[0]
+    acc, total = None, 0.0
+    for i in range(n):
+        loss, grads = loss_and_grad_fn(
+            params, tree_map(lambda a, i=i: a[i], microbatches))
+        if acc is None:
+            acc = tree_map(lambda g: g.float(), grads)
+        else:
+            tree_map(lambda a, g: a.add_(g.float()), acc, grads)
+        total = total + loss
+    return total / n, tree_map(lambda g: g / n, acc)

@@ -1,0 +1,209 @@
+"""The port's GMM1 + SwiGLU backward and GMM2 gradient (plain versions on CPU
+tensors) vs the JAX Pallas backward in interpret mode and vs JAX autodiff,
+on the same numpy inputs."""
+
+import ctypes
+import re
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels import ref as jref  # noqa: E402
+from repro.kernels.gmm_swiglu_bwd import gmm_swiglu_bwd as jbwd  # noqa: E402
+from repro.models.moe import expert_ffn as jexpert_ffn  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
+from repro_torch.kernels import gmm_swiglu_bwd as bwd_mod  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+# tests/test_kernels.py:92 (the JAX backward's shapes), then ragged C = 27 and
+# C = 1 at granite's K = 1536 with narrow F (18, 40 are not multiples of the
+# kernel's 4-wide groups or 256-wide chunks).
+SHAPES = [(2, 128, 64, 128), (3, 64, 96, 64), (3, 27, 1536, 40),
+          (3, 1, 1536, 18)]
+
+
+def _inputs(seed, E, C, K, F):
+    rng = np.random.default_rng(seed)
+    scale = np.float32(0.1 if K <= 512 else K ** -0.5)
+    x = rng.standard_normal((E, C, K), dtype=np.float32)
+    w = rng.standard_normal((E, K, 2 * F), dtype=np.float32) * scale
+    dout = rng.standard_normal((E, C, F), dtype=np.float32)
+    return x, w, dout
+
+
+def _t(a, dtype="float32"):
+    return torch.from_numpy(np.ascontiguousarray(a)).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("E,C,K,F", SHAPES)
+def test_gmm_swiglu_bwd_matches_jax_kernel(E, C, K, F, dtype, tol):
+    """fp32 sums on both sides: 1e-4 is the JAX test's tolerance
+    (test_kernels.py:107-110); bf16 inputs, 2e-2."""
+    x, w, dout = _inputs(0, E, C, K, F)
+    jd = getattr(jnp, dtype)
+    w4 = w.reshape(E, K, 2, F)
+    jdx, jdw4 = jbwd(jnp.asarray(x, jd), jnp.asarray(w4, jd),
+                     jnp.asarray(dout, jd), interpret=True)
+    dx, dw4 = bwd_mod.gmm_swiglu_bwd(_t(x, dtype), _t(w4, dtype),
+                                     _t(dout, dtype))
+    assert dx.dtype == dw4.dtype == torch.float32
+    assert tuple(dw4.shape) == (E, K, 2, F)
+    np.testing.assert_allclose(dx.numpy(), np.asarray(jdx), rtol=tol,
+                               atol=tol)
+    np.testing.assert_allclose(dw4.numpy(), np.asarray(jdw4), rtol=tol,
+                               atol=tol)
+
+
+def test_gmm_swiglu_trainable_bf16_vs_fp32_oracle():
+    """Mirrors test_gmm_swiglu_vjp_bf16_vs_fp32_oracle: with its fp32 sums,
+    the port's bf16 backward is at least as accurate as the all-bf16 JAX
+    oracle path, against the fp32 oracle on the same bf16-rounded values."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((2, 64, 32), dtype=np.float32)
+    w = rng.standard_normal((2, 32, 128), dtype=np.float32) * np.float32(0.1)
+    dout = rng.standard_normal((2, 64, 64), dtype=np.float32)
+    xb, wb, db = (jnp.asarray(a, jnp.bfloat16) for a in (x, w, dout))
+    _, vjp32 = jax.vjp(jref.gmm_swiglu_ref, xb.astype(jnp.float32),
+                       wb.astype(jnp.float32))
+    dx32, dw32 = (np.asarray(a) for a in vjp32(db.astype(jnp.float32)))
+    _, vjp_bf = jax.vjp(jref.gmm_swiglu_ref, xb, wb)
+    dx_bf, dw_bf = (np.asarray(a, np.float32) for a in vjp_bf(db))
+
+    tx = _t(x, "bfloat16").requires_grad_(True)
+    tw = _t(w, "bfloat16").requires_grad_(True)
+    y = bwd_mod.gmm_swiglu_trainable(tx, tw)
+    y.backward(_t(dout, "bfloat16"))
+    assert tx.grad.dtype == tw.grad.dtype == torch.bfloat16
+    dx, dw = tx.grad.float().numpy(), tw.grad.float().numpy()
+
+    def err(a, b):
+        return float(np.max(np.abs(a - b)))
+
+    assert err(dx, dx32) <= err(dx_bf, dx32) + 0.05
+    assert err(dw, dw32) <= err(dw_bf, dw32) + 0.05
+    np.testing.assert_allclose(dx, dx32, rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("E,C,K,F", [(2, 16, 32, 24), (3, 27, 64, 40)])
+def test_gmm_swiglu_trainable_grads_match_autograd(E, C, K, F):
+    x, w, dout = _inputs(1, E, C, K, F)
+    got = [_t(x).requires_grad_(True), _t(w).requires_grad_(True)]
+    want = [_t(x).requires_grad_(True), _t(w).requires_grad_(True)]
+    y = bwd_mod.gmm_swiglu_trainable(*got)
+    y.backward(_t(dout))
+    y_ref = ref.gmm_swiglu_ref(*want)
+    y_ref.backward(_t(dout))
+    assert torch.equal(y.detach(), y_ref.detach())
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gmm_trainable_grads_match_autograd(dtype):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal((3, 27, 40), dtype=np.float32)
+    w = rng.standard_normal((3, 40, 24), dtype=np.float32) * np.float32(0.1)
+    dy = rng.standard_normal((3, 27, 24), dtype=np.float32)
+    got = [_t(a, dtype).requires_grad_(True) for a in (x, w)]
+    # fp32 autograd on the same (rounded) values
+    want = [_t(a, dtype).float().requires_grad_(True) for a in (x, w)]
+    gmm_mod.gmm_trainable(*got).backward(_t(dy, dtype))
+    torch.bmm(*want).backward(_t(dy, dtype).float())
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    for a, b in zip(got, want):
+        assert a.grad.dtype == a.dtype
+        torch.testing.assert_close(a.grad.float(), b.grad, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 5e-2)])
+def test_moe_expert_ffn_trainable_matches_jax_einsum_vjp(dtype, tol):
+    """JAX's kernel-backed ``moe_expert_ffn(trainable=True)`` cannot be
+    differentiated (its ``gmm`` has no VJP), so the reference is ``jax.vjp``
+    of the einsum ``expert_ffn`` that the JAX package trains through."""
+    rng = np.random.default_rng(3)
+    E, C, D, F = 4, 16, 64, 32
+    x = rng.standard_normal((E, C, D), dtype=np.float32)
+    w_in = rng.standard_normal((E, D, 2 * F), dtype=np.float32) * 0.1
+    w_down = rng.standard_normal((E, F, D), dtype=np.float32) * 0.1
+    dy = rng.standard_normal((E, C, D), dtype=np.float32)
+    jd = getattr(jnp, dtype)
+    y, vjp = jax.vjp(lambda a, b, c: jexpert_ffn(b, c, a, "swiglu"),
+                     *(jnp.asarray(a, jd) for a in (x, w_in, w_down)))
+    want = [np.asarray(g, np.float32) for g in vjp(jnp.asarray(dy, jd))]
+    leaves = [_t(a, dtype).requires_grad_(True) for a in (x, w_in, w_down)]
+    out = ops.moe_expert_ffn(*leaves, trainable=True)
+    out.backward(_t(dy, dtype))
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(y, np.float32), rtol=tol, atol=tol)
+    for leaf, g in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.float().numpy(), g, rtol=tol,
+                                   atol=tol)
+
+
+def test_cpu_backward_does_not_count_launches():
+    x, w, dout = _inputs(4, 2, 3, 16, 8)
+    bwd_mod.gmm_swiglu_bwd(_t(x), _t(w.reshape(2, 16, 2, 8)), _t(dout))
+    leaves = [_t(x).requires_grad_(True), _t(w).requires_grad_(True)]
+    ops.moe_expert_ffn(*leaves, torch.zeros(2, 8, 16),
+                       trainable=True).sum().backward()
+    assert bwd_mod.launches == gmm_mod.launches == 0
+
+
+def test_bwd_wrapper_rejects_bad_operands():
+    x, w4, dout = torch.zeros(2, 3, 8), torch.zeros(2, 8, 2, 4), \
+        torch.zeros(2, 3, 4)
+    with pytest.raises(ValueError):
+        bwd_mod.gmm_swiglu_bwd(x, torch.zeros(2, 8, 8), dout)   # not 4-d
+    with pytest.raises(ValueError):
+        bwd_mod.gmm_swiglu_bwd(x, torch.zeros(2, 7, 2, 4), dout)  # K
+    with pytest.raises(ValueError):
+        bwd_mod.gmm_swiglu_bwd(x, w4, torch.zeros(2, 3, 5))      # F
+    with pytest.raises(TypeError):
+        bwd_mod.gmm_swiglu_bwd(x, w4, dout.bfloat16())
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bwd_mod.gmm_swiglu_bwd(x.to("meta"), w4.to("meta"), dout.to("meta"))
+
+
+_CTYPE = {"void*": ctypes.c_void_p, "int": ctypes.c_int}
+
+
+@pytest.mark.parametrize("name", sorted(build.KERNELS))
+def test_build_argtypes_match_each_c_entry_point(name):
+    """Each kernel has its own C signature; the argtypes ``ctypes`` gets
+    must match the ``extern "C"`` prototype in its source."""
+    src, entry, argtypes = build.KERNELS[name]
+    text = (Path(build.CSRC) / src).read_text()
+    proto = re.search(r'extern "C" int ' + entry + r"\(([^)]*)\)", text)
+    assert proto, f"no extern \"C\" {entry} in {src}"
+    want = []
+    for arg in proto.group(1).split(","):
+        ctype = "void*" if "*" in arg else arg.split()[0]
+        want.append(_CTYPE[ctype])
+    assert list(argtypes) == want
+
+
+def test_c_args_follow_the_kernels_own_signature():
+    x, w, dout = (torch.zeros(2, 3, 8), torch.zeros(2, 8, 2, 4),
+                  torch.zeros(2, 3, 4))
+    dx, dw, dgu = torch.zeros(2, 3, 8), torch.zeros(2, 8, 2, 4), \
+        torch.zeros(2, 3, 8)
+    args = build.c_args("gmm_swiglu_bwd", (x, w, dout, dx, dw, dgu,
+                                           2, 3, 8, 4), torch.bfloat16)
+    assert args[:6] == [t.data_ptr() for t in (x, w, dout, dx, dw, dgu)]
+    assert args[6:] == [2, 3, 8, 4, 1]
+    with pytest.raises(TypeError):       # the forward kernels' 9 arguments
+        build.c_args("gmm_swiglu_bwd", (x, w, dout, 2, 3, 8, 4),
+                     torch.float32)
+    assert build.c_args("gmm", (x, w, dx, 2, 3, 8, 4), torch.float32)[-1] == 0

@@ -13,6 +13,7 @@ from repro.kernels.gmm import gmm as jgmm  # noqa: E402
 from repro.kernels.gmm_swiglu import gmm_swiglu as jgmm_swiglu  # noqa: E402
 from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu as swiglu_mod  # noqa: E402
+from repro_torch.kernels import gmm_swiglu_bwd as bwd_mod  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -118,20 +119,38 @@ def test_moe_expert_ffn_matches_jax(act, dtype):
     _close(got, want, dtype)
 
 
-def test_moe_expert_ffn_trainable_waits_for_training_slice():
-    x = torch.zeros(1, 2, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ops.moe_expert_ffn(x, torch.zeros(1, 8, 8), torch.zeros(1, 4, 8),
-                           trainable=True)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_moe_expert_ffn_trainable_gives_the_forward_and_grads(dtype):
+    """trainable=True is the same forward, and it is differentiable."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((4, 16, 64), dtype=np.float32))
+    w_in = torch.from_numpy(rng.standard_normal((4, 64, 64),
+                                                dtype=np.float32) * 0.1)
+    w_down = torch.from_numpy(rng.standard_normal((4, 32, 64),
+                                                  dtype=np.float32) * 0.1)
+    x = x.to(getattr(torch, dtype)).requires_grad_(True)
+    w_in.requires_grad_(True)
+    w_down.requires_grad_(True)
+    out = ops.moe_expert_ffn(x, w_in, w_down, trainable=True)
+    assert torch.equal(out, ops.moe_expert_ffn(x, w_in, w_down))
+    out.float().square().sum().backward()
+    for t in (x, w_in, w_down):
+        assert t.grad is not None and t.grad.dtype == t.dtype
+        assert bool(torch.isfinite(t.grad).all()) and t.grad.abs().sum() > 0
 
 
 def test_cpu_calls_do_not_count_launches():
-    before = (gmm_mod.launches, swiglu_mod.launches)
+    before = (gmm_mod.launches, swiglu_mod.launches, bwd_mod.launches)
     x, w = _inputs(4, (2, 3, 16), (2, 16, 8))
     ops.moe_expert_ffn(torch.from_numpy(x), torch.from_numpy(w),
                        torch.zeros(2, 4, 16))
     ops.grouped_gemm(torch.from_numpy(x), torch.from_numpy(w))
-    assert (gmm_mod.launches, swiglu_mod.launches) == before == (0, 0)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ops.moe_expert_ffn(tx, torch.from_numpy(w), torch.zeros(2, 4, 16),
+                       trainable=True).sum().backward()
+    assert tx.grad is not None
+    assert (gmm_mod.launches, swiglu_mod.launches,
+            bwd_mod.launches) == before == (0, 0, 0)
 
 
 @pytest.mark.parametrize("fn", [gmm_mod.gmm, swiglu_mod.gmm_swiglu])

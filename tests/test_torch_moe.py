@@ -58,6 +58,22 @@ def test_router_topk_matches():
     assert int(tidx.max()) < TMC.n_experts      # padding never chosen
 
 
+def test_router_topk_bf16_router_matches_jax():
+    """Training casts every float leaf to bf16, the router included; JAX's
+    einsum promotes it to fp32, and so must the port."""
+    jp, _ = _params()
+    router = np.asarray(jnp.asarray(jp["router"], jnp.bfloat16), np.float32)
+    x = _x((40, D), seed=7)
+    jprob, jidx = jmoe.router_topk(jnp.asarray(router, jnp.bfloat16),
+                                   jnp.asarray(x, jnp.bfloat16), JMC)
+    tprob, tidx = tmoe.router_topk(torch.from_numpy(router).bfloat16(),
+                                   torch.from_numpy(x).bfloat16(), TMC)
+    assert tprob.dtype == torch.float32
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    np.testing.assert_allclose(tprob.numpy(), np.asarray(jprob),
+                               rtol=1e-5, atol=1e-5)
+
+
 @pytest.mark.parametrize("C", [1, 3, 8, 40])
 def test_make_dispatch_matches(C):
     rng = np.random.default_rng(1)

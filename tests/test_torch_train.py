@@ -1,0 +1,307 @@
+"""The port's training slice vs the JAX package: AdamW, the synthetic data
+stream, the loss and its grads, and whole train steps on the granite-moe
+smoke config, with inputs and params made once and fed to both."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
+from repro.data import pipeline as jpipe  # noqa: E402
+from repro.models import model as JM  # noqa: E402
+from repro.optim import adamw as jadamw  # noqa: E402
+from repro_torch.configs import get_smoke_config as tget_smoke  # noqa: E402
+from repro_torch.convert import (opt_state_from_numpy,  # noqa: E402
+                                 train_params_from_numpy)
+from repro_torch.data import pipeline as tpipe  # noqa: E402
+from repro_torch.launch import steps as St  # noqa: E402
+from repro_torch.launch import train as ttrain  # noqa: E402
+from repro_torch.optim import adamw as tadamw  # noqa: E402
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+ARCH = "granite-moe-3b-a800m"
+KEY = jax.random.PRNGKey(0)
+
+
+def _np(tree):
+    return jax.tree.map(np.asarray, tree)
+
+
+def _close_trees(got, want_np, cfg, rtol, atol):
+    """Port tree vs a JAX tree (numpy leaves), leaf by leaf in fp32."""
+    want = train_params_from_numpy(want_np, dataclasses.replace(
+        cfg, dtype="float32"), "cpu")
+    g, w = tadamw.tree_leaves(got), tadamw.tree_leaves(want)
+    assert len(g) == len(w)
+    for a, b in zip(g, w):
+        np.testing.assert_allclose(a.detach().float().numpy(), b.numpy(),
+                                   rtol=rtol, atol=atol)
+
+
+# ---------------------------------------------------------------------------
+# AdamW
+# ---------------------------------------------------------------------------
+
+
+def _opt_tree(rng, dtype):
+    return {"w": rng.standard_normal((6, 8)).astype(dtype),
+            "scale": rng.standard_normal((8,)).astype(dtype),
+            "blocks": [{"u": rng.standard_normal((3, 4, 5)).astype(dtype)},
+                       {"u": rng.standard_normal((3, 4, 5)).astype(dtype)}]}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_apply_updates_three_steps_match_jax(dtype):
+    """Clipping active (norms > 1), warm-up then cosine, decay on the
+    matrices: masters, moments and params within 1e-6."""
+    rng = np.random.default_rng(0)
+    p0 = _opt_tree(rng, np.float32)
+    oc_kw = dict(lr=1e-2, warmup_steps=2, total_steps=10)
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jd), p0)
+    tp = tadamw.tree_map(lambda a: torch.from_numpy(a).to(td), p0)
+    js, ts = jadamw.init_opt_state(jp), tadamw.init_opt_state(tp)
+    for step in range(3):
+        g = jax.tree.map(lambda a: (a * 3).astype(np.float32),
+                         _opt_tree(rng, np.float32))
+        jp, js, jm = jadamw.apply_updates(
+            jp, jax.tree.map(lambda a: jnp.asarray(a, jd), g), js,
+            jadamw.OptConfig(**oc_kw))
+        tp, ts, tm = tadamw.apply_updates(
+            tp, tadamw.tree_map(lambda a: torch.from_numpy(a).to(td), g), ts,
+            tadamw.OptConfig(**oc_kw))
+        np.testing.assert_allclose(float(tm["grad_norm"]),
+                                   float(jm["grad_norm"]), rtol=1e-6)
+        assert tm["lr"] == pytest.approx(float(jm["lr"]), rel=1e-6)
+        assert ts["step"] == int(js["step"]) == step + 1
+        for name in ("m", "v", "master"):
+            for a, b in zip(tadamw.tree_leaves(ts[name]),
+                            jax.tree.leaves(js[name])):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b),
+                                           rtol=1e-6, atol=1e-6)
+        for a, b in zip(tadamw.tree_leaves(tp), jax.tree.leaves(jp)):
+            assert a.dtype == td
+            np.testing.assert_allclose(a.float().numpy(),
+                                       np.asarray(b, np.float32),
+                                       rtol=1e-6, atol=1e-6)
+
+
+def test_schedule_matches_jax():
+    oc = dict(lr=3e-4, warmup_steps=5, total_steps=40, min_lr_frac=0.1)
+    for step in (0, 1, 4, 5, 6, 20, 39, 40, 60):
+        want = float(jadamw.schedule(jadamw.OptConfig(**oc),
+                                     jnp.asarray(step, jnp.int32)))
+        assert tadamw.schedule(tadamw.OptConfig(**oc), step) == \
+            pytest.approx(want, rel=1e-6)
+
+
+def test_accumulate_grads_matches_jax():
+    rng = np.random.default_rng(1)
+    w = rng.standard_normal((5, 3)).astype(np.float32)
+    xs = rng.standard_normal((4, 6, 5)).astype(np.float32)
+
+    def jfn(p, mb):
+        return jax.value_and_grad(
+            lambda p: jnp.mean(jnp.square(mb["x"] @ p["w"])))(p)
+
+    def tfn(p, mb):
+        loss = torch.mean(torch.square(mb["x"] @ p["w"]))
+        return loss.detach(), {"w": torch.autograd.grad(loss, p["w"])[0]}
+
+    jl, jg = jadamw.accumulate_grads(jfn, {"w": jnp.asarray(w)},
+                                     {"x": jnp.asarray(xs)})
+    tl, tg = tadamw.accumulate_grads(
+        tfn, {"w": torch.from_numpy(w).requires_grad_(True)},
+        {"x": torch.from_numpy(xs)})
+    assert float(tl) == pytest.approx(float(jl), rel=1e-6)
+    np.testing.assert_allclose(tg["w"].numpy(), np.asarray(jg["w"]),
+                               rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# Data
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("vocab,seq,batch", [(128, 16, 4), (49155, 64, 2)])
+def test_synthetic_stream_is_bit_equal(vocab, seq, batch):
+    jd = jpipe.SyntheticStream(jpipe.DataConfig(vocab, seq, batch))
+    td = tpipe.SyntheticStream(tpipe.DataConfig(vocab, seq, batch))
+    for step in (0, 1, 7):
+        a, b = jd.global_batch_np(step), td.global_batch_np(step)
+        for k in ("tokens", "labels"):
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
+        t = td.batch(step, "cpu")
+        assert t["tokens"].dtype == torch.long
+        np.testing.assert_array_equal(t["labels"].numpy(), a["labels"])
+
+
+# ---------------------------------------------------------------------------
+# Loss and grads, train steps
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    """granite-moe smoke config in fp32, JAX params, and one batch with a
+    few masked labels (< 0)."""
+    jcfg = dataclasses.replace(jget_smoke(ARCH), dtype="float32")
+    tcfg = dataclasses.replace(tget_smoke(ARCH), dtype="float32")
+    jp = jadamw.cast_params(JM.init_params(jcfg, KEY), jnp.float32)
+    b = jpipe.SyntheticStream(jpipe.DataConfig(jcfg.vocab, 24, 2)) \
+        .global_batch_np(3)
+    b["labels"][0, :5] = -1
+    return jcfg, tcfg, jp, b
+
+
+@pytest.fixture(scope="module")
+def jax_loss_and_grads(smoke):
+    jcfg, _, jp, b = smoke
+    batch = {k: jnp.asarray(v) for k, v in b.items()}
+    loss, grads = jax.jit(jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, batch, ce_chunk=8)))(jp)
+    return float(loss), _np(grads)
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_loss_and_grads_match_jax(smoke, jax_loss_and_grads, remat):
+    """fp32; the port's MoE runs the kernels' plain versions with their
+    backward, JAX its einsum FFN. Three CE chunks of 8; remat=True runs
+    each layer under torch.utils.checkpoint and must change nothing."""
+    _, tcfg, jp, b = smoke
+    want_loss, want_grads = jax_loss_and_grads
+    cfg = dataclasses.replace(tcfg, remat=remat)
+    tp = train_params_from_numpy(_np(jp), cfg, "cpu")
+    batch = {k: torch.as_tensor(v, dtype=torch.long) for k, v in b.items()}
+    leaves = tadamw.tree_leaves(tp)
+    for p in leaves:
+        p.requires_grad_(True)
+    from repro_torch.models import model as TM
+    loss = TM.loss_fn(cfg, tp, batch, ce_chunk=8)
+    grads = torch.autograd.grad(loss, leaves)
+    assert float(loss.detach()) == pytest.approx(want_loss, rel=1e-5,
+                                                 abs=1e-5)
+    it = iter(grads)
+    _close_trees(tadamw.tree_map(lambda _: next(it), tp), want_grads, cfg,
+                 rtol=1e-4, atol=1e-4)
+
+
+def test_five_step_trajectory_matches_jax(smoke):
+    """test_train_integration._setup's step (value_and_grad + AdamW, no
+    decay), fp32, from the same params and AdamW state: losses and final
+    params within 1e-4."""
+    jcfg, tcfg, jp, _ = smoke
+    oc = dict(lr=3e-3, warmup_steps=5, total_steps=100, weight_decay=0.0)
+    joc = jadamw.OptConfig(**oc)
+    js = jadamw.init_opt_state(jp)
+
+    @jax.jit
+    def jstep(params, opt_state, batch):
+        loss, grads = jax.value_and_grad(
+            lambda p: JM.loss_fn(jcfg, p, batch))(params)
+        p2, s2, m = jadamw.apply_updates(params, grads, opt_state, joc)
+        m["loss"] = loss
+        return p2, s2, m
+
+    tp = train_params_from_numpy(_np(jp), tcfg, "cpu")
+    ts = opt_state_from_numpy(_np(js), tcfg, "cpu")
+    tstep = St.make_train_step(tcfg, tadamw.OptConfig(**oc))
+    stream = tpipe.SyntheticStream(tpipe.DataConfig(tcfg.vocab, 16, 4))
+    for i in range(5):
+        b = stream.global_batch_np(i)
+        jp, js, jm = jstep(jp, js, {k: jnp.asarray(v) for k, v in b.items()})
+        tp, ts, tm = tstep(tp, ts, stream.batch(i, "cpu"))
+        assert float(tm["loss"]) == pytest.approx(float(jm["loss"]),
+                                                  rel=1e-4, abs=1e-4)
+    _close_trees(tp, _np(jp), tcfg, rtol=1e-4, atol=1e-4)
+    _close_trees(ts["master"], _np(js["master"]), tcfg, rtol=1e-4, atol=1e-4)
+
+
+def test_twenty_steps_loss_falls():
+    """bf16 smoke config, the launcher's params, 4 batches in turn."""
+    cfg = tget_smoke(ARCH)
+    from repro_torch.models import model as TM
+    params = tadamw.cast_params(
+        TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"),
+        cfg.compute_dtype)
+    state = tadamw.init_opt_state(params)
+    step = St.make_train_step(cfg, tadamw.OptConfig(
+        lr=3e-3, warmup_steps=5, total_steps=100, weight_decay=0.0))
+    stream = tpipe.SyntheticStream(tpipe.DataConfig(cfg.vocab, 32, 8))
+    losses = []
+    for i in range(20):
+        params, state, m = step(params, state, stream.batch(i % 4, "cpu"))
+        losses.append(float(m["loss"]))
+        assert np.isfinite(float(m["grad_norm"]))
+    assert all(p.dtype == torch.bfloat16
+               for p in tadamw.tree_leaves(params))
+    assert losses[-1] < losses[0] - 0.5, losses[::4]
+
+
+def test_accum_steps_average_the_microbatches(smoke):
+    _, tcfg, jp, b = smoke
+    batch = {k: torch.as_tensor(v, dtype=torch.long) for k, v in b.items()}
+    halves = [{k: v[i:i + 1] for k, v in batch.items()} for i in (0, 1)]
+    want = [float(St.value_and_grad(
+        tcfg, train_params_from_numpy(_np(jp), tcfg, "cpu"), h)[0])
+        for h in halves]
+    tp = train_params_from_numpy(_np(jp), tcfg, "cpu")
+    step = St.make_train_step(tcfg, accum_steps=2)
+    _, state, m = step(tp, tadamw.init_opt_state(tp), batch)
+    assert float(m["loss"]) == pytest.approx(np.mean(want), rel=1e-6)
+    assert state["step"] == 1
+
+
+def test_later_slices_raise():
+    cfg = tget_smoke(ARCH)
+    for kw in ("mesh", "ep", "dropless", "grad_transform"):
+        with pytest.raises(NotImplementedError, match="slice"):
+            St.make_train_step(cfg, **{kw: object()})
+    with pytest.raises(TypeError):
+        St.make_train_step(cfg, sharding=object())
+
+
+def test_train_main_on_cpu():
+    run = ttrain.main(["--smoke", "--device", "cpu", "--steps", "3",
+                       "--seq", "16", "--global-batch", "2"])
+    assert [m["step"] for m in run.metrics_log] == [0, 1, 2]
+    assert all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+               and m["step_ms"] > 0 for m in run.metrics_log)
+    assert run.opt_state["step"] == 3
+
+
+def test_train_main_needs_cuda_unless_asked_for_cpu(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--smoke", "--steps", "1"])
+    for flag in (["--mesh", "2x4"], ["--dropless"], ["--sched", "auto"],
+                 ["--mode", "ep_dp"], ["--ckpt-dir", "ck"]):
+        with pytest.raises(SystemExit):
+            ttrain.main(["--smoke", "--device", "cpu", *flag])
+        assert "slice" in capsys.readouterr().err
+
+
+def test_training_conversions_cast_like_cast_params(smoke):
+    _, tcfg, jp, _ = smoke
+    bf = train_params_from_numpy(_np(jp), dataclasses.replace(
+        tcfg, dtype="bfloat16"), "cpu")
+    assert all(t.dtype == torch.bfloat16 for t in tadamw.tree_leaves(bf))
+    np.testing.assert_array_equal(
+        bf["blocks"][1]["moe"]["router"].float().numpy(),
+        np.asarray(jp["blocks"]["moe"]["router"][1].astype(jnp.bfloat16),
+                   np.float32))
+    st = opt_state_from_numpy(_np(jadamw.init_opt_state(jp)), tcfg, "cpu")
+    assert st["step"] == 0 and len(st["m"]["blocks"]) == tcfg.n_layers
+    assert all(t.dtype == torch.float32
+               for k in ("m", "v", "master")
+               for t in tadamw.tree_leaves(st[k]))
