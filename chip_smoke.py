@@ -5,8 +5,16 @@
 Phases, each printing one JSON line:
 
 1. device — the card's name and power limit (``nvidia-smi``);
-2. build — the three CUDA kernels compiled for ``sm_90a`` from
+2. build — the four CUDA libraries compiled for ``sm_90a`` from
    ``src/repro_torch``, one ``nvcc`` each, in parallel;
+2b. swiglu_add — the §6.1 SwiGLU + Add path: both modes against their plain
+   versions at M in {256, 1000, 4096, 32768} and F in {2048, 36} (ragged
+   rows, an unaligned row width), bf16 and fp32; then
+   ``launch.bench_swiglu_add.main`` on the card: the port's simulator rows
+   (a prediction of the Ascend A3 model, printed as a line of their own)
+   and both modes checked and timed at the paper's h [M, 4096],
+   y [M, 2048], M in {8192, 16384, 32768}, beside the H100 bytes bound.
+   Launches: 2 per serial call, 1 per interleaved call;
 3. kernel checks — each kernel against its plain PyTorch version on the card,
    at the serving path's shapes (granite-moe-3b-a800m: 48 experts, C = 1 and
    2 in decode, 27 in a 128-token prefill), at the training shape (C = 854:
@@ -60,8 +68,10 @@ from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu as swiglu_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu_bwd as bwd_mod  # noqa: E402
+from repro_torch.kernels import swiglu_add as swa_mod  # noqa: E402
 from repro_torch.kernels.ref import (gmm_ref, gmm_swiglu_bwd_ref,  # noqa
                                      gmm_swiglu_ref, moe_ffn_ref)
+from repro_torch.launch import bench_swiglu_add as bench_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
@@ -86,7 +96,12 @@ TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 1, 4096, 4
 # loss within LOSS_TOL relative, each grad leaf's norm within GNORM_TOL.
 PARITY_LAYERS, LOSS_TOL, GNORM_TOL = 2, 1e-2, 5e-2
 # Launches per layer per training step, with per-layer remat.
-TRAIN_LAUNCHES = {"gmm_swiglu": 2, "gmm": 4, "gmm_swiglu_bwd": 1}
+TRAIN_LAUNCHES = {"gmm_swiglu": 2, "gmm": 4, "gmm_swiglu_bwd": 1,
+                  "swiglu_add_serial": 0, "swiglu_add_interleaved": 0}
+# swiglu_add checks beyond the benchmark's sizes: M = 1000 is ragged,
+# F = 36 not a multiple of the 16-byte vectors (8 bf16 or 4 fp32).
+SWIGLU_ADD_CHECKS = [(M, F) for M in (256, 1000, 4096, 32768)
+                     for F in (2048, 36)]
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -100,18 +115,29 @@ KERNELS = {
         fn=bwd_mod.gmm_swiglu_bwd, plain=gmm_swiglu_bwd_ref,
         source="src/repro_torch/kernels/csrc/gmm_swiglu_bwd.cu",
         replaces="src/repro/kernels/gmm_swiglu_bwd.py:91"),
+    "swiglu_add_serial": dict(
+        source="src/repro_torch/kernels/csrc/swiglu_add.cu",
+        replaces="src/repro/kernels/swiglu_add.py:47"),
+    "swiglu_add_interleaved": dict(
+        source="src/repro_torch/kernels/csrc/swiglu_add.cu",
+        replaces="src/repro/kernels/swiglu_add.py:73"),
 }
-COUNTERS = {"gmm_swiglu": swiglu_mod, "gmm": gmm_mod,
-            "gmm_swiglu_bwd": bwd_mod}
+# Each entry point's launch counter: (module, attribute).
+COUNTERS = {"gmm_swiglu": (swiglu_mod, "launches"),
+            "gmm": (gmm_mod, "launches"),
+            "gmm_swiglu_bwd": (bwd_mod, "launches"),
+            "swiglu_add_serial": (swa_mod, "launches_serial"),
+            "swiglu_add_interleaved": (swa_mod, "launches_interleaved")}
 
 
 def reset_launches() -> None:
-    for mod in COUNTERS.values():
-        mod.launches = 0
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
 
 
 def read_launches() -> dict:
-    return {name: mod.launches for name, mod in COUNTERS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in
+            COUNTERS.items()}
 
 
 def emit(obj) -> None:
@@ -301,6 +327,38 @@ def check_kernels(cfg):
                   "train": c_train}
 
 
+def run_swiglu_add():
+    """Phase 2b: the §6.1 SwiGLU + Add path. Returns the check rows, the
+    benchmark's result and its launch counts."""
+    checks = []
+    for dname, dtype in bench_mod.DTYPES.items():
+        for M, F in SWIGLU_ADD_CHECKS:
+            h, y = bench_mod.inputs(M, F, dtype, "cuda", seed=M + F)
+            for mode in bench_mod.MODES:
+                checks.append({"kernel": f"swiglu_add_{mode}", "M": M,
+                               "F": F, "dtype": dname,
+                               "max_abs_err": bench_mod.check(mode, h, y),
+                               "tol": bench_mod.TOL[dtype]})
+            del h, y
+    torch.cuda.synchronize()
+    reset_launches()
+    out = bench_mod.main(["--device", "cuda"])
+    launches = read_launches()
+    want = {k: 0 for k in COUNTERS}
+    want.update(swiglu_add_serial=2 * out["calls"]["serial"],
+                swiglu_add_interleaved=out["calls"]["interleaved"])
+    if launches != want:
+        raise AssertionError(f"swiglu_add launch counts {launches} != "
+                             f"{want}: 2 per serial, 1 per interleaved call")
+    rows = out["kernels"]
+    if not all(math.isfinite(r["ms"]) and math.isfinite(r["plain_ms"])
+               for r in rows):
+        raise AssertionError(f"non-finite swiglu_add time: {rows}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return checks, out, launches
+
+
 def plain_moe_impl(cfg):
     """The MoE block with the expert FFN's plain version (check only)."""
     def ffn(x, w_in, w_down, act):
@@ -350,8 +408,7 @@ def run_slice(cfg):
     if stats["nonfinite_steps"]:
         raise AssertionError(f"{stats['nonfinite_steps']} steps had "
                              f"non-finite logits")
-    if (launches["gmm_swiglu"], launches["gmm"],
-            launches["gmm_swiglu_bwd"]) != (want, want, 0):
+    if launches != dict({k: 0 for k in COUNTERS}, gmm_swiglu=want, gmm=want):
         raise AssertionError(f"launch counts {launches} != {want} = "
                              f"{cfg.n_layers} x (prefills + decode steps)")
     out = {"phase": "slice", "arch": cfg.name, "dtype": cfg.dtype,
@@ -464,6 +521,26 @@ def run_train(cfg, rows):
     return out, launches
 
 
+def swiglu_add_entry(name, spec, checks, bench_out, by_path):
+    """The ``kernels`` line's entry of a swiglu_add mode: timed at the
+    paper's largest size in bf16 (M = 32768), with every size beside it."""
+    mode = name.removeprefix("swiglu_add_")
+    mine = [r for r in bench_out["kernels"] if r["mode"] == mode]
+    r = next(r for r in mine if r["M"] == 32768 and r["dtype"] == "bfloat16")
+    worst = max([x["max_abs_err"] for x in checks if x["kernel"] == name]
+                + [x["max_abs_err"] for x in mine])
+    return {"name": name, "route": "cuda", "source": spec["source"],
+            "replaces": spec["replaces"],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": worst, "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "shape": {"M": r["M"], "F": r["F"], "dtype": r["dtype"]},
+            "paper_sizes": [{k: x[k] for k in ("M", "dtype", "ms",
+                                                "plain_ms", "bound_ms")}
+                            for x in mine]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -483,6 +560,14 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t,
           "libraries": {k: os.path.basename(v) for k, v in libs.items()}})
 
+    swa_checks, bench_out, swa_launches = run_swiglu_add()
+    emit({"phase": "swiglu_add_sim",
+          "note": "a prediction of the Ascend A3 model, not a measurement",
+          "rows": bench_out["sim"]})
+    emit({"phase": "swiglu_add", "checks": swa_checks,
+          "bench_rows": bench_out["kernels"], "calls": bench_out["calls"],
+          "launches": swa_launches})
+
     cfg = get_config(ARCH)
     rows, caps = check_kernels(cfg)
     emit({"phase": "kernel_checks", "capacities": caps, "rows": rows})
@@ -496,6 +581,13 @@ def main() -> int:
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, spec in KERNELS.items():
+        by_path = {"serving": serve_launches[name],
+                   "training": train_launches[name],
+                   "swiglu_add_bench": swa_launches[name]}
+        if name.startswith("swiglu_add"):
+            kernels.append(swiglu_add_entry(name, spec, swa_checks,
+                                            bench_out, by_path))
+            continue
         # The headline shape: for the forward kernels a decode step of the
         # 8-slot batch, the call the serving path makes most often; for the
         # backward the training shape, its only one.
@@ -508,9 +600,7 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": spec["source"],
             "replaces": spec["replaces"],
-            "launches": serve_launches[name] + train_launches[name],
-            "launches_by_path": {"serving": serve_launches[name],
-                                 "training": train_launches[name]},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": worst, **{k: r[k] for k in timing},
             "shape": {k: r[k] for k in ("E", "C", "K", "N", "dtype")},
             "train_shape": {k: t[k] for k in ("C", "K", "N", *timing)}})

@@ -1,10 +1,11 @@
 """Build the CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
 Each source in ``csrc/`` becomes one shared library with a plain C
-interface, compiled for Hopper (``sm_90a``) into ``build/repro_torch/`` at the
-repository root. A library's file name carries a hash of its sources and
-flags, so an edited source is rebuilt and an unchanged one is reused. All
-missing libraries are compiled in parallel, one ``nvcc`` each.
+interface (one or more entry points), compiled for Hopper (``sm_90a``) into
+``build/repro_torch/`` at the repository root. A library's file name
+carries a hash of its sources and flags, so an edited source is rebuilt
+and an unchanged one is reused. All missing libraries are compiled in
+parallel, one ``nvcc`` each.
 
 Building happens at the first launch (or through :func:`build_all`), never at
 import: the CPU tests import every module on machines without ``nvcc``.
@@ -41,6 +42,12 @@ KERNELS = {
     # (x, w_in, dout, dx, dw, dgu, E, C, K, F, dtype, stream)
     "gmm_swiglu_bwd": ("gmm_swiglu_bwd.cu", "gmm_swiglu_bwd_launch",
                        (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # The three passes of swiglu_add.cu, one library. (h, g, M, F, dtype,
+    # stream); (g, y, out, M, F, dtype, stream); (h, y, out, M, F, ...).
+    "swiglu": ("swiglu_add.cu", "swiglu_launch", (_P, _P, _I, _I, _I, _P)),
+    "add": ("swiglu_add.cu", "add_launch", (_P, _P, _P, _I, _I, _I, _P)),
+    "swiglu_add": ("swiglu_add.cu", "swiglu_add_launch",
+                   (_P, _P, _P, _I, _I, _I, _P)),
 }
 DTYPE_CODES = {"float32": 0, "bfloat16": 1}
 
@@ -58,46 +65,47 @@ def _nvcc() -> str:
                        "CUDA toolkit on the machine that has the card")
 
 
-def lib_path(name: str) -> Path:
-    """Where kernel ``name``'s library lives for the current sources."""
-    src = KERNELS[name][0]
+def lib_path(src: str) -> Path:
+    """Where source ``src``'s library lives for the current sources."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in (src, *HEADERS):
         h.update((CSRC / f).read_bytes())
-    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names=None) -> dict[str, Path]:
-    """Compile every kernel library that is missing, in parallel.
+    """Compile every library of the named kernels (all by default) that is
+    missing, in parallel, one per source.
 
-    Returns ``{name: library path}``; raises with the compiler's output if a
-    build fails. The compiler's report (registers, spills) is kept beside
+    Returns ``{source: library path}``; raises with the compiler's output if
+    a build fails. The compiler's report (registers, spills) is kept beside
     each library as ``<library>.log``.
     """
-    names = list(KERNELS if names is None else names)
-    paths = {n: lib_path(n) for n in names}
-    todo = [n for n in names if not paths[n].exists()]
+    srcs = list(dict.fromkeys(
+        KERNELS[n][0] for n in (KERNELS if names is None else names)))
+    paths = {s: lib_path(s) for s in srcs}
+    todo = [s for s in srcs if not paths[s].exists()]
     if not todo:
         return paths
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
-    for n in todo:
+    for src in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / KERNELS[n][0])]
-        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True))
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / src)]
+        procs[src] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True))
     failed = []
-    for n, (tmp, proc) in procs.items():
+    for src, (tmp, proc) in procs.items():
         out, _ = proc.communicate()
-        paths[n].with_name(paths[n].name + ".log").write_text(out)
+        paths[src].with_name(paths[src].name + ".log").write_text(out)
         if proc.returncode != 0:
             os.unlink(tmp)
-            failed.append(f"{n}: nvcc exited {proc.returncode}\n{out}")
+            failed.append(f"{src}: nvcc exited {proc.returncode}\n{out}")
         else:
-            os.replace(tmp, paths[n])
+            os.replace(tmp, paths[src])
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return paths
@@ -105,14 +113,13 @@ def build_all(names=None) -> dict[str, Path]:
 
 def load(name: str):
     """The C entry point of kernel ``name``, building its library if needed."""
-    if name not in _loaded:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
-        _, entry, argtypes = KERNELS[name]
-        fn = getattr(lib, entry)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        _loaded[name] = lib
-    return getattr(_loaded[name], KERNELS[name][1])
+    src, entry, argtypes = KERNELS[name]
+    if src not in _loaded:
+        _loaded[src] = ctypes.CDLL(str(build_all([name])[src]))
+    fn = getattr(_loaded[src], entry)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def c_args(name: str, args, dtype) -> list:

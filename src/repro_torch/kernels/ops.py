@@ -11,6 +11,7 @@ from __future__ import annotations
 from .gmm import gmm, gmm_trainable
 from .gmm_swiglu import gmm_swiglu
 from .gmm_swiglu_bwd import gmm_swiglu_trainable
+from .swiglu_add import swiglu_add_interleaved, swiglu_add_serial
 
 
 def grouped_gemm(x, w):
@@ -39,3 +40,13 @@ def moe_expert_ffn(x, w_in, w_down, act: str = "swiglu", *,
     if trainable:
         return gmm_trainable(gmm_swiglu_trainable(x, w_in), w_down)
     return grouped_gemm(fused_gmm_swiglu(x, w_in), w_down)
+
+
+def swiglu_add(h, y, *, mode: str = "interleaved"):
+    """SwiGLU + Add, [M, 2F], [M, F] → [M, F]: ``mode="interleaved"`` (one
+    pass) or ``"serial"`` (two kernels through device memory)."""
+    if mode == "interleaved":
+        return swiglu_add_interleaved(h, y)
+    if mode == "serial":
+        return swiglu_add_serial(h, y)
+    raise ValueError(f"mode must be 'interleaved' or 'serial', not {mode!r}")

@@ -2,9 +2,9 @@
 
 They follow the *kernels'* numerics, which are those of the Pallas kernels
 (``repro/kernels/gmm.py``, ``repro/kernels/gmm_swiglu.py``,
-``repro/kernels/gmm_swiglu_bwd.py``): products summed
-in fp32, SwiGLU applied to the fp32 accumulators, one cast to x's dtype at the
-end. ``repro.kernels.ref.gmm_swiglu_ref`` differs in bf16: its einsum rounds
+``repro/kernels/gmm_swiglu_bwd.py``, ``repro/kernels/swiglu_add.py``):
+products summed in fp32, SwiGLU applied in fp32, one cast to x's dtype at
+the end (and, in serial SwiGLU + Add, one more between the two steps). ``repro.kernels.ref.gmm_swiglu_ref`` differs in bf16: its einsum rounds
 the gate/up product ``h`` to bf16 before the SwiGLU. The port follows the
 kernel, so in fp32 the two agree and in bf16 they differ by that one rounding.
 
@@ -52,6 +52,29 @@ def gmm_swiglu_bwd_ref(x, w4, dout):
     xt = xf.transpose(1, 2)
     dw4 = torch.stack([torch.bmm(xt, dg), torch.bmm(xt, du)], dim=2)
     return dx, dw4
+
+
+def swiglu_ref(h):
+    """h: [M, 2F] → silu(h[:, :F]) · h[:, F:] in fp32, stored in h's dtype."""
+    f = h.shape[-1] // 2
+    a = h[..., :f].float()
+    return (a * torch.sigmoid(a) * h[..., f:].float()).to(h.dtype)
+
+
+def swiglu_add_ref(h, y):
+    """Interleaved SwiGLU + Add: [M, 2F], [M, F] → [M, F], all in fp32 and
+    rounded once to h's dtype (``_swiglu_add_kernel``)."""
+    f = h.shape[-1] // 2
+    a = h[..., :f].float()
+    g = a * torch.sigmoid(a) * h[..., f:].float()
+    return (g + y.float()).to(h.dtype)
+
+
+def swiglu_add_serial_ref(h, y):
+    """Serial SwiGLU then Add: g is rounded to h's dtype between the two
+    steps, as the two Pallas calls store it (``_swiglu_kernel``, then
+    ``_add_kernel``)."""
+    return (swiglu_ref(h).float() + y.float()).to(h.dtype)
 
 
 def moe_ffn_ref(x, w_in, w_down):

@@ -11,10 +11,13 @@ masters into ``params``, one tensor at a time. At granite's 3.98 B parameters
 that keeps the temporaries to two fp32 copies of the largest tensor instead
 of new trees the size of the whole model.
 
-One difference in what is decayed: the JAX tree stacks the layers, so its
-``ndim >= 2`` test also decays the per-layer norm scales (``[L, d]``). The
-port keeps one tensor per layer, and decays matrices only, as that
-function's comment says.
+Weight decay follows the reference's result: JAX decays the leaves with
+``ndim >= 2``, and its tree stacks the layers to ``[L, ...]``, so every
+per-layer leaf is decayed, the norm scales (``[L, d]``) too. The port keeps
+one tensor per layer (``params["blocks"]`` is a list), so it decays each leaf
+whose JAX counterpart has ``ndim >= 2`` (:func:`decay_flags`): every matrix,
+and every per-layer leaf of at least one dimension. A top-level 1-d leaf,
+such as the final norm scale, is not decayed.
 """
 
 from __future__ import annotations
@@ -110,6 +113,15 @@ def clip_by_global_norm(grads, max_norm: float):
     return grads, norm
 
 
+def decay_flags(params) -> list:
+    """Per leaf of ``params``, in :func:`tree_leaves` order: whether AdamW
+    decays it, i.e. whether its JAX counterpart has ``ndim >= 2``. Leaves
+    under ``params["blocks"]`` count one more dimension, the layer axis the
+    JAX tree stacks them on."""
+    return [t.dim() + (k == "blocks") >= 2
+            for k in sorted(params) for t in tree_leaves(params[k])]
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state, oc: OptConfig):
     """One AdamW step on the fp32 masters; refreshes the compute params.
@@ -125,14 +137,15 @@ def apply_updates(params, grads, state, oc: OptConfig):
     b1, b2 = oc.betas
     bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** step)
     bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** step)
-    for p, g, m, v, master in zip(
+    for p, g, m, v, master, decay in zip(
             tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
-            tree_leaves(state["v"]), tree_leaves(state["master"])):
+            tree_leaves(state["v"]), tree_leaves(state["master"]),
+            decay_flags(params)):
         g = g.float()
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
         delta = (m / bc1).div_((v / bc2).sqrt_().add_(oc.eps))
-        if master.dim() >= 2:         # decoupled weight decay on matrices
+        if decay:                     # decoupled weight decay
             delta.add_(master, alpha=oc.weight_decay)
         master.add_(delta, alpha=-lr)
         p.copy_(master)

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither JAX nor the JAX package, and its
 entry points refuse to run on the CPU unless asked to."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -36,6 +37,58 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_modules = int(proc.stdout.split()[0])
     assert n_modules >= 15           # every package and module was imported
+
+
+FORBIDDEN = ("jax", "jaxlib", "repro", "triton", "msgpack")
+
+
+def _imported_roots(tree):
+    """(line, top-level package) of every import anywhere in ``tree``:
+    module level or inside a function, ``import`` and ``from`` forms, and
+    ``importlib.import_module``/``__import__`` of a constant name."""
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield node.lineno, a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+        elif (isinstance(node, ast.Call) and node.args
+              and isinstance(node.args[0], ast.Constant)
+              and isinstance(node.args[0].value, str)
+              and ((isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "import_module")
+                   or (isinstance(node.func, ast.Name)
+                       and node.func.id == "__import__"))):
+            yield node.lineno, node.args[0].value.split(".")[0]
+
+
+def test_no_forbidden_import_anywhere_in_the_source():
+    """A static check of what the subprocess probe cannot see: imports in
+    function bodies that an import alone never runs. Nothing of the port
+    or ``chip_smoke.py`` may import JAX, the JAX package, Triton (absent
+    where the CPU tests run) or msgpack (absent on the card's machine)."""
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    bad = [f"{f.relative_to(REPO)}:{line}: {root}"
+           for f in files
+           for line, root in _imported_roots(ast.parse(f.read_text()))
+           if root in FORBIDDEN]
+    assert len(files) >= 30
+    assert not bad, bad
+
+
+def test_static_check_sees_lazy_imports():
+    """The check finds a lazy import inside a function, as the copied
+    compiler's ``int8_wire_bytes`` imports were in the reference."""
+    src = ("def f():\n"
+           "    from repro.parallel.compression import int8_wire_bytes\n"
+           "    import triton.language as tl\n"
+           "    return importlib.import_module('jax.numpy')\n")
+    assert [r for _, r in _imported_roots(ast.parse(src))] == [
+        "repro", "triton", "jax"]
+    assert [r for _, r in _imported_roots(ast.parse(
+        "from .compression import x\nimport repro_torch.core\n"))] == [
+        "repro_torch"]
 
 
 def _require_no_cuda():

@@ -195,12 +195,19 @@ def test_loss_and_grads_match_jax(smoke, jax_loss_and_grads, remat):
                  rtol=1e-4, atol=1e-4)
 
 
-def test_five_step_trajectory_matches_jax(smoke):
-    """test_train_integration._setup's step (value_and_grad + AdamW, no
-    decay), fp32, from the same params and AdamW state: losses and final
-    params within 1e-4."""
+def _five_step_trajectory(smoke, weight_decay, norm_scale=None):
+    """test_train_integration._setup's step (value_and_grad + AdamW), fp32,
+    from the same params and AdamW state: losses and final params within
+    1e-4. ``norm_scale`` sets every norm scale (per-layer and final)."""
     jcfg, tcfg, jp, _ = smoke
-    oc = dict(lr=3e-3, warmup_steps=5, total_steps=100, weight_decay=0.0)
+    if norm_scale is not None:
+        blocks = dict(jp["blocks"])
+        for k in ("ln1", "ln2"):
+            blocks[k] = jnp.full_like(blocks[k], norm_scale)
+        jp = dict(jp, blocks=blocks,
+                  ln_f=jnp.full_like(jp["ln_f"], norm_scale))
+    oc = dict(lr=3e-3, warmup_steps=5, total_steps=100,
+              weight_decay=weight_decay)
     joc = jadamw.OptConfig(**oc)
     js = jadamw.init_opt_state(jp)
 
@@ -224,6 +231,20 @@ def test_five_step_trajectory_matches_jax(smoke):
                                                   rel=1e-4, abs=1e-4)
     _close_trees(tp, _np(jp), tcfg, rtol=1e-4, atol=1e-4)
     _close_trees(ts["master"], _np(js["master"]), tcfg, rtol=1e-4, atol=1e-4)
+
+
+def test_five_step_trajectory_matches_jax(smoke):
+    """No decay."""
+    _five_step_trajectory(smoke, 0.0)
+
+
+def test_five_step_trajectory_matches_jax_with_weight_decay(smoke):
+    """The default decay of 0.1: JAX decays every leaf of its stacked
+    blocks, the per-layer norm scales [L, d] too, but not the final norm
+    scale [d], and the port must follow. The smoke model's norm scales
+    start at 0, where decay does nothing, so here they start at 1: five
+    steps then decay them by about 9e-4, well outside 1e-4."""
+    _five_step_trajectory(smoke, 0.1, norm_scale=1.0)
 
 
 def test_twenty_steps_loss_falls():
