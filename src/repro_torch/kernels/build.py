@@ -23,9 +23,14 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-HEADERS = ("gmm_common.cuh",)
+HEADERS = ("gmm_common.cuh", "gmm_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# The tensor-core GEMMs encode their TMA tensor maps with the driver API's
+# cuTensorMapEncodeTiled: every library links the toolkit's stub libcuda
+# (see _link_dirs), after its source; at run time the driver's own
+# libcuda.so.1 is loaded.
+LIBS = ("-lcuda",)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,8 +39,9 @@ _I = ctypes.c_int
 # takes its tensors' pointers, then its ints, then the dtype code and the
 # stream, and returns a cudaError_t.
 KERNELS = {
-    # (x, w, y, E, C, K, N, dtype, stream)
-    "gmm": ("gmm.cu", "gmm_launch", (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    # (x, w, y, E, C, K, N, a_layout, b_layout, dtype, stream)
+    "gmm": ("gmm.cu", "gmm_launch",
+            (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
     # (x, w_in, y, E, C, K, F, dtype, stream)
     "gmm_swiglu": ("gmm_swiglu.cu", "gmm_swiglu_launch",
                    (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
@@ -65,9 +71,17 @@ def _nvcc() -> str:
                        "CUDA toolkit on the machine that has the card")
 
 
+def _link_dirs(nvcc: str) -> list[str]:
+    """``-L`` flags for the toolkit's stub ``libcuda.so`` beside ``nvcc``."""
+    root = Path(nvcc).resolve().parents[1]
+    return [f"-L{d}" for d in (root / "lib64" / "stubs",
+                               *sorted(root.glob("targets/*/lib/stubs")))
+            if (d / "libcuda.so").exists()]
+
+
 def lib_path(src: str) -> Path:
     """Where source ``src``'s library lives for the current sources."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + LIBS).encode())
     for f in (src, *HEADERS):
         h.update((CSRC / f).read_bytes())
     return BUILD_DIR / f"lib{Path(src).stem}-{h.hexdigest()[:16]}.so"
@@ -93,7 +107,8 @@ def build_all(names=None) -> dict[str, Path]:
     for src in todo:
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / src)]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / src),
+               *_link_dirs(nvcc), *LIBS]
         procs[src] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True))
@@ -143,8 +158,9 @@ def launch(name: str, *args, dtype) -> None:
     """Launch kernel ``name`` on the current stream of its first tensor's
     device; raise on an error.
 
-    ``args`` are the entry point's arguments before the dtype code: checked,
-    contiguous CUDA tensors, then ints.
+    ``args`` are the entry point's arguments before the dtype code: CUDA
+    tensors in the layouts the entry point takes (checked by the caller),
+    then ints.
     """
     import torch
     dev = args[0].device

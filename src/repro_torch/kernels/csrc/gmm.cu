@@ -2,32 +2,51 @@
 //
 // Replaces the TPU kernel src/repro/kernels/gmm.py::gmm (body _gmm_kernel):
 // x [E, C, K] x w [E, K, N] -> y [E, C, N] in x's dtype. In the MoE block it
-// is GMM2, the down projection (ops.moe_expert_ffn).
+// is GMM2, the down projection (ops.moe_expert_ffn); training also runs it
+// twice in GMM2's backward, dx = dy·wᵀ and dW = xᵀ·dy, on transposed views.
 //
-// What bounds it: on the serving path C is the per-expert capacity — 1 or 2
-// rows in a decode step, 27 in a 128-token prefill — while all E experts'
-// weights are read on every call (granite: 48 x 512 x 1536 bf16 = 75.5 MB).
-// That is about 2 x C operations per weight byte, far below the ~295 the
-// card needs before its arithmetic is the limit, so the kernel is bound by
-// reading w once from device memory.
+// What bounds it (granite, bf16, E = 48, K = 512, N = 1536): in decode
+// (C = 1, 2) and prefill (C = 27) each call reads all 75.5 MB of weights for
+// about 2 C operations per weight byte, far below the ~295 the card needs
+// before arithmetic is the limit, so the bytes bound it (0.023-0.024 ms at
+// 3.35 TB/s). At the training shape (C = 854, and the backward's two calls)
+// it does 64.5 GFLOP on 0.24 GB: 0.065 ms of tensor-core work at 989 TFLOP/s
+// against 0.073 ms of bytes, so both limits are close and only a tensor-core
+// kernel that streams its operands can approach them.
 //
-// What the design does about it (gmm_common.cuh): one CTA per (expert,
-// 64-column tile) holds every row of its expert, so each weight byte is read
-// once per call, in full 128-byte lines by half-warps; with few rows the 16
-// lanes of a column group split K instead, so even C = 1 keeps 256 threads
-// streaming weights. Plain fp32 FMAs are enough at these row counts; the
-// Tensor-Core (wgmma/TMA) version is later work.
+// What the design does about it (gmm_tc.cuh, bf16): each CTA owns an output
+// tile of one expert, 64 x 128 for C <= 64, else 128 x 128, or 128 x 256 from
+// N = 1024 on, and keeps its K reduction whole. A
+// producer warp streams 64-deep slices of x and w by TMA through a 4-stage
+// shared-memory ring (96-128 KB in flight per SM; decode needs about 25 KB
+// per SM to reach 3.35 TB/s), and one or two consumer warpgroups multiply
+// them with wgmma into fp32 registers. The backward's operands stay views:
+// the layout codes tell the tensor maps and wgmma's transpose bits how to
+// read them, so nothing is copied. fp32 calls, and bf16 calls whose bases or
+// row strides a tensor map cannot take (N = 18 in the ragged checks), run
+// the first design's FMA body (gmm_common.cuh), which reads the same
+// layouts. Decode takes the tensor-core body too: at C = 1 and 2 it runs in
+// about half the FMA body's time (PERF.md).
 
 #include "gmm_common.cuh"
+#include "gmm_tc.cuh"
 
-// dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the
-// launch (0 on success).
+// a_layout: 0 = x is [E, C, K]; 1 = x is stored [E, K, C] (a transposed
+// view). b_layout: 0 = w is [E, K, N]; 1 = w is stored [E, N, K]. dtype:
+// 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch
+// (0 on success).
 extern "C" int gmm_launch(const void* x, const void* w, void* y, int E, int C,
-                          int K, int N, int dtype, void* stream) {
+                          int K, int N, int a_layout, int b_layout, int dtype,
+                          void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1 &&
+      gmmtc::usable(x, w, y, C, K, N, b_layout ? K : N, a_layout, b_layout))
+    return gmmtc::launch<false>(x, w, y, E, C, K, N, a_layout, b_layout, s);
   if (dtype == 0)
-    return gmmk::launch<float, false>(x, w, y, E, C, K, N, N, s);
+    return gmmk::launch<float, false>(x, w, y, E, C, K, N, N, a_layout,
+                                      b_layout, s);
   if (dtype == 1)
-    return gmmk::launch<__nv_bfloat16, false>(x, w, y, E, C, K, N, N, s);
+    return gmmk::launch<__nv_bfloat16, false>(x, w, y, E, C, K, N, N,
+                                              a_layout, b_layout, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

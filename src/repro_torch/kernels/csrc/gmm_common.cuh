@@ -1,4 +1,5 @@
-// Shared body of the grouped-GEMM kernels gmm.cu and gmm_swiglu.cu.
+// FMA body of the grouped-GEMM kernels gmm.cu and gmm_swiglu.cu: the first
+// design (fp32 FMAs on CUDA cores, shaped for decode).
 //
 // y[e, c, n] = sum_k x[e, c, k] * w[e, k, n]              (gmm)
 // y[e, c, n] = silu(g) * u, g = x·w[:, :, n], u = x·w[:, :, F + n]
@@ -20,6 +21,11 @@
 //   * the KL partial sums of each output are added in a fixed tree in shared
 //     memory (deterministic), then SwiGLU is applied and the tile is stored.
 // Ragged C, N and K are masked; nothing needs to divide a block size.
+//
+// It takes the same operand layouts as the tensor-core body (gmm_tc.cuh):
+// x is [E, C, K] or, ta = 1, [E, K, C]; w is [E, K, ldw] or, tb = 1,
+// [E, N, K]. The launchers run it for fp32, and for bf16 calls whose strides
+// or bases a TMA tensor map cannot describe.
 
 #pragma once
 
@@ -62,24 +68,27 @@ __device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
   v[3] = __uint_as_float(q.y & 0xffff0000u);
 }
 
-// Columns [0, ncols) of a group; a whole, aligned group is one vector load.
+// Columns [0, ncols) of a group, `swn` elements apart; a whole, aligned
+// group of adjacent columns is one vector load.
 template <typename T>
-__device__ __forceinline__ void load_cols(const T* p, int ncols, bool vec_ok,
-                                          float v[VEC]) {
+__device__ __forceinline__ void load_cols(const T* p, int ncols, size_t swn,
+                                          bool vec_ok, float v[VEC]) {
   if (vec_ok && ncols == VEC) {
     load_vec(p, v);
   } else {
 #pragma unroll
-    for (int j = 0; j < VEC; ++j) v[j] = j < ncols ? to_f(p[j]) : 0.f;
+    for (int j = 0; j < VEC; ++j) v[j] = j < ncols ? to_f(p[j * swn]) : 0.f;
   }
 }
 
-// x: [E, C, K]; w: [E, K, ldw] with ldw = N (gmm) or 2N (SwiGLU, N = F);
-// y: [E, C, N]. Grid: (ceil(N / BN), E).
+// x: C x K per expert, element (r, k) at r * sxr + k * sxk; w: K x ldw per
+// expert, ldw = N (gmm) or 2N (SwiGLU, N = F), element (k, n) at
+// k * swk + n * swn; y: [E, C, N]. Grid: (ceil(N / BN), E).
 template <typename T, int MT, int RG, bool SWIGLU>
 __global__ void __launch_bounds__(THREADS, 2)
 gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
-           T* __restrict__ y, int C, int K, int N, int ldw, bool vec_ok) {
+           T* __restrict__ y, int C, int K, int N, int ldw, size_t sxr,
+           size_t sxk, size_t swk, size_t swn, bool vec_ok) {
   constexpr int KL = LANES / RG;        // K slices
   constexpr int ROWS = MT * RG;         // rows per pass
   constexpr int KC = XS_FLOATS / ROWS;  // K-chunk staged per pass
@@ -102,7 +111,7 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   const int ncols = min(VEC, N - n0);   // <= 0 past the ragged N edge
 
   const T* xe = x + (size_t)e * C * K;
-  const T* we = w + (size_t)e * K * ldw + (ncols > 0 ? n0 : 0);
+  const T* we = w + (size_t)e * K * ldw + (ncols > 0 ? n0 * swn : 0);
   T* ye = y + (size_t)e * C * N;
 
   for (int r0 = 0; r0 < C; r0 += ROWS) {
@@ -120,7 +129,8 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
       for (int i = tid; i < ROWS * KC; i += THREADS) {
         const int r = i / KC, k = i % KC;
         float v = 0.f;
-        if (r0 + r < C && k < kc) v = to_f(xe[(size_t)(r0 + r) * K + k0 + k]);
+        if (r0 + r < C && k < kc)
+          v = to_f(xe[(r0 + r) * sxr + (k0 + k) * sxk]);
         xs[i] = v;
       }
       __syncthreads();
@@ -128,10 +138,11 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
         const float* xr = xs + rg * MT * KC;
 #pragma unroll 4
         for (int k = kl; k < kc; k += KL) {
-          const T* wrow = we + (size_t)(k0 + k) * ldw;
+          const T* wrow = we + (k0 + k) * swk;
           float wv[NW][VEC];
-          load_cols(wrow, ncols, vec_ok, wv[0]);
-          if (SWIGLU) load_cols(wrow + N, ncols, vec_ok, wv[NW - 1]);
+          load_cols(wrow, ncols, swn, vec_ok, wv[0]);
+          if (SWIGLU)
+            load_cols(wrow + N * swn, ncols, swn, vec_ok, wv[NW - 1]);
 #pragma unroll
           for (int m = 0; m < MT; ++m) {
             const float xv = xr[m * KC + k];
@@ -195,19 +206,24 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
-// Picks the row tiling for C and launches on `stream`.
+// Picks the row tiling for C and launches on `stream`. ta, tb: the layouts
+// of x and w (0: as named above; 1: transposed, see the head of the file).
 template <typename T, bool SWIGLU>
 int launch(const void* x, const void* w, void* y, int E, int C, int K, int N,
-           int ldw, cudaStream_t stream) {
+           int ldw, int ta, int tb, cudaStream_t stream) {
+  if ((ta != 0 && ta != 1) || (tb != 0 && tb != 1) || (SWIGLU && (ta || tb)))
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((N + BN - 1) / BN, E);
-  const bool vec_ok = ldw % VEC == 0 && N % VEC == 0 &&
+  const size_t sxr = ta ? 1 : K, sxk = ta ? C : 1;
+  const size_t swk = tb ? 1 : ldw, swn = tb ? K : 1;
+  const bool vec_ok = tb == 0 && ldw % VEC == 0 && N % VEC == 0 &&
                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const T* xp = static_cast<const T*>(x);
   const T* wp = static_cast<const T*>(w);
   T* yp = static_cast<T*>(y);
 #define GMMK_LAUNCH(MT, RG)                                              \
   gmm_kernel<T, MT, RG, SWIGLU><<<grid, THREADS, 0, stream>>>(           \
-      xp, wp, yp, C, K, N, ldw, vec_ok)
+      xp, wp, yp, C, K, N, ldw, sxr, sxk, swk, swn, vec_ok)
   if (C <= 1) GMMK_LAUNCH(1, 1);
   else if (C <= 2) GMMK_LAUNCH(2, 1);
   else if (C <= 4) GMMK_LAUNCH(4, 1);

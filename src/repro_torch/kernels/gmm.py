@@ -6,9 +6,13 @@ C, N and K itself, so there is no block choice (``_pick_block``) and no VMEM
 budget here. On a CPU tensor the plain version ``ref.gmm_ref`` runs; on a
 CUDA tensor the kernel launches or the call raises.
 
+Each operand is contiguous or the transpose of a contiguous tensor in its
+last two dims (``operand_layout``); the kernel reads either in place.
+
 ``gmm_trainable`` adds the gradient that the JAX ``gmm`` lacks (it is a bare
 ``pallas_call`` with no VJP): two more calls of the same kernel on
-transposed operands, each keeping its reduction whole in one CTA.
+transposed views of the saved operands, each keeping its reduction whole in
+one CTA.
 """
 
 from __future__ import annotations
@@ -40,17 +44,29 @@ def check_operands(x, w, n_w: int) -> None:
                         f"{x.dtype}, {w.dtype}")
     if w.device != x.device:
         raise ValueError(f"x on {x.device}, w on {w.device}")
-    if x.device.type == "cuda":
-        if not (x.is_contiguous() and w.is_contiguous()):
-            raise ValueError("the CUDA kernel takes contiguous x and w")
-        if E > 65535:
-            raise ValueError(f"E={E} exceeds the kernel grid's 65535")
+    if x.device.type == "cuda" and E > 65535:
+        raise ValueError(f"E={E} exceeds the kernel grid's 65535")
+
+
+def operand_layout(t, name: str) -> int:
+    """Layout code of a 3-d operand [E, R, S] for the kernel: 0 if it is
+    contiguous, 1 if it is the transpose of a contiguous [E, S, R] (such as
+    ``w.transpose(1, 2)``). Raises on any other strides."""
+    if t.is_contiguous():
+        return 0
+    if t.transpose(1, 2).is_contiguous():
+        return 1
+    raise ValueError(f"gmm's {name} {tuple(t.shape)} has strides "
+                     f"{t.stride()}: it takes a contiguous tensor or the "
+                     f"transpose of one in its last two dims")
 
 
 def gmm(x, w):
-    """x: [E, C, K] expert-grouped tokens; w: [E, K, N] → [E, C, N]."""
+    """x: [E, C, K] expert-grouped tokens; w: [E, K, N] → [E, C, N]. Either
+    operand may be a transposed view (``operand_layout``)."""
     global launches
     check_operands(x, w, w.shape[-1] if w.dim() == 3 else -1)
+    layouts = operand_layout(x, "x"), operand_layout(w, "w")
     if x.device.type == "cpu":
         return gmm_ref(x, w)
     if x.device.type != "cuda":
@@ -60,7 +76,8 @@ def gmm(x, w):
     out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    build.launch("gmm", x, w, out, E, C, x.shape[2], N, dtype=x.dtype)
+    build.launch("gmm", x, w, out, E, C, x.shape[2], N, *layouts,
+                 dtype=x.dtype)
     launches += 1
     return out
 
@@ -75,8 +92,8 @@ class _GmmTrainable(torch.autograd.Function):
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
         dy = dy.contiguous()
-        dx = gmm(dy, w.transpose(1, 2).contiguous())      # sum over N
-        dw = gmm(x.transpose(1, 2).contiguous(), dy)      # sum over C
+        dx = gmm(dy, w.transpose(1, 2))      # sum over N; views, no copies
+        dw = gmm(x.transpose(1, 2), dy)      # sum over C
         return dx, dw
 
 

@@ -25,6 +25,10 @@ def gmm_swiglu(x, w_in):
     if two_f % 2:
         raise ValueError(f"w_in's last dim {two_f} is not 2F")
     check_operands(x, w_in, two_f)
+    if x.device.type == "cuda" and not (x.is_contiguous()
+                                        and w_in.is_contiguous()):
+        raise ValueError("gmm_swiglu's CUDA kernel takes contiguous x and "
+                         "w_in")
     if x.device.type == "cpu":
         return gmm_swiglu_ref(x, w_in)
     if x.device.type != "cuda":

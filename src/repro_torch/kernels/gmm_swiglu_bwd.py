@@ -47,8 +47,9 @@ def gmm_swiglu_bwd(x, w4, dout):
     if x.device.type != "cuda":
         raise ValueError(
             f"gmm_swiglu_bwd runs on cuda or cpu tensors, not {x.device}")
-    if not (w4.is_contiguous() and dout.is_contiguous()):
-        raise ValueError("the CUDA kernel takes contiguous w4 and dout")
+    if not (x.is_contiguous() and w4.is_contiguous()
+            and dout.is_contiguous()):
+        raise ValueError("the CUDA kernel takes contiguous x, w4 and dout")
     if E * C * K * F == 0:
         return (torch.zeros((E, C, K), dtype=torch.float32, device=x.device),
                 torch.zeros((E, K, 2, F), dtype=torch.float32,

@@ -1,0 +1,66 @@
+"""Helpers of ``chip_smoke.py`` that run without a card: the precision
+control of the trainable expert FFN's end-to-end check, and the reader of
+the compiler's register and spill report."""
+
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3])
+def test_round_off_rounds_to_fewer_mantissa_bits(bits):
+    """``round_off`` keeps 8 - bits significant bits of each bf16 value,
+    rounding to nearest with ties away from zero, and clears the rest."""
+    rng = np.random.default_rng(bits)
+    v = (rng.standard_normal(4096) * 10.0 ** rng.integers(-3, 4, 4096))
+    t = torch.from_numpy(v).to(torch.bfloat16)
+    got = chip_smoke.round_off(t, bits)
+    a = t.double().numpy()
+    m, e = np.frexp(np.abs(a))
+    q = 2.0 ** (8 - bits)
+    want = np.sign(a) * np.ldexp(np.floor(m * q + 0.5) / q, e)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.double().numpy(), want)
+    low = got.float().view(torch.int32) & ((1 << (16 + bits)) - 1)
+    assert int(low.abs().max()) == 0
+    # Each value moves by at most half of its coarser ulp.
+    assert np.all(np.abs(want - a) <= np.abs(a) * 2.0 ** (bits - 8))
+
+
+def test_ptxas_report_reads_each_tensor_core_kernel():
+    """The build phase's reading of a ``-Xptxas -v`` log: one entry per
+    ``gmmtc::gmm_tc_kernel`` instance with its template arguments,
+    registers, static shared memory and spills; other kernels skipped."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN4gmmk11gmm_kernelIfLb0EEEvPKT_S3_PS1_iiiiiii' for 'sm_90a'",
+        "ptxas info    : Used 40 registers, 2048 bytes smem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN5gmmtc13gmm_tc_kernelILi2ELi4ELi1ELi0ELb0EEEv14CUtensorMap_st"
+        "S1_S1_P13__nv_bfloat16iiiiiii' for 'sm_90a'",
+        "ptxas info    : Function properties for _ZN5gmmtc13gmm_tc_kernel",
+        "    0 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 165 registers, used 1 barriers, 560 bytes "
+        "cmem[0]",
+        "ptxas info    : Compiling entry function "
+        "'_ZN5gmmtc13gmm_tc_kernelILi1ELi2ELi0ELi0ELb1EEEv14CUtensorMap_st"
+        "S1_S1_P13__nv_bfloat16iiiiiii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, 128 bytes smem, 560 bytes "
+        "cmem[0]",
+    ])
+    assert chip_smoke.ptxas_report(log) == [
+        {"kernel": "gmmtc::gmm_tc_kernel", "nwg": 2, "nb": 4, "ta": 1,
+         "tb": 0, "swiglu": False, "spill_stores": 8, "spill_loads": 4,
+         "registers": 165, "static_smem": 0},
+        {"kernel": "gmmtc::gmm_tc_kernel", "nwg": 1, "nb": 2, "ta": 0,
+         "tb": 0, "swiglu": True, "spill_stores": 0, "spill_loads": 0,
+         "registers": 96, "static_smem": 128},
+    ]

@@ -109,13 +109,26 @@ def test_gmm_swiglu_trainable_grads_match_autograd(E, C, K, F):
         torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-5)
 
 
+def _leaf(a, dtype, transposed):
+    """A leaf with ``a``'s values: contiguous, or a transposed view of a
+    contiguous copy (gmm reads both in place)."""
+    if not transposed:
+        return _t(a, dtype).requires_grad_(True)
+    return _t(a.transpose(0, 2, 1), dtype).transpose(1, 2).requires_grad_(
+        True)
+
+
+@pytest.mark.parametrize("views", [(False, False), (True, False),
+                                   (False, True), (True, True)])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_gmm_trainable_grads_match_autograd(dtype):
+def test_gmm_trainable_grads_match_autograd(dtype, views):
+    """The backward's two calls take transposed views of the saved operands;
+    x and w may be views themselves."""
     rng = np.random.default_rng(2)
     x = rng.standard_normal((3, 27, 40), dtype=np.float32)
     w = rng.standard_normal((3, 40, 24), dtype=np.float32) * np.float32(0.1)
     dy = rng.standard_normal((3, 27, 24), dtype=np.float32)
-    got = [_t(a, dtype).requires_grad_(True) for a in (x, w)]
+    got = [_leaf(a, dtype, v) for a, v in zip((x, w), views)]
     # fp32 autograd on the same (rounded) values
     want = [_t(a, dtype).float().requires_grad_(True) for a in (x, w)]
     gmm_mod.gmm_trainable(*got).backward(_t(dy, dtype))
@@ -123,15 +136,20 @@ def test_gmm_trainable_grads_match_autograd(dtype):
     tol = 1e-5 if dtype == "float32" else 2e-2
     for a, b in zip(got, want):
         assert a.grad.dtype == a.dtype
+        assert tuple(a.grad.shape) == tuple(a.shape)
         torch.testing.assert_close(a.grad.float(), b.grad, rtol=tol, atol=tol)
 
 
+@pytest.mark.parametrize("w_down_view", [False, True])
 @pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
                                        ("bfloat16", 5e-2)])
-def test_moe_expert_ffn_trainable_matches_jax_einsum_vjp(dtype, tol):
+def test_moe_expert_ffn_trainable_matches_jax_einsum_vjp(dtype, tol,
+                                                         w_down_view):
     """JAX's kernel-backed ``moe_expert_ffn(trainable=True)`` cannot be
     differentiated (its ``gmm`` has no VJP), so the reference is ``jax.vjp``
-    of the einsum ``expert_ffn`` that the JAX package trains through."""
+    of the einsum ``expert_ffn`` that the JAX package trains through.
+    ``w_down_view``: GMM2's weight is a transposed view, so its forward and
+    both backward calls read an operand in the other layout."""
     rng = np.random.default_rng(3)
     E, C, D, F = 4, 16, 64, 32
     x = rng.standard_normal((E, C, D), dtype=np.float32)
@@ -142,7 +160,8 @@ def test_moe_expert_ffn_trainable_matches_jax_einsum_vjp(dtype, tol):
     y, vjp = jax.vjp(lambda a, b, c: jexpert_ffn(b, c, a, "swiglu"),
                      *(jnp.asarray(a, jd) for a in (x, w_in, w_down)))
     want = [np.asarray(g, np.float32) for g in vjp(jnp.asarray(dy, jd))]
-    leaves = [_t(a, dtype).requires_grad_(True) for a in (x, w_in, w_down)]
+    leaves = [_leaf(a, dtype, v) for a, v in
+              zip((x, w_in, w_down), (False, False, w_down_view))]
     out = ops.moe_expert_ffn(*leaves, trainable=True)
     out.backward(_t(dy, dtype))
     np.testing.assert_allclose(out.detach().float().numpy(),
@@ -206,4 +225,8 @@ def test_c_args_follow_the_kernels_own_signature():
     with pytest.raises(TypeError):       # the forward kernels' 9 arguments
         build.c_args("gmm_swiglu_bwd", (x, w, dout, 2, 3, 8, 4),
                      torch.float32)
-    assert build.c_args("gmm", (x, w, dx, 2, 3, 8, 4), torch.float32)[-1] == 0
+    # gmm's two layout codes come after its sizes, before the dtype code.
+    assert build.c_args("gmm", (x, w, dx, 2, 3, 8, 4, 0, 1),
+                        torch.float32)[-2:] == [1, 0]
+    with pytest.raises(TypeError):       # without the layout codes
+        build.c_args("gmm", (x, w, dx, 2, 3, 8, 4), torch.float32)

@@ -1,6 +1,9 @@
 """Port kernels (plain versions on CPU tensors) vs the JAX Pallas kernels in
 interpret mode, on the same numpy inputs."""
 
+import re
+import shutil
+
 import numpy as np
 import pytest
 
@@ -14,7 +17,8 @@ from repro.kernels.gmm_swiglu import gmm_swiglu as jgmm_swiglu  # noqa: E402
 from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu as swiglu_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu_bwd as bwd_mod  # noqa: E402
-from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import profile_train  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -167,3 +171,97 @@ def test_wrappers_reject_bad_operands(fn):
     # Neither CPU nor CUDA: no plain-version fallback, the call raises.
     with pytest.raises(ValueError, match="cuda or cpu"):
         fn(x.to("meta"), torch.zeros(2, 8, 4, device="meta"))
+
+
+# gmm's layouts: x as a view of [E, K, C], w as a view of [E, N, K] where 1.
+VIEW_LAYOUTS = [(1, 0), (0, 1), (1, 1)]
+
+
+def _view(a, transposed, dtype):
+    """``a`` [E, R, S] as a torch tensor of ``dtype``: contiguous, or the
+    transposed view of a contiguous [E, S, R] copy."""
+    if not transposed:
+        return torch.from_numpy(a).to(getattr(torch, dtype))
+    t = torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1)))
+    return t.to(getattr(torch, dtype)).transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("layouts", VIEW_LAYOUTS)
+@pytest.mark.parametrize("E,C,K,N", [(3, 27, 40, 24), (2, 64, 96, 128)])
+def test_gmm_on_views_matches_jax_kernel(E, C, K, N, layouts, dtype):
+    """The layouts gmm_trainable's backward passes (transposed views, read
+    in place by the kernel) give the JAX kernel's result on the same values."""
+    x, w = _inputs(6, (E, C, K), (E, K, N))
+    tx, tw = _view(x, layouts[0], dtype), _view(w, layouts[1], dtype)
+    assert gmm_mod.operand_layout(tx, "x") == layouts[0]
+    assert gmm_mod.operand_layout(tw, "w") == layouts[1]
+    got = gmm_mod.gmm(tx, tw)
+    assert got.is_contiguous() and tuple(got.shape) == (E, C, N)
+    jx, jw = (jnp.asarray(a, getattr(jnp, dtype)) for a in (x, w))
+    _close(got, jgmm(jx, jw, interpret=True), dtype)
+
+
+@pytest.mark.parametrize("bad", ["strided_rows", "permuted", "broadcast_w"])
+def test_gmm_raises_on_a_layout_it_does_not_take(bad):
+    """The kernel reads a contiguous operand or the transpose of one; any
+    other strides raise, on the CPU as on the card."""
+    x, w = torch.zeros(2, 6, 8), torch.zeros(2, 8, 4)
+    if bad == "strided_rows":
+        x = torch.zeros(2, 12, 8)[:, ::2]                  # every other row
+    elif bad == "permuted":
+        x = torch.zeros(6, 2, 8).transpose(0, 1)           # E not outermost
+    else:
+        w = torch.zeros(1, 8, 4).expand(2, 8, 4)           # stride 0 over E
+    with pytest.raises(ValueError, match="strides"):
+        gmm_mod.gmm(x, w)
+
+
+def test_operand_layout_of_degenerate_dims():
+    """With one row or one column both addressings coincide: code 0."""
+    assert gmm_mod.operand_layout(torch.zeros(3, 1, 8), "x") == 0
+    assert gmm_mod.operand_layout(torch.zeros(3, 8, 1).transpose(1, 2),
+                                  "x") == 0
+    assert gmm_mod.operand_layout(torch.zeros(3, 8, 5).transpose(1, 2),
+                                  "x") == 1
+
+
+def _csrc_files():
+    return sorted(p for p in build.CSRC.iterdir()
+                  if p.suffix in (".cu", ".cuh"))
+
+
+def test_every_csrc_include_is_a_build_header():
+    """A header a source includes must be hashed into the library names, or
+    an edited header would leave a stale library in place."""
+    included = {m for p in _csrc_files()
+                for m in re.findall(r'#include "([^"]+)"', p.read_text())}
+    assert included and included <= set(build.HEADERS)
+    assert all((build.CSRC / h).exists() for h in build.HEADERS)
+
+
+@pytest.mark.parametrize("header", build.HEADERS)
+def test_editing_a_header_changes_every_library_name(header, tmp_path,
+                                                     monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    srcs = sorted({src for src, _, _ in build.KERNELS.values()})
+    before = {s: build.lib_path(s) for s in srcs}
+    with open(csrc / header, "a") as f:
+        f.write("// edited\n")
+    after = {s: build.lib_path(s) for s in srcs}
+    assert all(before[s] != after[s] for s in srcs)
+
+
+def test_every_kernel_namespace_has_a_profile_bucket():
+    """profile_train sorts device time by the C++ namespaces of the port's
+    kernels; a namespace without a bucket would land among other kernels."""
+    spaces = {m for p in _csrc_files() for m in
+              re.findall(r"^namespace (\w+) \{", p.read_text(), re.M)}
+    buckets = {part.removesuffix("::")
+               for part in profile_train.OWN.values()}
+    assert spaces and spaces <= buckets
+    # No bucket's prefix is part of another's name, so none counts twice.
+    assert not any(a != b and (a + "::") in (b + "::")
+                   for a in buckets for b in buckets)
