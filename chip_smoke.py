@@ -7,8 +7,8 @@ Phases, each printing one JSON line:
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build — the four CUDA libraries compiled for ``sm_90a`` from
    ``src/repro_torch``, one ``nvcc`` each, in parallel, with each
-   tensor-core GEMM kernel's registers, static shared memory and spills from
-   the compiler's report (``-Xptxas -v``);
+   tensor-core kernel's registers, static shared memory and spills from the
+   compiler's report (``-Xptxas -v``);
 2b. swiglu_add — the §6.1 SwiGLU + Add path: both modes against their plain
    versions at M in {256, 1000, 4096, 32768} and F in {2048, 36} (ragged
    rows, an unaligned row width), bf16 and fp32; then
@@ -32,7 +32,14 @@ Phases, each printing one JSON line:
    The training shape also checks ``moe_expert_ffn(trainable=True)``'s three
    grads against the plain versions of its backward's steps, fed its own
    bf16 intermediates, and end to end against autograd through the plain
-   FFN by each grad's relative error norm;
+   FFN by each grad's relative error norm. ``gmm_swiglu_bwd`` is held
+   elementwise on its fp32 outputs at the training shape, at every C in
+   TILE_EDGES and at ragged shapes; each call is made twice and must be
+   bit-equal, its bf16 outputs (the main path's call) must be its fp32
+   outputs rounded, and its row names the body that ran: the training
+   shape must run the tensor-core body. Its timed row gives the main path's
+   call, the fp32-output call, and the three ``torch.bmm`` products of the
+   same sizes (``gemm_only_ms``);
 4. slice — full-width, 32-layer granite-moe-3b-a800m in bf16 with random
    weights from a seed: one prefill through the kernels against the plain
    expert FFN, then ``launch.serve.serve`` answers 16 requests of 128-token
@@ -46,8 +53,9 @@ Phases, each printing one JSON line:
    sequence; its global batch of 256 cut to 1 for one card), per-layer
    remat. Finite losses and grad norms; per layer per step, with remat,
    gmm_swiglu 2 launches (forward, recompute), gmm 4 (forward, recompute,
-   dx and dw of the backward) and gmm_swiglu_bwd 1. Then the step's time
-   split into each kernel's time x launches and the rest.
+   dx and dw of the backward) and gmm_swiglu_bwd 1, every one of those on
+   its tensor-core body. Then the step's time split into each kernel's
+   time x launches and the rest.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
@@ -154,6 +162,7 @@ COUNTERS = {"gmm_swiglu": (swiglu_mod, "launches"),
 def reset_launches() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
+    bwd_mod.launches_tc = 0
 
 
 def read_launches() -> dict:
@@ -218,19 +227,27 @@ def cuda_ms(fn, iters: int = 20, reps: int = 3) -> float:
 
 
 def ptxas_report(log: str) -> list:
-    """Registers, static shared memory and spills of each tensor-core GEMM
-    kernel (namespace ``gmmtc``) in a ``-Xptxas -v`` build log."""
+    """Registers, static shared memory and spills of each tensor-core
+    kernel (namespaces ``gmmtc`` and ``gsbtc``) in a ``-Xptxas -v`` build
+    log."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"gmm_tc_kernelI(.*)EEv", m.group(1))
+            b = re.search(r"gsbtc10bwd_kernelI(.*)EEv", m.group(1))
             cur = None
             if t:
                 a = re.findall(r"L[ib](\d+)E", t.group(1) + "E")
                 cur = {"kernel": "gmmtc::gmm_tc_kernel", "nwg": int(a[0]),
                        "nb": int(a[1]), "ta": int(a[2]), "tb": int(a[3]),
                        "swiglu": bool(int(a[4]))}
+            elif b:
+                a = re.findall(r"L[ib](\d+)E", b.group(1) + "E")
+                cur = {"kernel": "gsbtc::bwd_kernel",
+                       "mode": ("gu", "dx", "dw")[int(a[0])],
+                       "fp32_out": bool(int(a[1]))}
+            if cur:
                 out.append(cur)
             continue
         if cur is None:
@@ -327,13 +344,23 @@ def kernel_case(name, E, C, K, N, dtype, gen, timed, layouts=(0, 0),
 
 
 def bwd_case(E, C, K, F, dtype, gen, timed):
-    """gmm_swiglu_bwd against its plain version: both fp32 outputs."""
+    """gmm_swiglu_bwd against its plain version: both fp32 outputs (the JAX
+    contract), elementwise within TOL. The call is made twice and must be
+    bit-equal; in bf16 the main path's call (``out_dtype=bfloat16``) must
+    equal the fp32 outputs rounded. The row names the body that ran
+    (``bwd_mod.tensor_core_body``). Timed: the main path's call by CUDA
+    graph replay (``ms``), the fp32-output call's (``fp32_out_ms``), the
+    plain version's, the bound, and as a yardstick ``gemm_only_ms``: the
+    three ``torch.bmm`` products of the same sizes (recompute, dx, dW),
+    which are not the same function."""
     spec = KERNELS["gmm_swiglu_bwd"]
     x = torch.randn((E, C, K), generator=gen, device="cuda").to(dtype)
     w4 = (torch.randn((E, K, 2, F), generator=gen, device="cuda")
           * K ** -0.5).to(dtype)
     dout = torch.randn((E, C, F), generator=gen, device="cuda").to(dtype)
+    tc = bwd_mod.launches_tc
     got = spec["fn"](x, w4, dout)
+    tc = bwd_mod.launches_tc - tc
     want = spec["plain"](x, w4, dout)
     torch.cuda.synchronize()
     tol = TOL[dtype]
@@ -344,16 +371,37 @@ def bwd_case(E, C, K, F, dtype, gen, timed):
         ok = ok and bool((e <= tol + tol * p.abs()).all())
     row = {"kernel": "gmm_swiglu_bwd", "E": E, "C": C, "K": K, "N": F,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
-           "tol": tol, "ok": ok}
+           "tol": tol, "ok": ok,
+           "body": "tensor_cores" if tc else "fma"}
     if not ok:
         raise AssertionError(f"gmm_swiglu_bwd disagrees with its plain "
                              f"version: {row}")
+    row["repeat_bit_equal"] = all(torch.equal(a, b) for a, b in
+                                  zip(got, spec["fn"](x, w4, dout)))
+    if not row["repeat_bit_equal"]:
+        raise AssertionError(f"gmm_swiglu_bwd: two calls on the same input "
+                             f"differ: {row}")
+    if dtype == torch.bfloat16:
+        out_bf16 = spec["fn"](x, w4, dout, out_dtype=dtype)
+        row["bf16_out_is_fp32_rounded"] = all(
+            torch.equal(a, b.to(dtype)) for a, b in zip(out_bf16, got))
+        if not row["bf16_out_is_fp32_rounded"]:
+            raise AssertionError(f"gmm_swiglu_bwd's bf16 outputs are not "
+                                 f"its fp32 outputs rounded: {row}")
     if timed:
         b_ms, b_by = bwd_bound(E, C, K, F, dtype)
-        row.update(ms=cuda_ms(lambda: spec["fn"](x, w4, dout), 10, 1),
-                   plain_ms=cuda_ms(lambda: spec["plain"](x, w4, dout),
-                                    10, 1),
-                   library_ms=None, bound_ms=b_ms, bound_by=b_by)
+        w_in = w4.view(E, K, 2 * F)
+        dgu = torch.randn((E, C, 2 * F), generator=gen,
+                          device="cuda").to(dtype)
+        row.update(
+            ms=cuda_ms(lambda: spec["fn"](x, w4, dout, out_dtype=dtype),
+                       10, 2),
+            fp32_out_ms=cuda_ms(lambda: spec["fn"](x, w4, dout), 10, 2),
+            plain_ms=cuda_ms(lambda: spec["plain"](x, w4, dout), 10, 1),
+            library_ms=None, bound_ms=b_ms, bound_by=b_by,
+            gemm_only_ms=cuda_ms(lambda: (
+                torch.bmm(x, w_in), torch.bmm(dgu, w_in.transpose(1, 2)),
+                torch.bmm(x.transpose(1, 2), dgu)), 10, 2))
     return row
 
 
@@ -501,6 +549,13 @@ def check_kernels(cfg):
     r = bwd_case(E, c_train, D, Fe, torch.bfloat16, gen, timed=True)
     r["shape"] = "train"
     rows.append(r)
+    if r["body"] != "tensor_cores":
+        raise AssertionError(f"the training shape's gmm_swiglu_bwd ran the "
+                             f"FMA body: {r}")
+    for C in TILE_EDGES:
+        r = bwd_case(E, C, D, Fe, torch.bfloat16, gen, timed=False)
+        r["shape"] = "tile_edge"
+        rows.append(r)
     rows.append(trainable_ffn_case(E, c_train, D, Fe, gen))
     for dtype in (torch.bfloat16, torch.float32):
         for E_, C, K, F in ((2, 128, 64, 128), (3, 64, 96, 64),
@@ -680,6 +735,7 @@ def run_train(cfg, rows):
                           "--steps", str(TRAIN_STEPS)])
     wall = time.perf_counter() - t
     launches = read_launches()
+    bwd_tc = bwd_mod.launches_tc
     log = run.metrics_log
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in log):
@@ -690,6 +746,10 @@ def run_train(cfg, rows):
         raise AssertionError(f"training launch counts {launches} != "
                              f"{per_step} = {cfg.n_layers} layers x "
                              f"{TRAIN_STEPS} steps x {TRAIN_LAUNCHES}")
+    if bwd_tc != per_step["gmm_swiglu_bwd"]:
+        raise AssertionError(f"{bwd_tc} of {per_step['gmm_swiglu_bwd']} "
+                             f"gmm_swiglu_bwd calls ran the tensor-core "
+                             f"body")
     step_ms = statistics.median(m["step_ms"] for m in log[1:])
     tokens = TRAIN_BATCH * TRAIN_SEQ
     # Where a step's time goes: each kernel's measured time at the training
@@ -716,6 +776,7 @@ def run_train(cfg, rows):
            "tokens_per_s": tokens / (step_ms / 1e3),
            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
            "launches": launches, "expected_launches": per_step,
+           "gmm_swiglu_bwd_tensor_core_launches": bwd_tc,
            "step_breakdown_ms": dict(
                kernel_ms, rest=step_ms - sum(kernel_ms.values()))}
     del run
@@ -763,7 +824,7 @@ def main() -> int:
           "libraries": {k: os.path.basename(v) for k, v in libs.items()},
           "ptxas": {src: ptxas_report(
               open(f"{libs[src]}.log", encoding="utf-8").read())
-              for src in ("gmm.cu", "gmm_swiglu.cu")}})
+              for src in ("gmm.cu", "gmm_swiglu.cu", "gmm_swiglu_bwd.cu")}})
 
     swa_checks, bench_out, swa_launches = run_swiglu_add()
     emit({"phase": "swiglu_add_sim",
@@ -809,8 +870,8 @@ def main() -> int:
             "max_abs_err": worst, **{k: r[k] for k in timing},
             "shape": {k: r[k] for k in ("E", "C", "K", "N", "dtype")},
             "train_shape": {k: t[k] for k in (
-                "C", "K", "N", *timing, "eager_ms", "host_us", "gemm_only_ms")
-                if k in t}})
+                "C", "K", "N", *timing, "eager_ms", "host_us", "gemm_only_ms",
+                "fp32_out_ms", "body") if k in t}})
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError(f"non-finite kernel time: {kernels}")
     emit({"kernels": kernels})

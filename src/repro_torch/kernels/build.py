@@ -45,9 +45,11 @@ KERNELS = {
     # (x, w_in, y, E, C, K, F, dtype, stream)
     "gmm_swiglu": ("gmm_swiglu.cu", "gmm_swiglu_launch",
                    (_P, _P, _P, _I, _I, _I, _I, _I, _P)),
-    # (x, w_in, dout, dx, dw, dgu, E, C, K, F, dtype, stream)
+    # (x, w_in, dout, dx, dw, dgu, E, C, K, F, tensor_cores, out_dtype,
+    #  dtype, stream)
     "gmm_swiglu_bwd": ("gmm_swiglu_bwd.cu", "gmm_swiglu_bwd_launch",
-                       (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+                       (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P)),
     # The three passes of swiglu_add.cu, one library. (h, g, M, F, dtype,
     # stream); (g, y, out, M, F, dtype, stream); (h, y, out, M, F, ...).
     "swiglu": ("swiglu_add.cu", "swiglu_launch", (_P, _P, _I, _I, _I, _P)),
@@ -137,6 +139,11 @@ def load(name: str):
     return fn
 
 
+def dtype_code(dtype) -> int:
+    """The C entry points' code of a torch dtype (``DTYPE_CODES``)."""
+    return DTYPE_CODES[str(dtype).removeprefix("torch.")]
+
+
 def c_args(name: str, args, dtype) -> list:
     """The C arguments of kernel ``name`` but the stream: each tensor's
     pointer, each int, then the dtype code. Raises if they do not fit the
@@ -145,7 +152,7 @@ def c_args(name: str, args, dtype) -> list:
     argtypes = KERNELS[name][2]
     out = [a.data_ptr() if isinstance(a, torch.Tensor) else int(a)
            for a in args]
-    out.append(DTYPE_CODES[str(dtype).replace("torch.", "")])
+    out.append(dtype_code(dtype))
     if len(out) + 1 != len(argtypes) or any(
             isinstance(a, torch.Tensor) != (t is _P)
             for a, t in zip(args, argtypes)):

@@ -461,12 +461,16 @@ inline cudaError_t bind_context(const void* p) {
 }
 
 // A 3-d bf16 tensor map [d2][d1][d0] (d0 contiguous) read in 64 x 64 boxes
-// with the 128-byte swizzle; out-of-bounds elements read as zero.
-inline bool encode(CUtensorMap* map, const void* p, int d0, int d1, int d2) {
+// with the 128-byte swizzle; out-of-bounds elements read as zero. Rows are
+// `ld` elements apart (default d0), so a map may cover some of each row's
+// columns.
+inline bool encode(CUtensorMap* map, const void* p, int d0, int d1, int d2,
+                   int ld = 0) {
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(d0),
                               static_cast<cuuint64_t>(d1),
                               static_cast<cuuint64_t>(d2)};
-  const cuuint64_t strides[2] = {dims[0] * 2, dims[0] * dims[1] * 2};
+  const cuuint64_t row = static_cast<cuuint64_t>(ld ? ld : d0) * 2;
+  const cuuint64_t strides[2] = {row, row * dims[1]};
   const cuuint32_t box[3] = {BOX, BOX, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   return cuTensorMapEncodeTiled(
@@ -476,26 +480,25 @@ inline bool encode(CUtensorMap* map, const void* p, int d0, int d1, int d2) {
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// CTAs per SM and SMs of the current device for one instantiation, looked
-// up once per device (the shared-memory opt-in is set then too).
-template <int NWG, int NB, int TA, int TB, bool SWIGLU>
-cudaError_t residency(int* per_sm, int* sms) {
-  constexpr int MAX_DEV = 64;
-  static int cached[MAX_DEV][2];
+// CTAs per SM of kernel `kern` (`threads` threads, `smem` bytes of dynamic
+// shared memory) and SMs of the current device, looked up once per device
+// into the caller's `cached` (one per kernel; the shared-memory opt-in is
+// set then too).
+constexpr int MAX_DEV = 64;
+inline cudaError_t occupancy(const void* kern, int threads, int smem,
+                             int (&cached)[MAX_DEV][2], int* per_sm,
+                             int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= MAX_DEV) return cudaErrorInvalidDevice;
   if (cached[dev][0] == 0) {
-    auto kern = gmm_tc_kernel<NWG, NB, TA, TB, SWIGLU>;
-    const int threads = NWG * 128 + PRODUCER_THREADS;
     err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        smem_bytes(NWG, NB));
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     int occ = 0, n_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &occ, kern, threads, smem_bytes(NWG, NB));
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ, kern, threads,
+                                                        smem);
     if (err != cudaSuccess) return err;
     err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
@@ -506,6 +509,15 @@ cudaError_t residency(int* per_sm, int* sms) {
   *per_sm = cached[dev][0];
   *sms = cached[dev][1];
   return cudaSuccess;
+}
+
+// CTAs per SM and SMs of the current device for one instantiation.
+template <int NWG, int NB, int TA, int TB, bool SWIGLU>
+cudaError_t residency(int* per_sm, int* sms) {
+  static int cached[MAX_DEV][2];
+  return occupancy(
+      reinterpret_cast<const void*>(gmm_tc_kernel<NWG, NB, TA, TB, SWIGLU>),
+      NWG * 128 + PRODUCER_THREADS, smem_bytes(NWG, NB), cached, per_sm, sms);
 }
 
 template <int NWG, int NB, int TA, int TB, bool SWIGLU>

@@ -11,9 +11,10 @@ the profiled host ms per step, the device's busy ms per step (the sum of
 kernel times; the port runs on one stream, so kernels do not overlap), the
 idle share of the unprofiled step, the kernel launches per step, the device
 ms per step of the port's own CUDA kernels by namespace (``OWN``: the
-tensor-core body of ``gmm_swiglu`` and ``gmm``, their FMA body, the three
-GEMMs of ``gmm_swiglu_bwd``, ``swiglu_add``) against all other kernels, and
-the kernels with the most device time. Needs a CUDA device.
+tensor-core body of ``gmm_swiglu`` and ``gmm``, their FMA body, the
+tensor-core and FMA bodies of ``gmm_swiglu_bwd``, ``swiglu_add``) against all
+other kernels, each of the port's own kernels by name, and the ``TOP``
+kernels with the most device time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -33,11 +34,13 @@ from . import steps as St
 
 ARCH, BATCH, SEQ = "granite-moe-3b-a800m", 1, 4096
 WARMUP, STEPS = 1, 2
+TOP = 25   # kernels listed by device time
 # Device kernels of the port's CUDA sources, by their C++ namespaces: every
 # namespace under kernels/csrc has a bucket (a test holds them equal).
 OWN = {"gmm_swiglu and gmm, tensor cores (gmmtc::)": "gmmtc::",
        "gmm_swiglu and gmm, FMA body (gmmk::)": "gmmk::",
-       "gmm_swiglu_bwd (gsb::)": "gsb::",
+       "gmm_swiglu_bwd, tensor cores (gsbtc::)": "gsbtc::",
+       "gmm_swiglu_bwd, FMA body (gsb::)": "gsb::",
        "swiglu_add (swa::)": "swa::"}
 
 
@@ -78,7 +81,12 @@ def main():
     busy_us = sum(_device_us(e) for e in kernels)
     own = {label: sum(_device_us(e) for e in kernels if part in e.key)
            / 1e3 / STEPS for label, part in OWN.items()}
-    top = sorted(kernels, key=_device_us, reverse=True)[:15]
+    ranked = sorted(kernels, key=_device_us, reverse=True)
+
+    def rows(evts):
+        return [{"name": e.key[:90], "calls_per_step": e.count / STEPS,
+                 "device_ms_per_step": _device_us(e) / 1e3 / STEPS}
+                for e in evts]
     step_ms = 1e3 * plain_wall / STEPS
     busy_ms = busy_us / 1e3 / STEPS
     out = {
@@ -91,10 +99,9 @@ def main():
         "kernel_launches_per_step": sum(e.count for e in kernels) / STEPS,
         "own_kernels_device_ms_per_step": own,
         "other_kernels_device_ms_per_step": busy_ms - sum(own.values()),
-        "top_kernels": [{"name": e.key[:90], "calls_per_step":
-                         e.count / STEPS,
-                         "device_ms_per_step": _device_us(e) / 1e3 / STEPS}
-                        for e in top],
+        "own_kernels": rows(e for e in ranked
+                            if any(part in e.key for part in OWN.values())),
+        "top_kernels": rows(ranked[:TOP]),
     }
     print(json.dumps(out), flush=True)
     return out

@@ -19,6 +19,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -118,13 +119,8 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset,
     scale = scale if scale is not None else 1.0 / math.sqrt(hd)
     q_pos = q_offset + torch.arange(Sq, device=q.device)      # [Sq]
 
-    m_acc = torch.full((B, H, Sq), -1e30, dtype=torch.float32,
-                       device=q.device)
-    l_acc = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
-    o_acc = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
-    for start in range(0, Sk, block):
-        kb = k[:, start:start + block]
-        vb = v[:, start:start + block]
+    def body(m_acc, l_acc, o_acc, kb, vb, start):
+        """One KV block's mask, scores and online-softmax update."""
         k_pos = start + torch.arange(kb.shape[1], device=q.device)
         mask = torch.ones((Sq, kb.shape[1]), dtype=torch.bool,
                           device=q.device)
@@ -136,10 +132,26 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset,
         m_new = torch.maximum(m_acc, m)
         c_old = torch.exp(m_acc - m_new)
         c_new = torch.exp(m - m_new)
-        l_acc = l_acc * c_old + l * c_new
-        o_acc = (o_acc * c_old[..., None].transpose(1, 2)
+        l_new = l_acc * c_old + l * c_new
+        o_new = (o_acc * c_old[..., None].transpose(1, 2)
                  + o * c_new[..., None].transpose(1, 2))
-        m_acc = m_new
+        return m_new, l_new, o_new
+
+    # While autograd records, each block runs under its own checkpoint, as
+    # JAX's jax.checkpoint(body): the backward recomputes a block's fp32
+    # scores and probabilities instead of keeping every block's. Without
+    # grad (serving) the body runs directly.
+    remat = torch.is_grad_enabled() and any(t.requires_grad
+                                            for t in (q, k, v))
+    m_acc = torch.full((B, H, Sq), -1e30, dtype=torch.float32,
+                       device=q.device)
+    l_acc = torch.zeros((B, H, Sq), dtype=torch.float32, device=q.device)
+    o_acc = torch.zeros((B, Sq, H, hd), dtype=torch.float32, device=q.device)
+    for start in range(0, Sk, block):
+        args = (m_acc, l_acc, o_acc, k[:, start:start + block],
+                v[:, start:start + block], start)
+        m_acc, l_acc, o_acc = (checkpoint(body, *args, use_reentrant=False)
+                               if remat else body(*args))
     denom = l_acc.transpose(1, 2)[..., None]                  # [B,Sq,H,1]
     return (o_acc / torch.clamp(denom, min=1e-30)).to(q.dtype)
 

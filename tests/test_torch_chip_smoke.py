@@ -64,3 +64,32 @@ def test_ptxas_report_reads_each_tensor_core_kernel():
          "tb": 0, "swiglu": True, "spill_stores": 0, "spill_loads": 0,
          "registers": 96, "static_smem": 128},
     ]
+
+
+def test_ptxas_report_reads_each_backward_tensor_core_kernel():
+    """``gsbtc::bwd_kernel`` instances are read with their mode (gu, dx,
+    dw) and output type; the FMA body's kernels are skipped."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN3gsb9gu_kernelI13__nv_bfloat16EEvPKT_S4_S4_Pfiii' for "
+        "'sm_90a'",
+        "ptxas info    : Used 64 registers, 8704 bytes smem",
+        "ptxas info    : Compiling entry function "
+        "'_ZN5gsbtc10bwd_kernelILi2ELb1EEEvNS_4MapsEPK13__nv_bfloat16Pfiiii"
+        "iii' for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 120 registers, used 3 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN5gsbtc10bwd_kernelILi0ELb0EEEvNS_4MapsEPK13__nv_bfloat16Pfiiii"
+        "iii' for 'sm_90a'",
+        "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 3 barriers",
+    ])
+    assert chip_smoke.ptxas_report(log) == [
+        {"kernel": "gsbtc::bwd_kernel", "mode": "dw", "fp32_out": True,
+         "spill_stores": 0, "spill_loads": 0, "registers": 120,
+         "static_smem": 0},
+        {"kernel": "gsbtc::bwd_kernel", "mode": "gu", "fp32_out": False,
+         "spill_stores": 4, "spill_loads": 4, "registers": 168,
+         "static_smem": 0},
+    ]

@@ -177,7 +177,8 @@ def test_cpu_backward_does_not_count_launches():
     leaves = [_t(x).requires_grad_(True), _t(w).requires_grad_(True)]
     ops.moe_expert_ffn(*leaves, torch.zeros(2, 8, 16),
                        trainable=True).sum().backward()
-    assert bwd_mod.launches == gmm_mod.launches == 0
+    assert bwd_mod.launches == bwd_mod.launches_tc == 0
+    assert gmm_mod.launches == 0
 
 
 def test_bwd_wrapper_rejects_bad_operands():
@@ -218,10 +219,15 @@ def test_c_args_follow_the_kernels_own_signature():
                   torch.zeros(2, 3, 4))
     dx, dw, dgu = torch.zeros(2, 3, 8), torch.zeros(2, 8, 2, 4), \
         torch.zeros(2, 3, 8)
+    # The body (1 = tensor cores) and the output dtype's code come after
+    # the sizes, before the operands' dtype code.
     args = build.c_args("gmm_swiglu_bwd", (x, w, dout, dx, dw, dgu,
-                                           2, 3, 8, 4), torch.bfloat16)
+                                           2, 3, 8, 4, 1, 0), torch.bfloat16)
     assert args[:6] == [t.data_ptr() for t in (x, w, dout, dx, dw, dgu)]
-    assert args[6:] == [2, 3, 8, 4, 1]
+    assert args[6:] == [2, 3, 8, 4, 1, 0, 1]
+    with pytest.raises(TypeError):       # without the body and out dtype
+        build.c_args("gmm_swiglu_bwd", (x, w, dout, dx, dw, dgu,
+                                        2, 3, 8, 4), torch.float32)
     with pytest.raises(TypeError):       # the forward kernels' 9 arguments
         build.c_args("gmm_swiglu_bwd", (x, w, dout, 2, 3, 8, 4),
                      torch.float32)
@@ -230,3 +236,73 @@ def test_c_args_follow_the_kernels_own_signature():
                         torch.float32)[-2:] == [1, 0]
     with pytest.raises(TypeError):       # without the layout codes
         build.c_args("gmm", (x, w, dx, 2, 3, 8, 4), torch.float32)
+
+
+@pytest.mark.parametrize("E,C,K,F", SHAPES)
+def test_bf16_outputs_are_the_fp32_outputs_rounded(E, C, K, F):
+    """``out_dtype=torch.bfloat16`` rounds the same fp32 sums once."""
+    x, w, dout = (_t(a, "bfloat16") for a in _inputs(5, E, C, K, F))
+    w4 = w.reshape(E, K, 2, F)
+    dx, dw4 = bwd_mod.gmm_swiglu_bwd(x, w4, dout)
+    dx_b, dw4_b = bwd_mod.gmm_swiglu_bwd(x, w4, dout,
+                                         out_dtype=torch.bfloat16)
+    assert dx_b.dtype == dw4_b.dtype == torch.bfloat16
+    assert torch.equal(dx_b, dx.to(torch.bfloat16))
+    assert torch.equal(dw4_b, dw4.to(torch.bfloat16))
+    with pytest.raises(TypeError, match="out_dtype"):
+        bwd_mod.gmm_swiglu_bwd(x, w4, dout, out_dtype=torch.float16)
+
+
+def test_tensor_core_body_takes_what_tensor_maps_describe():
+    """bf16 with K and F multiples of 8 on 16-byte aligned bases; fp32,
+    a ragged F and a base 2 bytes off run the FMA body."""
+    def args(dtype, C=27, K=1536, F=512, off=0):
+        flat = torch.zeros(3 * C * K + off, dtype=dtype)
+        return (flat[off:].view(3, C, K), torch.zeros(3, K, 2, F, dtype=dtype),
+                torch.zeros(3, C, F, dtype=dtype))
+    assert bwd_mod.tensor_core_body(*args(torch.bfloat16))
+    assert bwd_mod.tensor_core_body(*args(torch.bfloat16, F=40))
+    assert not bwd_mod.tensor_core_body(*args(torch.float32))
+    assert not bwd_mod.tensor_core_body(*args(torch.bfloat16, F=18))
+    assert not bwd_mod.tensor_core_body(*args(torch.bfloat16, K=36))
+    assert not bwd_mod.tensor_core_body(*args(torch.bfloat16, off=1))
+
+
+def _beyond(got, want, tol=2e-2):
+    """Entries beyond ``chip_smoke.bwd_case``'s limit tol + tol·|want|."""
+    return int(((got - want).abs() > tol + tol * want.abs()).sum())
+
+
+def test_split_bf16_dgu_keeps_dw_within_the_card_check():
+    """Why the tensor-core body feeds dW a hi + lo pair of bf16 dgu, and dx
+    hi alone, emulated in float64 at the training C = 854: dW sums 854
+    terms that cancel, so one bf16 rounding of dg, du moves near-zero sums
+    past ``bwd_case``'s 2e-2 + 2e-2·|p| (the control), while hi + lo, with
+    lo = bf16(v - hi), stays inside it; dx passes with hi alone."""
+    E, C, K, F = 2, 854, 64, 32
+    rng = np.random.default_rng(7)
+    x, w4, dout = (torch.from_numpy(a).to(torch.bfloat16) for a in (
+        rng.standard_normal((E, C, K), dtype=np.float32),
+        rng.standard_normal((E, K, 2, F), dtype=np.float32)
+        * np.float32(K ** -0.5),
+        rng.standard_normal((E, C, F), dtype=np.float32)))
+    dx_p, dw4_p = ref.gmm_swiglu_bwd_ref(x, w4, dout)
+    # dg ‖ du in fp32, as the kernel's epilogue forms them from fp32 sums.
+    xf, wf = x.float(), w4.float()
+    g, u = torch.bmm(xf, wf[:, :, 0]), torch.bmm(xf, wf[:, :, 1])
+    sig = torch.sigmoid(g)
+    v = torch.cat([dout.float() * u * (sig * (1.0 + g * (1.0 - sig))),
+                   dout.float() * (g * sig)], dim=-1)
+    hi = v.to(torch.bfloat16)
+    lo = (v - hi.float()).to(torch.bfloat16)
+    x64, w64 = x.double(), w4.double().reshape(E, K, 2 * F)
+
+    def dw(dgu):
+        return torch.bmm(x64.transpose(1, 2), dgu.double()).reshape(
+            E, K, 2, F)
+
+    want = dw4_p.double()
+    assert _beyond(dw(hi), want) > 0                   # the control
+    assert _beyond(dw(hi.double() + lo.double()), want) == 0
+    dx_hi = torch.bmm(hi.double(), w64.transpose(1, 2))
+    assert _beyond(dx_hi, dx_p.double()) == 0

@@ -11,6 +11,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.models import layers as JL  # noqa: E402
 from repro_torch.models import layers as TL  # noqa: E402
+from torch.utils.checkpoint import checkpoint  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -73,6 +74,78 @@ def test_blockwise_attention_matches(Sk, block, window):
                                  q_offset=0, sliding_window=window,
                                  block=block)
     _close(got, want)
+
+
+def _attn_inputs(Sk, grad=False):
+    B, H, K, hd = 2, 4, 2, 8
+    q, k, v = (torch.from_numpy(_rand((B, Sk, n, hd), seed))
+               for n, seed in ((H, 4), (K, 5), (K, 6)))
+    return [t.requires_grad_(grad) for t in (q, k, v)]
+
+
+def test_blockwise_attention_backward_keeps_no_block_scores():
+    """As JAX checkpoints each KV block (layers.py:150-155), the backward
+    recomputes a block's fp32 scores. The memory that autograd keeps for it
+    (distinct storages of the tensors saved outside the blocks' checkpoints)
+    grows with the number of blocks only by the per-block carries, and is
+    less than the scores of a single block."""
+    Sk = 256
+
+    def saved_bytes(block):
+        storages = {}
+
+        def pack(t):
+            st = t.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+            return t
+
+        q, k, v = _attn_inputs(Sk, grad=True)
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            out = TL.blockwise_attention(q, k, v, causal=True, q_offset=0,
+                                         block=block)
+        out.sum().backward()
+        return sum(storages.values()), q.shape
+
+    whole, (B, Sq, H, hd) = saved_bytes(Sk)
+    quarter, _ = saved_bytes(Sk // 4)
+    carries = 4 * (2 * B * H * Sq + B * Sq * H * hd)     # m, l, o in fp32
+    assert quarter <= whole + 3 * carries
+    assert whole < 4 * B * H * Sq * Sk                   # one block's scores
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_blockwise_attention_grads_match(window):
+    """Grads through the per-block checkpoints vs jax.vjp of the reference,
+    which checkpoints each block too."""
+    q, k, v = _attn_inputs(20, grad=True)
+    dout = _rand(tuple(q.shape), 7)
+    kw = dict(causal=True, q_offset=0, sliding_window=window, block=8)
+    _, vjp = jax.vjp(lambda a, b, c: JL.blockwise_attention(a, b, c, **kw),
+                     *(jnp.asarray(t.detach().numpy()) for t in (q, k, v)))
+    TL.blockwise_attention(q, k, v, **kw).backward(torch.from_numpy(dout))
+    for t, want in zip((q, k, v), vjp(jnp.asarray(dout))):
+        _close(t.grad, want)
+
+
+def test_blockwise_attention_checkpoints_only_under_grad(monkeypatch):
+    calls = []
+
+    def counting(fn, *args, **kw):
+        calls.append(kw)
+        return checkpoint(fn, *args, **kw)
+
+    monkeypatch.setattr(TL, "checkpoint", counting)
+    q, k, v = _attn_inputs(20, grad=True)
+    with torch.no_grad():
+        TL.blockwise_attention(q, k, v, causal=True, q_offset=0, block=8)
+    with torch.inference_mode():
+        TL.blockwise_attention(q, k, v, causal=True, q_offset=0, block=8)
+    assert calls == []
+    TL.blockwise_attention(*_attn_inputs(20), causal=True, q_offset=0,
+                           block=8)
+    assert calls == []                    # nothing requires grad
+    TL.blockwise_attention(q, k, v, causal=True, q_offset=0, block=8)
+    assert calls == [{"use_reentrant": False}] * 3
 
 
 @pytest.mark.parametrize("lens", [7, [3, 12, 1]])
