@@ -55,7 +55,29 @@ Phases, each printing one JSON line:
    gmm_swiglu 2 launches (forward, recompute), gmm 4 (forward, recompute,
    dx and dw of the backward) and gmm_swiglu_bwd 1, every one of those on
    its tensor-core body. Then the step's time split into each kernel's
-   time x launches and the rest.
+   time x launches and the rest;
+7. dropless_tiles — ``gmm`` against its plain version at the calls the
+   dropless fragment's tiles make: E = 1, fp32 (the FMA body), ragged rows
+   C in DROPLESS_ROWS, GMM1 (K/N = 1536/1024) and GMM2 (512/1536), their
+   activation-gradient products with w a transposed view, and their weight
+   gradients with x a transposed view (a reduction over the rows); repeat
+   calls bit-equal; the six calls at C = DROPLESS_TIMED_ROWS are timed;
+8. dropless_fragment — ``launch.bench_dropless`` on one full-width layer
+   (T = 4096, the layer's own router, seed 0) at ep = 1 and ep = 4 (four
+   virtual ranks on the card; their puts are device copies, not a
+   collective): the forward against the plain executor and against the
+   fixed-capacity ``moe_grouped`` with a capacity that drops nothing, the
+   grads against autograd of the plain fragment, the backward's recompute
+   bit-equal to the forward; then the fragment's forward (a cache hit) and
+   backward ms, compile ms on a miss, tasks and ``gmm`` launches per call,
+   beside the fixed-capacity bf16 layer's forward and backward (C = 854);
+9. dropless_train — a 2-layer full-width dropless step against the
+   fixed-capacity step at a capacity that drops nothing (loss within
+   LOSS_TOL, each grad leaf's norm within GNORM_TOL); then
+   ``launch.train --dropless`` at full width and depth, DROPLESS_STEPS
+   steps of 1 x 4096 tokens (the first is warm-up): per step ms, tokens/s,
+   the ``ssc_*`` counters, peak memory and ``gmm`` launches, the only
+   kernel that path runs.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
@@ -90,7 +112,10 @@ from repro_torch.kernels import gmm_swiglu_bwd as bwd_mod  # noqa: E402
 from repro_torch.kernels import swiglu_add as swa_mod  # noqa: E402
 from repro_torch.kernels.ref import (gmm_ref, gmm_swiglu_bwd_ref,  # noqa
                                      gmm_swiglu_ref, moe_ffn_ref)
+from repro_torch.core.ssc import SSCCache  # noqa: E402
+from repro_torch.launch import bench_dropless as dropless_bench  # noqa
 from repro_torch.launch import bench_swiglu_add as bench_mod  # noqa: E402
+from repro_torch.launch import dropless as dropless_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
@@ -131,6 +156,12 @@ TILE_EDGES = (1, 2, 15, 16, 17, 27, 63, 64, 65, 127, 128, 129, 854)
 # F = 36 not a multiple of the 16-byte vectors (8 bf16 or 4 fp32).
 SWIGLU_ADD_CHECKS = [(M, F) for M in (256, 1000, 4096, 32768)
                      for F in (2048, 36)]
+# Row counts of the dropless fragment's tiles: ragged, across the FMA body's
+# tile edges, up to an expert's share of a 4096-token batch and beyond.
+DROPLESS_ROWS = (1, 15, 17, 127, 683, 1001)
+DROPLESS_TIMED_ROWS = 683       # an expert's mean share: 4096 x 8 / 48
+# Full-depth dropless training: steps of 1 x 4096 tokens, the first warm-up.
+DROPLESS_STEPS = 3
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -784,6 +815,122 @@ def run_train(cfg, rows):
     return out, launches
 
 
+def run_dropless_tiles(cfg):
+    """Phase 7: ``gmm`` at the dropless tiles' calls, fp32, E = 1: GMM1 and
+    GMM2 (x·W), their activation gradients (x·Wᵀ, w a transposed view) and
+    their weight gradients (xᵀ·dy, x a transposed view, summing over the
+    rows)."""
+    D, F2, Fe = cfg.d_model, 2 * cfg.moe.d_expert, cfg.moe.d_expert
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for C in DROPLESS_ROWS:
+        for tile, c, K, N, lay in (
+                ("gmm1", C, D, F2, (0, 0)), ("gmm2", C, Fe, D, (0, 0)),
+                ("gmm1_act_grad", C, F2, D, (0, 1)),
+                ("gmm2_act_grad", C, D, Fe, (0, 1)),
+                ("gmm1_wgrad", D, C, F2, (1, 0)),
+                ("gmm2_wgrad", Fe, C, D, (1, 0))):
+            r = kernel_case("gmm", 1, c, K, N, torch.float32, gen,
+                            timed=C == DROPLESS_TIMED_ROWS, layouts=lay,
+                            repeat=True)
+            r.update(shape="dropless_tile", tile=tile, rows=C)
+            rows.append(r)
+    return rows
+
+
+def run_dropless_fragment():
+    """Phase 8: one full-width layer's dropless fragment, checked and timed
+    by ``launch.bench_dropless`` at ep = 1 and 4."""
+    out = dropless_bench.main(["--device", "cuda"])
+    for r in out["rows"]:
+        if not (r["gmm_launches_forward"] > 0
+                and r["gmm_launches_backward"] > 0):
+            raise AssertionError(f"the dropless fragment ran no gmm: {r}")
+        if not all(math.isfinite(r[k]) for k in (
+                "forward_ms", "backward_ms", "compile_forward_ms",
+                "compile_backward_ms")):
+            raise AssertionError(f"non-finite dropless time: {r}")
+    torch.cuda.empty_cache()
+    return {"phase": "dropless_fragment",
+            "note": "ep = 4 is four virtual ranks on one card; their puts "
+                    "are device copies, not a collective",
+            **out}
+
+
+def run_dropless_train(cfg):
+    """Phase 9: 2-layer dropless parity with the fixed-capacity step, then
+    ``launch.train --dropless`` at full width and depth."""
+    # top-k picks an expert at most once per token, so C = T drops nothing:
+    # capacity_factor = e_total / top_k gives C = T.
+    mc = cfg.moe
+    pcfg = dataclasses.replace(
+        cfg, n_layers=PARITY_LAYERS, moe=dataclasses.replace(
+            mc, capacity_factor=mc.e_total / mc.top_k))
+    params = adamw.cast_params(M.init_params(
+        pcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda"),
+        pcfg.compute_dtype)
+    batch = train_batch(pcfg)
+    dm = dropless_mod.DroplessMoE(dropless_mod.DroplessConfig(),
+                                  cache=SSCCache())
+    ld, gd = steps_mod.value_and_grad(pcfg, params, batch, moe_impl=dm.impl)
+    lf, gf = steps_mod.value_and_grad(pcfg, params, batch)
+    ld, lf = float(ld), float(lf)
+    if not (math.isfinite(ld) and math.isfinite(lf)):
+        raise AssertionError(f"non-finite dropless parity losses {ld}, {lf}")
+    loss_gap = abs(ld - lf) / abs(lf)
+    gaps = [abs(float(a.float().norm()) - float(b.float().norm()))
+            / max(float(b.float().norm()), 1e-30)
+            for a, b in zip(adamw.tree_leaves(gd), adamw.tree_leaves(gf))]
+    parity = {"n_layers": PARITY_LAYERS, "tokens": TRAIN_BATCH * TRAIN_SEQ,
+              "fixed_capacity": capacity(TRAIN_BATCH * TRAIN_SEQ,
+                                         pcfg.moe),
+              "loss_dropless": ld, "loss_fixed": lf, "loss_rel_gap": loss_gap,
+              "loss_tol": LOSS_TOL, "grad_leaves": len(gaps),
+              "grad_norm_rel_gap_max": max(gaps),
+              "grad_norm_rel_gap_median": statistics.median(gaps),
+              "grad_norm_tol": GNORM_TOL,
+              "ssc_misses": dm.cache.info()["misses"]}
+    if loss_gap > LOSS_TOL or max(gaps) > GNORM_TOL:
+        raise AssertionError(f"dropless train step differs from the "
+                             f"fixed-capacity step: {parity}")
+    del params, gd, gf, dm
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    t = time.perf_counter()
+    run = train_mod.main(["--arch", ARCH, "--seq", str(TRAIN_SEQ),
+                          "--global-batch", str(TRAIN_BATCH),
+                          "--steps", str(DROPLESS_STEPS), "--dropless"])
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    log = run.metrics_log
+    if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+               for m in log):
+        raise AssertionError(f"non-finite dropless training metrics: {log}")
+    if launches["gmm"] == 0 or any(v for k, v in launches.items()
+                                   if k != "gmm"):
+        raise AssertionError(f"dropless training launches {launches}: gmm "
+                             f"only, at least once")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_ms = statistics.median(m["step_ms"] for m in log[1:])
+    out = {"phase": "dropless_train", "parity": parity, "arch": cfg.name,
+           "dtype": cfg.dtype, "n_layers": cfg.n_layers, "remat": cfg.remat,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": DROPLESS_STEPS,
+           "dropless": dataclasses.asdict(run.dropless.dc), "wall_s": wall,
+           "per_step": [dict(m, tokens_per_s=tokens / (m["step_ms"] / 1e3))
+                        for m in log],
+           "step_ms_median_after_warmup": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "max_memory_allocated_bytes": max(m["peak_bytes"] for m in log),
+           "launches": launches,
+           "cache": {k: v for k, v in run.dropless.cache.info().items()
+                     if k != "per_entry"}}
+    del run
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
     """The ``kernels`` line's entry of a swiglu_add mode: timed at the
     paper's largest size in bf16 (M = 32768), with every size beside it."""
@@ -844,12 +991,20 @@ def main() -> int:
     train_out, train_launches = run_train(cfg, rows)
     emit(train_out)
 
+    tile_rows = run_dropless_tiles(cfg)
+    emit({"phase": "dropless_tiles", "rows": tile_rows})
+    rows += tile_rows
+    emit(run_dropless_fragment())
+    dropless_out, dropless_launches = run_dropless_train(cfg)
+    emit(dropless_out)
+
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     for name, spec in KERNELS.items():
         by_path = {"serving": serve_launches[name],
                    "training": train_launches[name],
-                   "swiglu_add_bench": swa_launches[name]}
+                   "swiglu_add_bench": swa_launches[name],
+                   "dropless": dropless_launches[name]}
         if name.startswith("swiglu_add"):
             kernels.append(swiglu_add_entry(name, spec, swa_checks,
                                             bench_out, by_path))
@@ -872,6 +1027,10 @@ def main() -> int:
             "train_shape": {k: t[k] for k in (
                 "C", "K", "N", *timing, "eager_ms", "host_us", "gemm_only_ms",
                 "fp32_out_ms", "body") if k in t}})
+        if name == "gmm":          # the dropless tiles' calls, fp32, E = 1
+            kernels[-1]["dropless_tiles"] = [
+                {k: x[k] for k in ("tile", "C", "K", "N", *timing)}
+                for x in tile_rows if "ms" in x]
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError(f"non-finite kernel time: {kernels}")
     emit({"kernels": kernels})

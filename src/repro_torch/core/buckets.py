@@ -13,8 +13,7 @@ A :class:`BucketSpec` is a serializable, hashable quantization policy over
 nonzero cell counts. Three policies:
 
 * ``linear(rows)`` — round each nonzero count up to the next multiple of
-  ``rows``. The legacy ``bucket_rows`` behaviour; ``linear(1)`` is the
-  exact (identity) spec. Constant absolute padding per cell, so tiny cells
+  ``rows``; ``linear(1)`` is the exact (identity) spec. Constant absolute padding per cell, so tiny cells
   pay a large *relative* padding cost (a 1-row cell pads to ``rows``) and
   large cells outgrow the bucket under jitter.
 * ``geometric(base, growth=2)`` — round up to the next rung of the ladder
@@ -47,7 +46,7 @@ trace is never lower (also property-tested). ``geometric(b)`` coarsens
 
 Serialization: :meth:`BucketSpec.key` is the canonical hashable tuple that
 rides the SSC cache key and ``Schedule.opts``/blob;
-:meth:`BucketSpec.from_any` accepts a spec, a legacy ``bucket_rows`` int,
+:meth:`BucketSpec.from_any` accepts a spec, a linear bucket-size int,
 a CLI string (``"geometric:8"``), or a serialized key, so every layer can
 take whichever form its caller holds.
 """
@@ -82,8 +81,8 @@ class BucketSpec:
     # -- constructors --------------------------------------------------------
     @classmethod
     def linear(cls, rows: int) -> "BucketSpec":
-        """Round nonzero counts up to a multiple of ``rows`` (legacy
-        ``bucket_rows``); ``rows <= 1`` is the exact/identity spec."""
+        """Round nonzero counts up to a multiple of ``rows``; ``rows <= 1``
+        is the exact/identity spec."""
         return cls(policy="linear", rows=max(1, int(rows)))
 
     @classmethod
@@ -129,9 +128,8 @@ class BucketSpec:
         """Canonical hashable identity (rides the SSC cache key and blob).
 
         ``linear(rows)`` keys as ``("linear", rows)`` — by construction the
-        same tuple whether it came from the legacy ``bucket_rows`` int shim
-        or an explicit spec, which is the key-identity contract the
-        dropless shim test pins. A mesh tag appends ``("ep", n)``:
+        same tuple whether it came from an int or an explicit spec. A mesh
+        tag appends ``("ep", n)``:
         ``linear(16).for_mesh(4)`` keys as ``("linear", 16, ("ep", 4))``,
         while untagged specs keep the pre-tag byte-identical form.
         """
@@ -184,8 +182,8 @@ class BucketSpec:
                 return cls.linear(int(t))
             except ValueError:
                 raise ValueError(
-                    f"bucket spec {text!r}: expected an int (legacy "
-                    f"bucket_rows) or policy:params "
+                    f"bucket spec {text!r}: expected an int (linear "
+                    f"rows) or policy:params "
                     f"(linear:R | geometric:B[xG] | ladder:E1,E2,...)")
         policy, _, params = t.partition(":")
         if policy == "linear":
@@ -205,8 +203,8 @@ class BucketSpec:
                  ) -> "BucketSpec":
         """Normalize any accepted bucket argument to a spec.
 
-        ``None`` and ints are the legacy ``bucket_rows`` shim
-        (``None``/``<=1`` = exact); strings go through :meth:`parse`;
+        ``None`` is exact and an int ``r`` is ``linear(r)`` (``<= 1`` =
+        exact); strings go through :meth:`parse`;
         tuples/lists are serialized :meth:`key`/:meth:`spec` forms.
         """
         if obj is None:
@@ -423,12 +421,3 @@ def fit_ladder(plans, budget: int, split_penalty: float = 0.5) -> BucketSpec:
         edges.append(int(vals[j]))
         k -= 1
     return BucketSpec.ladder(edges)
-
-
-def normalize_bucket(bucket, bucket_rows: Optional[int] = None) -> BucketSpec:
-    """Resolve the (new-style ``bucket``, legacy ``bucket_rows``) pair every
-    threaded-through signature accepts: ``bucket`` wins when given, else the
-    legacy int (``None`` → exact)."""
-    if bucket is not None:
-        return BucketSpec.from_any(bucket)
-    return BucketSpec.from_any(bucket_rows)

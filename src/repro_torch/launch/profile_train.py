@@ -1,6 +1,6 @@
 """Where a training step's time goes on the card.
 
-    PYTHONPATH=src python -m repro_torch.launch.profile_train
+    PYTHONPATH=src python -m repro_torch.launch.profile_train [--dropless]
 
 Trains granite-moe-3b-a800m at full width and depth with the shapes of
 ``chip_smoke.py``'s training phase: batches of 1 x 4096 tokens from
@@ -14,11 +14,14 @@ ms per step of the port's own CUDA kernels by namespace (``OWN``: the
 tensor-core body of ``gmm_swiglu`` and ``gmm``, their FMA body, the
 tensor-core and FMA bodies of ``gmm_swiglu_bwd``, ``swiglu_add``) against all
 other kernels, each of the port's own kernels by name, and the ``TOP``
-kernels with the most device time. Needs a CUDA device.
+kernels with the most device time. ``--dropless`` trains the MoE through
+the dropless tile taskflow (``launch.dropless``, its default config), as
+``launch.train --dropless`` does. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import time
 
@@ -31,6 +34,7 @@ from ..device import resolve_device
 from ..models import model as M
 from ..optim import adamw
 from . import steps as St
+from .dropless import DroplessConfig
 
 ARCH, BATCH, SEQ = "granite-moe-3b-a800m", 1, 4096
 WARMUP, STEPS = 1, 2
@@ -48,7 +52,11 @@ def _device_us(evt) -> float:
     return float(evt.self_device_time_total)
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--dropless", action="store_true",
+                    help="the MoE through the dropless tile taskflow")
+    args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     cfg = get_config(ARCH)
     params = adamw.cast_params(
@@ -56,7 +64,8 @@ def main():
                       device=dev), cfg.compute_dtype)
     state = adamw.init_opt_state(params)
     step = St.make_train_step(cfg, adamw.OptConfig(
-        lr=1e-3, warmup_steps=2, total_steps=WARMUP + 2 * STEPS))
+        lr=1e-3, warmup_steps=2, total_steps=WARMUP + 2 * STEPS),
+        dropless=DroplessConfig() if args.dropless else None)
     stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
                                         global_batch=BATCH))
     batches = [stream.batch(i, dev) for i in range(WARMUP + 2 * STEPS)]
@@ -91,6 +100,7 @@ def main():
     busy_ms = busy_us / 1e3 / STEPS
     out = {
         "arch": cfg.name, "batch": BATCH, "seq": SEQ, "steps": STEPS,
+        "moe": "dropless" if args.dropless else "fixed capacity",
         "device": torch.cuda.get_device_name(0),
         "step_ms": step_ms,
         "step_ms_profiled": 1e3 * wall / STEPS,

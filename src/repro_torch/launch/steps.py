@@ -2,8 +2,11 @@
 
 ``make_train_step(cfg, opt)`` is the single-device body of
 ``make_steps``' ``train_step``: loss → autograd → AdamW, with the same
-microbatch (``accum_steps``) policy. Sharding rules, EP, the dropless path
-and ``grad_transform`` come with later slices and raise here.
+microbatch (``accum_steps``) policy. ``dropless=DroplessConfig(...)`` trains
+the MoE through each batch's compiled schedules (``launch.dropless``), and
+the step's metrics then carry the SSC cache's per-step ``ssc_*`` deltas.
+Sharding rules, EP and ``grad_transform`` come with later slices and raise
+here.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ import torch
 
 from ..models import model as M
 from ..optim import adamw
-
+from .dropless import make_moe_dropless
 
 
 def value_and_grad(cfg, params, batch, moe_impl=None):
@@ -37,18 +40,27 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with ``loss``, ``grad_norm`` and ``lr`` in ``metrics``.
 
-    ``params`` and ``opt_state`` are updated in place (``adamw``). The
-    arguments of the JAX ``make_steps`` that a later slice brings raise if
-    given.
+    ``params`` and ``opt_state`` are updated in place (``adamw``).
+    ``dropless``: a :class:`repro_torch.launch.dropless.DroplessConfig`
+    switches the MoE from the fixed-capacity kernels to dropless,
+    data-dependent schedules; ``train_step.dropless`` is then the
+    :class:`~repro_torch.launch.dropless.DroplessMoE` handle (its cache is
+    the process-level one) and ``metrics`` gain ``ssc_hits``,
+    ``ssc_misses``, ``ssc_evictions``, ``ssc_entries`` and
+    ``ssc_pad_ratio`` for the step. The arguments of the JAX ``make_steps``
+    that a later slice brings raise if given.
     """
     for name, value, later in (
             ("mesh", mesh, "the port's EP/sharding slice"),
             ("ep", ep, "the port's EP slice"),
-            ("dropless", dropless, "the port's dropless-executor slice"),
             ("grad_transform", grad_transform,
              "the port's sharding slice (gradient compression)")):
         if value is not None:
             raise NotImplementedError(f"{name} comes with {later}")
+    dropless_moe = None
+    if dropless is not None and cfg.family == "moe":
+        dropless_moe = make_moe_dropless(cfg, dropless)
+        moe_impl = dropless_moe.impl
     opt = opt or adamw.OptConfig()
     if accum_steps == 0:
         # Default policy: microbatch the big archs so train activations fit
@@ -71,6 +83,10 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
         params, opt_state, metrics = adamw.apply_updates(
             params, grads, opt_state, opt)
         metrics["loss"] = loss
+        if dropless_moe is not None:
+            for k, v in dropless_moe.step_stats().items():
+                metrics[f"ssc_{k}"] = v
         return params, opt_state, metrics
 
+    train_step.dropless = dropless_moe
     return train_step

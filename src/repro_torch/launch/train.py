@@ -6,12 +6,19 @@ On the card (the default), granite-moe-3b-a800m at full width and depth on
         --global-batch 1 --steps 4
 On the CPU, at the smoke size:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+``--dropless`` trains the MoE through each batch's compiled tile taskflow
+(``launch.dropless``; ``--dropless-ep``, ``--dropless-bucket`` and
+``--sched`` as in the JAX launcher):
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --dropless --steps 3
 
 Params come from ``init_params`` (seed 0), cast to the compute dtype as the
 JAX launcher casts them; batches from ``SyntheticStream``. Each step logs
-its loss, grad norm and host-clock ms (the step ends by waiting for the
-device). The JAX launcher's mesh, EP, dropless and checkpoint options
-belong to later slices of the port and are refused.
+its loss, grad norm, host-clock ms (the step ends by waiting for the
+device), the ``gmm`` kernel launches it made and, on the card, the peak
+device memory so far; a dropless step also its ``ssc_*`` cache counters. The JAX
+launcher's mesh, EP and checkpoint options belong to later slices of the
+port and are refused.
 """
 
 from __future__ import annotations
@@ -22,18 +29,20 @@ import time
 
 import torch
 
+from ..core.buckets import BucketSpec
+from ..core.passes import pipeline_arg
 from ..device import resolve_device
 from ..data.pipeline import DataConfig, SyntheticStream
+from ..kernels import gmm as gmm_kernel
 from ..models import model as M
 from ..optim import adamw
 from . import steps as St
+from .dropless import DroplessConfig
 
 # Options of the JAX launcher and the slice of the port that brings them.
 _REFUSED = {
     "--mesh": "the port's EP/sharding slice",
     "--mode": "the port's EP/sharding slice",
-    "--dropless": "the port's dropless-executor slice",
-    "--sched": "the port's schedule-compiler slice",
     "--ckpt-dir": "the port's checkpoint/fault-tolerance slice",
     "--ckpt-every": "the port's checkpoint/fault-tolerance slice",
 }
@@ -43,7 +52,11 @@ _REFUSED = {
 class TrainRun:
     params: dict
     opt_state: dict
-    metrics_log: list   # per step: step, loss, grad_norm, lr, step_ms
+    # Per step: step, loss, grad_norm, lr, step_ms, gmm_launches,
+    # peak_bytes (the card's peak so far; None off the card), and ssc_*
+    # when dropless.
+    metrics_log: list
+    dropless: object = None   # the DroplessMoE handle of a dropless run
 
 
 def main(argv=None) -> TrainRun:
@@ -56,6 +69,23 @@ def main(argv=None) -> TrainRun:
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dropless", action="store_true",
+                    help="compile/reuse schedules from each batch's actual "
+                         "router output (capacity=None) instead of running "
+                         "the fixed-capacity path")
+    ap.add_argument("--dropless-ep", type=int, default=1,
+                    help="EP group size of the compiled dropless fragment "
+                         "(virtual ranks on the one device)")
+    ap.add_argument("--dropless-bucket", default="16", metavar="SPEC",
+                    help="shape-bucket policy for plan row counts: a linear "
+                         "bucket size int ('16'; '1' = exact plans), "
+                         "'geometric:B[xG]' or 'ladder:E1,E2,...'; see "
+                         "repro_torch.core.buckets.BucketSpec")
+    ap.add_argument("--sched", default=None, metavar="PIPELINE",
+                    help="schedule-pass pipeline for the dropless path: "
+                         "'auto', a named core.passes.SCHED_PIPELINES entry "
+                         "(e.g. 'ratr+crit'), or a comma-separated pass "
+                         "list; default keeps the DroplessConfig default")
     for flag in _REFUSED:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -64,12 +94,34 @@ def main(argv=None) -> TrainRun:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag} is not ported yet; it comes with {later}")
 
+    kw = {}
+    if args.sched is not None:
+        # Validate eagerly: an unknown pass name fails fast, and a --sched
+        # that cannot take effect says so instead of training with defaults.
+        try:
+            kw["pipeline"] = pipeline_arg(args.sched)
+        except KeyError as e:
+            ap.error(str(e))
+        if not args.dropless:
+            ap.error("--sched only applies to the dropless scheduling path; "
+                     "add --dropless")
+    dropless = None
+    if args.dropless:
+        try:
+            bucket = BucketSpec.parse(args.dropless_bucket)
+        except ValueError as e:
+            ap.error(str(e))
+        dropless = DroplessConfig(ep=args.dropless_ep, bucket=bucket, **kw)
+        print(f"dropless shape buckets: {bucket}")
+        if kw:
+            print(f"dropless schedule pipeline: {dropless.pipeline!r}")
+
     from ..configs import get_config, get_smoke_config
     dev = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     oc = adamw.OptConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),
                          total_steps=args.steps)
-    step_fn = St.make_train_step(cfg, oc)
+    step_fn = St.make_train_step(cfg, oc, dropless=dropless)
     params = adamw.cast_params(
         M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                       device=dev), cfg.compute_dtype)
@@ -77,20 +129,37 @@ def main(argv=None) -> TrainRun:
     stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                         global_batch=args.global_batch))
     log = []
+    cuda = dev.type == "cuda"
     for s in range(args.steps):
         batch = stream.batch(s, dev)
+        launches = gmm_kernel.launches
         t = time.perf_counter()
         params, opt_state, m = step_fn(params, opt_state, batch)
-        if dev.type == "cuda":
+        if cuda:
             torch.cuda.synchronize(dev)
         ms = 1e3 * (time.perf_counter() - t)
         rec = {"step": s, "loss": float(m["loss"]),
                "grad_norm": float(m["grad_norm"]), "lr": m["lr"],
-               "step_ms": ms}
+               "step_ms": ms, "gmm_launches": gmm_kernel.launches - launches,
+               "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
+                              else None)}
+        rec.update({k: v for k, v in m.items() if k.startswith("ssc_")})
         log.append(rec)
+        ssc = ("" if dropless is None else
+               f" ssc hits {rec['ssc_hits']} misses {rec['ssc_misses']} "
+               f"entries {rec['ssc_entries']} "
+               f"pad {rec['ssc_pad_ratio']:.3f}")
         print(f"step {s:4d} loss {rec['loss']:.4f} "
-              f"gnorm {rec['grad_norm']:.3f} {ms:.0f}ms", flush=True)
-    return TrainRun(params=params, opt_state=opt_state, metrics_log=log)
+              f"gnorm {rec['grad_norm']:.3f} {ms:.0f}ms{ssc}", flush=True)
+    if dropless is not None:
+        info = step_fn.dropless.cache.info()
+        total = max(1, info["hits"] + info["misses"])
+        print(f"dropless SSC cache: {info['entries']} entries "
+              f"({info['bytes'] / 1024:.0f} KiB), "
+              f"hit rate {info['hits'] / total:.1%} "
+              f"({info['misses']} compiles, {info['evictions']} evictions)")
+    return TrainRun(params=params, opt_state=opt_state, metrics_log=log,
+                    dropless=step_fn.dropless)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,12 @@
   buffers feeding a grouped GEMM; ``gmm_fn=kernels.ops.moe_expert_ffn`` runs
   it through the Hopper kernels (the model's default).
 
+``plan_from_routing`` bridges this layer to the scheduling stack
+(``repro_torch.core``): it turns a batch's actual top-k assignment into a
+compilable ``RoutingPlan`` on the host, in numpy, and ``bridge_dispatch`` /
+``bridge_combine`` move the tokens into and out of the plan's send buffers
+on the tensors' device.
+
 Routing uses fixed expert capacity:
 ``capacity = ceil(tokens · top_k / E · capacity_factor)``; overflow tokens
 are dropped (the dense ref applies the same mask).
@@ -17,6 +23,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -164,3 +171,207 @@ def moe_grouped(params, x, mc: MoEConfig, act: str = "swiglu",
         y = y + (out_e[top_i[:, j], slot[:, j]]
                  * top_p[:, j][:, None].to(x.dtype))
     return y.reshape(B, S, d)
+
+
+# ---------------------------------------------------------------------------
+# RoutingPlan bridge — real router output → compilable schedule input.
+#
+# The bridge turns a batch's actual (imbalanced) expert assignment into a
+# RoutingPlan plus the row bookkeeping needed to scatter tokens into the
+# plan's send-buffer layout and to apply top-k combine weights to the
+# executor's returned rows. Tokens are split contiguously over EP source
+# ranks, so a token's global order equals (src-major, local order) — the
+# slot order `moe_grouped` produces. The plan and ``send_row`` are built on
+# the host from ``top_i``; only the index tensors derived from ``send_row``
+# go to the device.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RoutingBridge:
+    """A RoutingPlan plus token↔row maps for one routed batch."""
+
+    plan: "object"              # repro_torch.core.routing.RoutingPlan
+    # Row index into source rank s's send buffer for choice (s, t, k);
+    # -1 where the choice was dropped by capacity.
+    send_row: np.ndarray        # int64 [ep, T_loc, k]
+    _rows: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    @property
+    def ep(self) -> int:
+        return self.send_row.shape[0]
+
+    @property
+    def dropped(self) -> bool:
+        return bool((self.send_row < 0).any())
+
+    def rows_on(self, device) -> torch.Tensor:
+        """``send_row`` as an int64 tensor on ``device``, uploaded once per
+        bridge (through pinned memory without waiting on a card)."""
+        device = torch.device(device)
+        if device not in self._rows:
+            self._rows[device] = _to_device(self.send_row, device)
+        return self._rows[device]
+
+
+def _to_device(arr: np.ndarray, device) -> torch.Tensor:
+    """A host array on ``device``. To a card it is copied from pinned memory
+    without blocking the host, so it adds no wait on the device's queue."""
+    t = torch.from_numpy(np.ascontiguousarray(arr))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+def _cumcount(keys: np.ndarray) -> np.ndarray:
+    """Occurrence index of each element within its key group, in order.
+
+    Vectorized (stable argsort + group starts): this runs once per routed
+    batch on [T*k] choices, so no per-choice Python loop.
+    """
+    n = keys.shape[0]
+    if n == 0:
+        return np.zeros(0, dtype=np.int64)
+    order = np.argsort(keys, kind="stable")
+    sorted_keys = keys[order]
+    starts = np.r_[0, np.flatnonzero(np.diff(sorted_keys)) + 1]
+    group_start = np.repeat(starts, np.diff(np.r_[starts, n]))
+    rank = np.empty(n, dtype=np.int64)
+    rank[order] = np.arange(n, dtype=np.int64) - group_start
+    return rank
+
+
+def bucket_counts(counts: np.ndarray, bucket=1) -> np.ndarray:
+    """Quantize per-(src, dst, expert) row counts into shape buckets.
+
+    ``bucket`` is any :func:`repro_torch.core.buckets.BucketSpec.from_any`
+    argument (a linear bucket-size int, a ``BucketSpec``, or a spec string
+    like ``"geometric:8"``). Nonzero cells round *up* to their policy bucket
+    (the padding rows stay zero-filled in the send buffers, so execution is
+    unchanged); empty cells stay empty, so plan sparsity is preserved. Two
+    batches whose counts land in the same buckets produce identical plans
+    and therefore share one SSC cache entry.
+    """
+    from ..core.buckets import BucketSpec
+    spec = BucketSpec.from_any(bucket)
+    if spec.is_exact:
+        return counts
+    return spec.quantize(counts)
+
+
+def _per_rank(top_i, mc: MoEConfig, ep: int) -> np.ndarray:
+    """``top_i`` [T, k] or [ep, T_loc, k] as a host array [ep, T_loc, k]."""
+    ti = np.asarray(top_i)
+    if ti.ndim == 2:
+        T, k = ti.shape
+        if T % ep:
+            raise ValueError(f"T={T} tokens not divisible by ep={ep}")
+        ti = ti.reshape(ep, T // ep, k)
+    if ti.shape[0] != ep:
+        raise ValueError(f"leading dim {ti.shape[0]} != ep={ep}")
+    if mc.e_total % ep:
+        raise ValueError(f"e_total={mc.e_total} not divisible by ep={ep}")
+    return ti
+
+
+def routed_counts(top_i, mc: MoEConfig, ep: int) -> np.ndarray:
+    """Exact per-(src, dst, expert) row counts of one batch's routing, as
+    int64 ``[ep, ep, e_loc]`` (``top_i`` as in :func:`plan_from_routing`).
+    """
+    ti = _per_rank(top_i, mc, ep)
+    e_loc = mc.e_total // ep
+    _, t_loc, k = ti.shape
+    flat = ti.reshape(-1).astype(np.int64)
+    src_idx = np.repeat(np.arange(ep, dtype=np.int64), t_loc * k)
+    counts = np.zeros((ep, ep, e_loc), dtype=np.int64)
+    np.add.at(counts, (src_idx, flat // e_loc, flat % e_loc), 1)
+    return counts
+
+
+def plan_from_routing(top_i, mc: MoEConfig, ep: int,
+                      capacity: Optional[int] = None,
+                      bucket=None) -> RoutingBridge:
+    """Turn real router output into a compilable :class:`RoutingBridge`.
+
+    ``top_i``: expert indices [T, k] (tokens split contiguously over ``ep``
+    source ranks; T % ep == 0) or already per-rank [ep, T_loc, k], as a host
+    array. ``capacity``: per-(global expert) token cap applied in global
+    token order, matching ``make_dispatch``; ``None`` = dropless.
+    ``bucket``: a ``BucketSpec`` (or anything ``BucketSpec.from_any``
+    accepts; ``None`` = exact) quantizing each cell's row count up to its
+    shape bucket. The actual rows occupy the head of each padded cell and
+    the tail rows stay zero.
+    """
+    from ..core.buckets import BucketSpec
+    from ..core.routing import RoutingPlan
+
+    spec = BucketSpec.from_any(bucket)
+    ti = _per_rank(top_i, mc, ep)
+    _, t_loc, k = ti.shape
+    e_loc = mc.e_total // ep
+
+    flat = ti.reshape(-1).astype(np.int64)      # global (src-major) order
+    src_idx = np.repeat(np.arange(ep, dtype=np.int64), t_loc * k)
+    d_idx = flat // e_loc
+    e_idx = flat % e_loc
+
+    # Position of each choice within its global expert, in global order —
+    # the same cumulative count `make_dispatch` computes.
+    slot = _cumcount(flat)
+    keep = (slot < capacity) if capacity is not None else np.ones(
+        flat.shape[0], dtype=bool)
+
+    counts = np.zeros((ep, ep, e_loc), dtype=np.int64)
+    np.add.at(counts, (src_idx[keep], d_idx[keep], e_idx[keep]), 1)
+    plan = RoutingPlan.from_counts(bucket_counts(counts, spec))
+
+    # Row within the (src, dst, expert) send cell = occurrence index among
+    # the *kept* choices of that cell, in local order.
+    send_row = np.full(flat.shape[0], -1, dtype=np.int64)
+    kept = np.nonzero(keep)[0]
+    cell = (src_idx[kept] * ep + d_idx[kept]) * e_loc + e_idx[kept]
+    send_row[kept] = (plan.send_offsets.reshape(-1)[cell]
+                      + _cumcount(cell))
+    return RoutingBridge(plan=plan,
+                         send_row=send_row.reshape(ep, t_loc, k))
+
+
+def bridge_dispatch(bridge: RoutingBridge, x) -> list:
+    """Scatter tokens ``x`` [ep, T_loc, d] into per-rank plan send buffers
+    (fp32, on x's device); padding rows stay zero."""
+    ep, t_loc, k = bridge.send_row.shape
+    rows = bridge.rows_on(x.device)
+    bufs = []
+    for s in range(ep):
+        # One spare row takes the dropped choices (send row -1) and is cut.
+        n = bridge.plan.send_rows(s)
+        buf = torch.zeros((n + 1, x.shape[-1]), dtype=torch.float32,
+                          device=x.device)
+        buf[rows[s]] = x[s].float()[:, None, :].expand(t_loc, k, -1)
+        bufs.append(buf[:n])
+    return bufs
+
+
+def bridge_combine(bridge: RoutingBridge, y_ret: list, top_p):
+    """Weight-and-gather executor return buffers back to [ep, T_loc, d].
+
+    Applies the same per-choice accumulation ``moe_grouped`` performs, in
+    choice order, in fp32; dropped choices contribute zero.
+    """
+    ep, t_loc, k = bridge.send_row.shape
+    top_p = top_p.float().reshape(ep, t_loc, k)
+    rows = bridge.rows_on(top_p.device)
+    dropped = bridge.dropped
+    d = y_ret[0].shape[-1] if y_ret else 0
+    y = torch.zeros((ep, t_loc, d), dtype=torch.float32,
+                    device=top_p.device)
+    for s in range(ep):
+        if not y_ret[s].shape[0]:
+            continue                 # every choice of rank s was dropped
+        for j in range(k):
+            r = rows[s, :, j]
+            if not dropped:
+                y[s] += top_p[s, :, j, None] * y_ret[s][r]
+                continue
+            c = top_p[s, :, j, None] * y_ret[s][r.clamp(min=0)]
+            y[s] += torch.where((r >= 0)[:, None], c, 0.0)
+    return y

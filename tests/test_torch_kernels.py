@@ -18,7 +18,7 @@ from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu as swiglu_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu_bwd as bwd_mod  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
-from repro_torch.launch import profile_train  # noqa: E402
+from repro_torch.launch import bench_gmm_fma, profile_train  # noqa: E402
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -265,3 +265,18 @@ def test_every_kernel_namespace_has_a_profile_bucket():
     # No bucket's prefix is part of another's name, so none counts twice.
     assert not any(a != b and (a + "::") in (b + "::")
                    for a in buckets for b in buckets)
+
+
+def test_fma_bench_checks_every_call_on_the_cpu():
+    """bench_gmm_fma holds each FMA-body call against its plain version; on
+    the CPU it checks without times, and it refuses a missing card."""
+    out = bench_gmm_fma.main(["--device", "cpu", "--smoke", "--rows", "3,17"])
+    calls = [r["call"] for r in out["rows"]]
+    assert calls.count("dropless_gmm1") == calls.count("dropless_gmm2") == 2
+    assert {"dropless_gmm1_wgrad", "dropless_gmm2_act_grad", "fixed_gmm",
+            "fixed_gmm_swiglu"} <= set(calls)
+    assert all(r["ok"] and r["bound_ms"] > 0 and "ms" not in r
+               for r in out["rows"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            bench_gmm_fma.main(["--smoke"])

@@ -284,7 +284,7 @@ def test_accum_steps_average_the_microbatches(smoke):
 
 def test_later_slices_raise():
     cfg = tget_smoke(ARCH)
-    for kw in ("mesh", "ep", "dropless", "grad_transform"):
+    for kw in ("mesh", "ep", "grad_transform"):
         with pytest.raises(NotImplementedError, match="slice"):
             St.make_train_step(cfg, **{kw: object()})
     with pytest.raises(TypeError):
@@ -305,8 +305,8 @@ def test_train_main_needs_cuda_unless_asked_for_cpu(capsys):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--smoke", "--steps", "1"])
-    for flag in (["--mesh", "2x4"], ["--dropless"], ["--sched", "auto"],
-                 ["--mode", "ep_dp"], ["--ckpt-dir", "ck"]):
+    for flag in (["--mesh", "2x4"], ["--mode", "ep_dp"],
+                 ["--ckpt-dir", "ck"]):
         with pytest.raises(SystemExit):
             ttrain.main(["--smoke", "--device", "cpu", *flag])
         assert "slice" in capsys.readouterr().err
