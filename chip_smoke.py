@@ -6,9 +6,10 @@ Phases, each printing one JSON line:
 
 1. device — the card's name and power limit (``nvidia-smi``);
 2. build — the four CUDA libraries compiled for ``sm_90a`` from
-   ``src/repro_torch``, one ``nvcc`` each, in parallel, with each
-   tensor-core kernel's registers, static shared memory and spills from the
-   compiler's report (``-Xptxas -v``);
+   ``src/repro_torch``, one ``nvcc`` each, in parallel, with the registers,
+   static shared memory and spills of each tensor-core kernel and of each
+   instance of ``gmm``'s fp32 tiled body from the compiler's report
+   (``-Xptxas -v``);
 2b. swiglu_add — the §6.1 SwiGLU + Add path: both modes against their plain
    versions at M in {256, 1000, 4096, 32768} and F in {2048, 36} (ragged
    rows, an unaligned row width), bf16 and fp32; then
@@ -57,11 +58,16 @@ Phases, each printing one JSON line:
    its tensor-core body. Then the step's time split into each kernel's
    time x launches and the rest;
 7. dropless_tiles — ``gmm`` against its plain version at the calls the
-   dropless fragment's tiles make: E = 1, fp32 (the FMA body), ragged rows
-   C in DROPLESS_ROWS, GMM1 (K/N = 1536/1024) and GMM2 (512/1536), their
+   dropless fragment's tiles make: E = 1, fp32, ragged rows C in
+   DROPLESS_ROWS, GMM1 (K/N = 1536/1024) and GMM2 (512/1536), their
    activation-gradient products with w a transposed view, and their weight
-   gradients with x a transposed view (a reduction over the rows); repeat
-   calls bit-equal; the six calls at C = DROPLESS_TIMED_ROWS are timed;
+   gradients with x a transposed view (a reduction over the rows); then the
+   tiled body's edges (DROPLESS_EDGES: ragged C, K and N, E = 3, all four
+   layouts); repeat calls bit-equal. Each row names its body
+   (``gmm.fp32_body``): every tile call of a tile of
+   ``gmm.FP32_TILED_MIN_ROWS`` rows or more must run the tiled body, and the tiled body's launch count must
+   grow by one for each row that names it. The six calls at C =
+   DROPLESS_TIMED_ROWS are timed;
 8. dropless_fragment — ``launch.bench_dropless`` on one full-width layer
    (T = 4096, the layer's own router, seed 0) at ep = 1 and ep = 4 (four
    virtual ranks on the card; their puts are device copies, not a
@@ -77,7 +83,7 @@ Phases, each printing one JSON line:
    ``launch.train --dropless`` at full width and depth, DROPLESS_STEPS
    steps of 1 x 4096 tokens (the first is warm-up): per step ms, tokens/s,
    the ``ssc_*`` counters, peak memory and ``gmm`` launches, the only
-   kernel that path runs.
+   kernel that path runs, with those of its fp32 tiled body (at least one).
 
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
@@ -157,8 +163,25 @@ TILE_EDGES = (1, 2, 15, 16, 17, 27, 63, 64, 65, 127, 128, 129, 854)
 SWIGLU_ADD_CHECKS = [(M, F) for M in (256, 1000, 4096, 32768)
                      for F in (2048, 36)]
 # Row counts of the dropless fragment's tiles: ragged, across the FMA body's
-# tile edges, up to an expert's share of a 4096-token batch and beyond.
-DROPLESS_ROWS = (1, 15, 17, 127, 683, 1001)
+# tile edges and the tiled body's threshold, up to an expert's share of a
+# 4096-token batch and beyond.
+DROPLESS_ROWS = (1, 8, 9, 15, 17, 127, 683, 1001)
+# The tiled body's edges, fp32, E = 3, each in all four layouts: (C, K, N)
+# with C past a 32- or 64-row tile (65 ... 1004; where x is a transposed
+# view C is its contiguous dim, and only C = 68, 132, 684, 1004 keep it a
+# multiple of 4 floats: the others check the FMA body there), K not a
+# multiple of the 16-deep slab (1004: in the layouts that read K
+# contiguous), N not a multiple of the 64- or 128-wide tile (1000); and
+# the weight gradients' (M, K, N) with K, the rows summed, ragged (683,
+# 1001) where x is read transposed.
+DROPLESS_EDGES = (
+    [(C, K, N, lay) for C in (65, 68, 129, 132, 683, 684, 1001, 1004)
+     for K, N in ((1536, 1024), (512, 1536), (1024, 512))
+     for lay in ((0, 0), (0, 1), (1, 0), (1, 1))]
+    + [(C, K, N, lay) for C, K, N in ((684, 1004, 512), (132, 512, 1000))
+       for lay in ((0, 0), (0, 1), (1, 0), (1, 1))]
+    + [(M, K, N, (1, 0)) for M, N in ((1536, 1024), (512, 1536))
+       for K in (683, 1001)])
 DROPLESS_TIMED_ROWS = 683       # an expert's mean share: 4096 x 8 / 48
 # Full-depth dropless training: steps of 1 x 4096 tokens, the first warm-up.
 DROPLESS_STEPS = 3
@@ -194,6 +217,7 @@ def reset_launches() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
     bwd_mod.launches_tc = 0
+    gmm_mod.launches_fp32_tiled = 0
 
 
 def read_launches() -> dict:
@@ -259,14 +283,16 @@ def cuda_ms(fn, iters: int = 20, reps: int = 3) -> float:
 
 def ptxas_report(log: str) -> list:
     """Registers, static shared memory and spills of each tensor-core
-    kernel (namespaces ``gmmtc`` and ``gsbtc``) in a ``-Xptxas -v`` build
-    log."""
+    kernel (namespaces ``gmmtc`` and ``gsbtc``) and of each instance of
+    ``gmm``'s fp32 tiled body (``gmmf``; its ring is dynamic shared memory)
+    in a ``-Xptxas -v`` build log."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             t = re.search(r"gmm_tc_kernelI(.*)EEv", m.group(1))
             b = re.search(r"gsbtc10bwd_kernelI(.*)EEv", m.group(1))
+            f = re.search(r"gmmf12tiled_kernelI(.*)EEv", m.group(1))
             cur = None
             if t:
                 a = re.findall(r"L[ib](\d+)E", t.group(1) + "E")
@@ -278,6 +304,11 @@ def ptxas_report(log: str) -> list:
                 cur = {"kernel": "gsbtc::bwd_kernel",
                        "mode": ("gu", "dx", "dw")[int(a[0])],
                        "fp32_out": bool(int(a[1]))}
+            elif f:
+                a = [int(v) for v in re.findall(r"Li(\d+)E", f.group(1) + "E")]
+                cur = {"kernel": "gmmf::tiled_kernel", "bm": a[0],
+                       "bn": a[1], "tm": a[2], "tn": a[3], "ta": a[4],
+                       "tb": a[5]}
             if cur:
                 out.append(cur)
             continue
@@ -338,7 +369,9 @@ def kernel_case(name, E, C, K, N, dtype, gen, timed, layouts=(0, 0),
                      generator=gen, device="cuda") * K ** -0.5).to(dtype)
     x = x.transpose(1, 2) if la else x
     w = w.transpose(1, 2) if lb else w
+    tiled = gmm_mod.launches_fp32_tiled
     got = spec["fn"](x, w)
+    tiled = gmm_mod.launches_fp32_tiled - tiled
     want = spec["plain"](x.contiguous(), w.contiguous())
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
@@ -347,6 +380,8 @@ def kernel_case(name, E, C, K, N, dtype, gen, timed, layouts=(0, 0),
     row = {"kernel": name, "E": E, "C": C, "K": K, "N": N,
            "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": float(err.max()), "tol": tol, "ok": ok}
+    if name == "gmm" and dtype == torch.float32:
+        row.update(body=gmm_mod.fp32_body(x, w), tiled_launches=tiled)
     if layouts != (0, 0):
         row["layouts"] = {"x": "transposed view" if la else "contiguous",
                           "w": "transposed view" if lb else "contiguous"}
@@ -815,11 +850,30 @@ def run_train(cfg, rows):
     return out, launches
 
 
+def check_fp32_bodies(rows, min_rows) -> int:
+    """The dropless tiles' body check on their ``kernel_case`` rows: the
+    checked call of each row grew ``gmm.launches_fp32_tiled`` by one if the
+    row names the tiled body and by none if not, and each of the six
+    dropless tile calls (shape ``dropless_tile``) of a tile with at least
+    ``min_rows`` rows names it. (A tile of one row makes the weight
+    gradients' x a [1536, 1] view that reads as contiguous, K = 1 floats
+    wide: the FMA body's by the rule.) Returns the tiled launches of the
+    checked calls; raises AssertionError naming the rows at fault."""
+    bad = [r for r in rows
+           if r["tiled_launches"] != (r["body"] == "tiled")
+           or (r["shape"] == "dropless_tile" and r["rows"] >= min_rows
+               and r["body"] != "tiled")]
+    if bad:
+        raise AssertionError(f"gmm's fp32 calls ran the wrong body: {bad}")
+    return sum(r["tiled_launches"] for r in rows)
+
+
 def run_dropless_tiles(cfg):
     """Phase 7: ``gmm`` at the dropless tiles' calls, fp32, E = 1: GMM1 and
     GMM2 (x·W), their activation gradients (x·Wᵀ, w a transposed view) and
     their weight gradients (xᵀ·dy, x a transposed view, summing over the
-    rows)."""
+    rows); then the tiled body's edges (DROPLESS_EDGES). Each row names
+    its body; ``check_fp32_bodies`` holds them to the rule."""
     D, F2, Fe = cfg.d_model, 2 * cfg.moe.d_expert, cfg.moe.d_expert
     gen = torch.Generator(device="cuda").manual_seed(2)
     rows = []
@@ -835,8 +889,12 @@ def run_dropless_tiles(cfg):
                             repeat=True)
             r.update(shape="dropless_tile", tile=tile, rows=C)
             rows.append(r)
-    return rows
-
+    for C, K, N, lay in DROPLESS_EDGES:
+        r = kernel_case("gmm", 3, C, K, N, torch.float32, gen, timed=False,
+                        layouts=lay, repeat=True)
+        r["shape"] = "dropless_edge"
+        rows.append(r)
+    return rows, check_fp32_bodies(rows, gmm_mod.FP32_TILED_MIN_ROWS)
 
 def run_dropless_fragment():
     """Phase 8: one full-width layer's dropless fragment, checked and timed
@@ -904,6 +962,7 @@ def run_dropless_train(cfg):
                           "--steps", str(DROPLESS_STEPS), "--dropless"])
     wall = time.perf_counter() - t
     launches = read_launches()
+    tiled = gmm_mod.launches_fp32_tiled
     log = run.metrics_log
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in log):
@@ -912,6 +971,9 @@ def run_dropless_train(cfg):
                                    if k != "gmm"):
         raise AssertionError(f"dropless training launches {launches}: gmm "
                              f"only, at least once")
+    if tiled == 0:
+        raise AssertionError("dropless training never ran gmm's fp32 tiled "
+                             "body")
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_ms = statistics.median(m["step_ms"] for m in log[1:])
     out = {"phase": "dropless_train", "parity": parity, "arch": cfg.name,
@@ -923,7 +985,7 @@ def run_dropless_train(cfg):
            "step_ms_median_after_warmup": step_ms,
            "tokens_per_s": tokens / (step_ms / 1e3),
            "max_memory_allocated_bytes": max(m["peak_bytes"] for m in log),
-           "launches": launches,
+           "launches": launches, "gmm_fp32_tiled_launches": tiled,
            "cache": {k: v for k, v in run.dropless.cache.info().items()
                      if k != "per_entry"}}
     del run
@@ -991,8 +1053,10 @@ def main() -> int:
     train_out, train_launches = run_train(cfg, rows)
     emit(train_out)
 
-    tile_rows = run_dropless_tiles(cfg)
-    emit({"phase": "dropless_tiles", "rows": tile_rows})
+    tile_rows, tiled = run_dropless_tiles(cfg)
+    emit({"phase": "dropless_tiles",
+          "fp32_tiled_min_rows": gmm_mod.FP32_TILED_MIN_ROWS,
+          "fp32_tiled_launches": tiled, "rows": tile_rows})
     rows += tile_rows
     emit(run_dropless_fragment())
     dropless_out, dropless_launches = run_dropless_train(cfg)
@@ -1028,8 +1092,12 @@ def main() -> int:
                 "C", "K", "N", *timing, "eager_ms", "host_us", "gemm_only_ms",
                 "fp32_out_ms", "body") if k in t}})
         if name == "gmm":          # the dropless tiles' calls, fp32, E = 1
+            kernels[-1]["fp32_tiled_body"] = {
+                "source": "src/repro_torch/kernels/csrc/gmm_fp32.cuh",
+                "launches_by_path": {
+                    "dropless": dropless_out["gmm_fp32_tiled_launches"]}}
             kernels[-1]["dropless_tiles"] = [
-                {k: x[k] for k in ("tile", "C", "K", "N", *timing)}
+                {k: x[k] for k in ("tile", "C", "K", "N", "body", *timing)}
                 for x in tile_rows if "ms" in x]
     if not all(math.isfinite(k["ms"]) for k in kernels):
         raise AssertionError(f"non-finite kernel time: {kernels}")

@@ -34,6 +34,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..kernels.gmm import gmm as gmm_kernel
 from ..parallel.compression import int8_roundtrip
 from .odg import ScheduleConfig
@@ -72,12 +73,13 @@ def _mm(gmm, a, w, ta: bool = False, tw: bool = False):
 
 
 class ExecutorState:
-    """All (tensor, rank) buffers of one EP group, on one device."""
+    """All (tensor, rank) buffers of one EP group, on one device: the card
+    unless the caller asks for the CPU (``device="cpu"``)."""
 
-    def __init__(self, cfg: ScheduleConfig, device="cpu",
+    def __init__(self, cfg: ScheduleConfig, device="cuda",
                  gmm: Optional[Callable] = None):
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.gmm = gmm or gmm_kernel
         self.buffers: dict[tuple[str, int], torch.Tensor] = {}
         self.weights: dict[tuple[str, int], torch.Tensor] = {}
@@ -271,9 +273,11 @@ def execute(sched: Schedule, st: ExecutorState,
 # Monolithic references (what a kernel-by-kernel framework computes).
 # ---------------------------------------------------------------------------
 
-def make_inputs(cfg: ScheduleConfig, seed: int = 0, device="cpu"):
+def make_inputs(cfg: ScheduleConfig, seed: int = 0, device="cuda"):
     """Balanced-routing fragment inputs: x_src per rank, W1/W2 per rank —
-    the reference's numpy draws, as fp32 tensors on ``device``."""
+    the reference's numpy draws, as fp32 tensors on ``device`` (the card
+    unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     rng = np.random.default_rng(seed)
     d, f = cfg.d_model, cfg.d_ff
     x_src = rng.standard_normal(
@@ -347,9 +351,11 @@ def load_backward_state(cfg: ScheduleConfig, st: ExecutorState,
 # lists of [rows_r, width] tensors.
 # ---------------------------------------------------------------------------
 
-def make_inputs_plan(cfg: ScheduleConfig, seed: int = 0, device="cpu"):
+def make_inputs_plan(cfg: ScheduleConfig, seed: int = 0, device="cuda"):
     """Ragged fragment inputs: per-rank x_src list, W1/W2 per rank — the
-    reference's numpy draws, as fp32 tensors on ``device``."""
+    reference's numpy draws, as fp32 tensors on ``device`` (the card unless
+    the caller asks for the CPU)."""
+    device = resolve_device(device)
     plan = cfg.routing
     rng = np.random.default_rng(seed)
     d, f = cfg.d_model, cfg.d_ff

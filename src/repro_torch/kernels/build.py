@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-HEADERS = ("gmm_common.cuh", "gmm_tc.cuh")
+HEADERS = ("gmm_common.cuh", "gmm_fp32.cuh", "gmm_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The tensor-core GEMMs encode their TMA tensor maps with the driver API's
@@ -39,9 +39,9 @@ _I = ctypes.c_int
 # takes its tensors' pointers, then its ints, then the dtype code and the
 # stream, and returns a cudaError_t.
 KERNELS = {
-    # (x, w, y, E, C, K, N, a_layout, b_layout, dtype, stream)
+    # (x, w, y, E, C, K, N, a_layout, b_layout, body, dtype, stream)
     "gmm": ("gmm.cu", "gmm_launch",
-            (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P)),
+            (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P)),
     # (x, w_in, y, E, C, K, F, dtype, stream)
     "gmm_swiglu": ("gmm_swiglu.cu", "gmm_swiglu_launch",
                    (_P, _P, _P, _I, _I, _I, _I, _I, _P)),

@@ -22,23 +22,35 @@
 // per SM to reach 3.35 TB/s), and one or two consumer warpgroups multiply
 // them with wgmma into fp32 registers. The backward's operands stay views:
 // the layout codes tell the tensor maps and wgmma's transpose bits how to
-// read them, so nothing is copied. fp32 calls, and bf16 calls whose bases or
-// row strides a tensor map cannot take (N = 18 in the ragged checks), run
-// the first design's FMA body (gmm_common.cuh), which reads the same
-// layouts. Decode takes the tensor-core body too: at C = 1 and 2 it runs in
-// about half the FMA body's time (PERF.md).
+// read them, so nothing is copied. Decode takes the tensor-core body too: at
+// C = 1 and 2 it runs in about half the FMA body's time (PERF.md).
+//
+// fp32 calls: the wrapper picks the body (kernels/gmm.py, fp32_tile). The
+// dropless fragment's tiles (E = 1, hundreds of rows, fp32) run the
+// register-blocked tiled body (gmm_fp32.cuh) at the tile the wrapper names;
+// small C, and calls whose widths or bases it cannot take, run the first
+// design's FMA body (gmm_common.cuh), as do bf16 calls whose bases or row
+// strides a tensor map cannot take (N = 18 in the ragged checks). All three
+// bodies read the same layouts.
 
 #include "gmm_common.cuh"
+#include "gmm_fp32.cuh"
 #include "gmm_tc.cuh"
 
 // a_layout: 0 = x is [E, C, K]; 1 = x is stored [E, K, C] (a transposed
-// view). b_layout: 0 = w is [E, K, N]; 1 = w is stored [E, N, K]. dtype:
-// 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch
-// (0 on success).
+// view). b_layout: 0 = w is [E, K, N]; 1 = w is stored [E, N, K]. body:
+// 0 = the tensor cores (bf16, where a tensor map fits) or the FMA body;
+// 1-3 = the fp32 tiled body at that tile (gmmf::launch), refused with an
+// error for bf16 or a call it cannot take. dtype: 0 = float32,
+// 1 = bfloat16. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int gmm_launch(const void* x, const void* w, void* y, int E, int C,
-                          int K, int N, int a_layout, int b_layout, int dtype,
-                          void* stream) {
+                          int K, int N, int a_layout, int b_layout, int body,
+                          int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body != 0)
+    return dtype == 0 ? gmmf::launch(x, w, y, E, C, K, N, a_layout, b_layout,
+                                     body, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 1 &&
       gmmtc::usable(x, w, y, C, K, N, b_layout ? K : N, a_layout, b_layout))
     return gmmtc::launch<false>(x, w, y, E, C, K, N, a_layout, b_layout, s);

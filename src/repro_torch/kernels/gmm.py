@@ -9,6 +9,11 @@ CUDA tensor the kernel launches or the call raises.
 Each operand is contiguous or the transpose of a contiguous tensor in its
 last two dims (``operand_layout``); the kernel reads either in place.
 
+The C entry has three bodies: bf16 calls run the tensor cores where a
+tensor map describes them; fp32 calls with enough rows run the
+register-blocked tiled body (``csrc/gmm_fp32.cuh``) at a tile the wrapper
+picks (``fp32_tile``); the rest run the first design's FMA body.
+
 ``gmm_trainable`` adds the gradient that the JAX ``gmm`` lacks (it is a bare
 ``pallas_call`` with no VJP): two more calls of the same kernel on
 transposed views of the saved operands, each keeping its reduction whole in
@@ -17,6 +22,8 @@ one CTA.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from . import build
@@ -24,7 +31,23 @@ from .ref import gmm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
-launches = 0   # kernel launches since the last reset (CPU calls not counted)
+# Kernel launches since the last reset (CPU calls not counted): all, and
+# those of the fp32 tiled body.
+launches = 0
+launches_fp32_tiled = 0
+
+# The fp32 tiled body's tiles (rows x columns of one CTA's output), by the
+# code the C entry takes; largest first. fp32_tile's pick among them was
+# within 1% of the fastest at each dropless call at C = 683, and 9% at
+# C = 1001 (launch/bench_gmm_fma.py --tiles on an H100; PERF.md).
+FP32_TILES = {1: (64, 128), 2: (64, 64), 3: (32, 64)}
+# fp32 calls with fewer rows run the FMA body: at C <= 8 it was the faster;
+# from C = 9, where it changes its row tiling, the tiled body was
+# (bench_gmm_fma.py --tiles on an H100; PERF.md).
+FP32_TILED_MIN_ROWS = 9
+# SMs of the card the tiles are picked for, where a tensor lies on the CPU
+# (an H100 SXM's 132).
+CPU_SMS = 132
 
 
 def check_operands(x, w, n_w: int) -> None:
@@ -61,10 +84,55 @@ def operand_layout(t, name: str) -> int:
                      f"transpose of one in its last two dims")
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(device) -> int:
+    if device.type != "cuda":
+        return CPU_SMS
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def fp32_tile(x, w) -> int:
+    """The body code a ``gmm(x, w)`` call passes to its C entry: 0 for the
+    tensor cores or the FMA body, else the ``FP32_TILES`` code of the fp32
+    tiled body.
+
+    The tiled body takes fp32 calls with at least ``FP32_TILED_MIN_ROWS``
+    rows whose operands' contiguous dims (x: K, or C if a transposed view;
+    w: N, or K) and N are multiples of 4 and whose bases are 16-byte
+    aligned. Its tile is the largest whose grid, E·⌈C/BM⌉·⌈N/BN⌉ CTAs, has
+    at least two CTAs per SM of the card; else the smallest.
+    """
+    return _tile(x, w, operand_layout(x, "x"), operand_layout(w, "w"))
+
+
+def _tile(x, w, x_layout: int, w_layout: int) -> int:
+    E, C, K = x.shape
+    N = w.shape[-1]
+    if x.dtype != torch.float32 or C < FP32_TILED_MIN_ROWS:
+        return 0
+    x_dim = C if x_layout else K
+    w_dim = K if w_layout else N
+    if (x_dim % 4 or w_dim % 4 or N % 4 or x.data_ptr() % 16
+            or w.data_ptr() % 16):
+        return 0
+    slots = 2 * _sms(x.device)
+    for code, (bm, bn) in FP32_TILES.items():
+        if E * -(-C // bm) * -(-N // bn) >= slots:
+            return code
+    return code
+
+
+def fp32_body(x, w) -> str:
+    """Which body a ``gmm(x, w)`` call on the card runs in fp32: "tiled"
+    (``csrc/gmm_fp32.cuh``) or "fma" (``csrc/gmm_common.cuh``); "fma" for
+    a bf16 call, which runs neither fp32 body (``fp32_tile``)."""
+    return "tiled" if fp32_tile(x, w) else "fma"
+
+
 def gmm(x, w):
     """x: [E, C, K] expert-grouped tokens; w: [E, K, N] → [E, C, N]. Either
     operand may be a transposed view (``operand_layout``)."""
-    global launches
+    global launches, launches_fp32_tiled
     check_operands(x, w, w.shape[-1] if w.dim() == 3 else -1)
     layouts = operand_layout(x, "x"), operand_layout(w, "w")
     if x.device.type == "cpu":
@@ -76,9 +144,11 @@ def gmm(x, w):
     out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
-    build.launch("gmm", x, w, out, E, C, x.shape[2], N, *layouts,
+    body = _tile(x, w, *layouts)
+    build.launch("gmm", x, w, out, E, C, x.shape[2], N, *layouts, body,
                  dtype=x.dtype)
     launches += 1
+    launches_fp32_tiled += body > 0
     return out
 
 

@@ -1,10 +1,12 @@
-"""Per-call times of the grouped GEMMs' FMA body (``csrc/gmm_common.cuh``).
+"""Per-call times of the grouped GEMMs' fp32 bodies: the FMA body
+(``csrc/gmm_common.cuh``) and ``gmm``'s tiled body (``csrc/gmm_fp32.cuh``).
 
-Every fp32 ``gmm`` / ``gmm_swiglu`` call runs the FMA body, and so does
-every bf16 call that a tensor map cannot describe. This script holds each
-call against its plain version and times it beside its bound, at the shapes
-those callers give it on granite-moe-3b-a800m (d 1536, 48 experts of
-F = 512, top-8, T = 4096 tokens):
+Every fp32 ``gmm_swiglu`` call runs the FMA body; an fp32 ``gmm`` call runs
+the body ``gmm.fp32_body`` names (the tiled body from
+``gmm.FP32_TILED_MIN_ROWS`` rows on). This script holds each call against
+its plain version and times it beside its bound, at the shapes those
+callers give it on granite-moe-3b-a800m (d 1536, 48 experts of F = 512,
+top-8, T = 4096 tokens):
 
 * the dropless fragment's GMM tiles: E = 1, fp32, at ragged row counts
   (GMM1 and GMM2 x·W), and at an expert's mean share of rows, C = 683,
@@ -22,7 +24,15 @@ On the CPU, at the smoke config's widths, checks only (no times):
 The script imports the package absolutely, so it can time another
 checkout's kernels: run this file with that checkout's ``src`` first on
 ``PYTHONPATH`` (each checkout builds its own libraries under its own
-``build/``). Each output row names the ``gmm_common.cuh`` it ran by hash.
+``build/``). Each output row names the body it ran and, by one hash
+(``fp32_bodies``), the ``gmm_common.cuh`` and ``gmm_fp32.cuh`` it was
+built from (a checkout without the tiled body runs the FMA body only).
+
+``--tiles`` also times each fp32 ``gmm`` call through its C entry with
+every body code, the FMA body's (0) and each of the tiled body's tiles
+(``gmm.FP32_TILES``), whatever ``gmm.fp32_tile`` would pick: the
+measurement behind the tile rule and the row threshold. Every tile's
+result must be bit-equal to the others'.
 
 ``ms`` is the device time per call by CUDA-graph replay; ``bound_ms`` the
 larger of the bytes (each input read once, the output written once, over
@@ -43,6 +53,7 @@ import torch
 
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.device import resolve_device
+from repro_torch.kernels import build
 from repro_torch.kernels import gmm as gmm_mod
 from repro_torch.kernels import gmm_swiglu as swiglu_mod
 from repro_torch.kernels.ref import gmm_ref, gmm_swiglu_ref
@@ -50,7 +61,7 @@ from repro_torch.models.moe import capacity
 
 ARCH = "granite-moe-3b-a800m"
 TOKENS = 4096
-ROWS = (17, 127, 683, 1001)     # ragged; 683 = an expert's mean share
+ROWS = (8, 9, 17, 127, 683, 1001)    # 683: an expert's mean share
 GRAD_ROWS = 683
 TOL = 1e-4                      # fp32, |got - want| <= TOL·(1 + |want|)
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
@@ -107,7 +118,46 @@ def cuda_ms(fn, iters: int = 20, reps: int = 3) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
-def run_case(case, gen, dev):
+def body_of(x, w, swiglu) -> str:
+    """The fp32 body a call runs; "fma" in a checkout without the tiled
+    body."""
+    fp32_body = getattr(gmm_mod, "fp32_body", None)
+    return "fma" if swiglu or fp32_body is None else fp32_body(x, w)
+
+
+def tile_rows(row, x, w, want, dev):
+    """The ``--tiles`` rows of one gmm call: each body code through the C
+    entry, checked against ``want``, timed; tiled results bit-equal."""
+    E, C, K = x.shape
+    N = w.shape[-1]
+    layouts = gmm_mod.operand_layout(x, "x"), gmm_mod.operand_layout(w, "w")
+    out, tiled = [], None
+    for code in (0, *gmm_mod.FP32_TILES):
+        y = torch.empty((E, C, N), device=dev)
+
+        def call():
+            build.launch("gmm", x, w, y, E, C, K, N, *layouts, code,
+                         dtype=x.dtype)
+        call()
+        err = (y - want).abs()
+        if not bool((err <= TOL + TOL * want.abs()).all()):
+            raise AssertionError(f"{row['call']} at body code {code} "
+                                 f"disagrees with its plain version")
+        if code:
+            if tiled is not None and not torch.equal(y, tiled):
+                raise AssertionError(f"{row['call']}: tile {code} differs "
+                                     f"from another tile's result")
+            tiled = y.clone()
+        bm, bn = gmm_mod.FP32_TILES.get(code, (None, None))
+        out.append({"call": row["call"], "C": C, "K": K, "N": N,
+                    "body": "tiled" if code else "fma", "tile": [bm, bn],
+                    "ctas": (E * -(-C // bm) * -(-N // bn)) if code else None,
+                    "max_abs_err": float(err.max()),
+                    "ms": cuda_ms(call), "bound_ms": row["bound_ms"]})
+    return out
+
+
+def run_case(case, gen, dev, tiles=False):
     name, E, C, K, N, la, lb, swiglu = case
     w_cols = 2 * N if swiglu else N
     x = torch.randn((E, K, C) if la else (E, C, K), generator=gen,
@@ -126,6 +176,7 @@ def run_case(case, gen, dev):
            "E": E, "C": C, "K": K, "N": N,
            "x": "transposed view" if la else "contiguous",
            "w": "transposed view" if lb else "contiguous",
+           "body": body_of(x, w, swiglu),
            "max_abs_err": float(err.max()), "tol": TOL, "ok": ok}
     if not ok:
         raise AssertionError(f"{name} disagrees with its plain version: "
@@ -137,8 +188,12 @@ def run_case(case, gen, dev):
             raise AssertionError(f"{name}: two calls on the same input "
                                  f"differ")
         row.update(ms=cuda_ms(lambda: fn(x, w)),
-                   plain_ms=cuda_ms(lambda: plain(x, w)))
+                   plain_ms=cuda_ms(lambda: plain(x, w)),
+                   library_ms=None if swiglu else cuda_ms(
+                       lambda: torch.bmm(x, w)))
         row["ms_over_bound"] = row["ms"] / b_ms
+        if tiles and not swiglu:
+            row["tiles"] = tile_rows(row, x, w, want, dev)
     return row
 
 
@@ -149,19 +204,26 @@ def main(argv=None) -> dict:
                     help="the smoke config's widths (CPU-sized)")
     ap.add_argument("--rows", default=",".join(map(str, ROWS)),
                     help="comma-separated row counts of the dropless tiles")
+    ap.add_argument("--tiles", action="store_true",
+                    help="also time every body code at each fp32 gmm call "
+                         "(the card only)")
     ap.add_argument("--label", default="",
                     help="a name for this run, copied into the summary")
     ap.add_argument("--out", default=None, help="also write the summary here")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
     cfg = get_smoke_config(ARCH) if args.smoke else get_config(ARCH)
-    src = Path(gmm_mod.__file__).resolve().parent / "csrc" / "gmm_common.cuh"
-    body = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
+    csrc = Path(gmm_mod.__file__).resolve().parent / "csrc"
+    h = hashlib.sha256()
+    for name in ("gmm_common.cuh", "gmm_fp32.cuh"):
+        if (csrc / name).exists():
+            h.update((csrc / name).read_bytes())
+    bodies = h.hexdigest()[:12]
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
     for case in cases(cfg, [int(r) for r in args.rows.split(",")]):
-        row = run_case(case, gen, dev)
-        row["gmm_common"] = body
+        row = run_case(case, gen, dev, tiles=args.tiles)
+        row["fp32_bodies"] = bodies
         rows.append(row)
         print(json.dumps(row), flush=True)
     card = "cpu"
@@ -171,12 +233,12 @@ def main(argv=None) -> dict:
              "--format=csv,noheader"], capture_output=True, text=True,
             check=True).stdout.strip()
         print(card, flush=True)
-    out = {"label": args.label, "package": str(src.parents[3]),
-           "gmm_common": body, "card": card, "rows": rows}
+    out = {"label": args.label, "package": str(csrc.parents[2]),
+           "fp32_bodies": bodies, "card": card, "rows": rows}
     if args.out:
         Path(args.out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.out).write_text(json.dumps(out, indent=1))
-    print(json.dumps({k: out[k] for k in ("label", "gmm_common", "card")}),
+    print(json.dumps({k: out[k] for k in ("label", "fp32_bodies", "card")}),
           flush=True)
     return out
 

@@ -11,8 +11,8 @@ the profiled host ms per step, the device's busy ms per step (the sum of
 kernel times; the port runs on one stream, so kernels do not overlap), the
 idle share of the unprofiled step, the kernel launches per step, the device
 ms per step of the port's own CUDA kernels by namespace (``OWN``: the
-tensor-core body of ``gmm_swiglu`` and ``gmm``, their FMA body, the
-tensor-core and FMA bodies of ``gmm_swiglu_bwd``, ``swiglu_add``) against all
+tensor-core body of ``gmm_swiglu`` and ``gmm``, their FMA body, ``gmm``'s
+fp32 tiled body, the tensor-core and FMA bodies of ``gmm_swiglu_bwd``, ``swiglu_add``) against all
 other kernels, each of the port's own kernels by name, and the ``TOP``
 kernels with the most device time. ``--dropless`` trains the MoE through
 the dropless tile taskflow (``launch.dropless``, its default config), as
@@ -43,6 +43,7 @@ TOP = 25   # kernels listed by device time
 # namespace under kernels/csrc has a bucket (a test holds them equal).
 OWN = {"gmm_swiglu and gmm, tensor cores (gmmtc::)": "gmmtc::",
        "gmm_swiglu and gmm, FMA body (gmmk::)": "gmmk::",
+       "gmm fp32 tiled body (gmmf::)": "gmmf::",
        "gmm_swiglu_bwd, tensor cores (gsbtc::)": "gsbtc::",
        "gmm_swiglu_bwd, FMA body (gsb::)": "gsb::",
        "swiglu_add (swa::)": "swa::"}

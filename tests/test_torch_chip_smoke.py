@@ -1,6 +1,6 @@
 """Helpers of ``chip_smoke.py`` that run without a card: the precision
-control of the trainable expert FFN's end-to-end check, and the reader of
-the compiler's register and spill report."""
+control of the trainable expert FFN's end-to-end check, the reader of the
+compiler's register and spill report, and the dropless tiles' body check."""
 
 import sys
 from pathlib import Path
@@ -93,3 +93,52 @@ def test_ptxas_report_reads_each_backward_tensor_core_kernel():
          "spill_stores": 4, "spill_loads": 4, "registers": 168,
          "static_smem": 0},
     ]
+
+
+def test_ptxas_report_reads_each_fp32_tiled_instance():
+    """``gmmf::tiled_kernel`` instances are read with their tile, the
+    thread's sums and the two layouts."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN4gmmf12tiled_kernelILi64ELi128ELi8ELi8ELi0ELi1EEEvPKfS2_Pfiii' "
+        "for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 228 registers, used 1 barriers",
+        "ptxas info    : Compiling entry function "
+        "'_ZN4gmmk10gmm_kernelIfLi8ELi16ELb0EEEvPKT_S3_PS1_iiiimmmmb' for "
+        "'sm_90a'",
+        "ptxas info    : Used 64 registers, 32768 bytes smem",
+    ])
+    assert chip_smoke.ptxas_report(log) == [
+        {"kernel": "gmmf::tiled_kernel", "bm": 64, "bn": 128, "tm": 8,
+         "tn": 8, "ta": 0, "tb": 1, "spill_stores": 0, "spill_loads": 0,
+         "registers": 228, "static_smem": 0}]
+
+
+def _tile_row(rows, body, launched, shape="dropless_tile"):
+    row = {"kernel": "gmm", "C": rows, "body": body,
+           "tiled_launches": launched, "shape": shape}
+    if shape == "dropless_tile":
+        row["rows"] = rows
+    return row
+
+
+def test_dropless_body_check_counts_the_tiled_rows():
+    wgrad_of_one_row = dict(_tile_row(1, "fma", 0), C=1536, K=1)
+    rows = [_tile_row(683, "tiled", 1), _tile_row(1, "fma", 0),
+            wgrad_of_one_row, _tile_row(15, "tiled", 1),
+            _tile_row(129, "fma", 0, shape="dropless_edge")]
+    assert chip_smoke.check_fp32_bodies(rows, 16) == 2
+
+
+@pytest.mark.parametrize("bad", [
+    _tile_row(683, "fma", 0),             # a tile call the rule sends on
+    dict(_tile_row(683, "fma", 0), C=1536, K=683),   # its weight gradient
+    _tile_row(16, "fma", 0),              # the threshold itself
+    _tile_row(683, "tiled", 0),           # named, but not launched
+    _tile_row(1, "fma", 1, shape="dropless_edge"),   # launched, not named
+])
+def test_dropless_body_check_fails_on_a_wrong_body(bad):
+    rows = [_tile_row(683, "tiled", 1), bad]
+    with pytest.raises(AssertionError, match="wrong body"):
+        chip_smoke.check_fp32_bodies(rows, 16)

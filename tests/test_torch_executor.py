@@ -59,6 +59,12 @@ def _plan(routing, name):
     raise KeyError(name)
 
 
+def _cpu(pkg):
+    """The port's executor defaults to the card: its CPU runs ask for the
+    CPU. The JAX executor takes no device."""
+    return {"device": "cpu"} if pkg == "port" else {}
+
+
 def _cfg(pkg, plan_name, m_split=1, **kw):
     odg, routing, *_ = PKG[pkg]
     plan = _plan(routing, plan_name)
@@ -83,8 +89,8 @@ def _forward(pkg, plan_name, m_split, pipeline, seed, **kw):
     ex = PKG[pkg][3]
     cfg = _cfg(pkg, plan_name, m_split, **kw)
     s = _sched(pkg, cfg, "forward", pipeline)
-    x_src, w1, w2 = ex.make_inputs_plan(cfg, 7)
-    st = ex.ExecutorState(cfg)
+    x_src, w1, w2 = ex.make_inputs_plan(cfg, 7, **_cpu(pkg))
+    st = ex.ExecutorState(cfg, **_cpu(pkg))
     ex.load_forward_state_plan(cfg, st, x_src, w1, w2)
     order = []
     ex.execute(s, st, rng=np.random.default_rng(seed), record_order=order)
@@ -96,14 +102,14 @@ def _backward(pkg, plan_name, m_split, pipeline, seed):
     ex = PKG[pkg][3]
     cfg = _cfg(pkg, plan_name, m_split)
     s = _sched(pkg, cfg, "backward", pipeline)
-    x_src, w1, w2 = ex.make_inputs_plan(cfg, 11)
+    x_src, w1, w2 = ex.make_inputs_plan(cfg, 11, **_cpu(pkg))
     fwd = ex.reference_forward_plan(cfg, x_src, w1, w2)
     rng = np.random.default_rng(seed + 100)
     dy = [rng.standard_normal(tuple(fwd["y_ret"][r].shape)).astype(
         np.float32) for r in range(cfg.ep)]
     if pkg == "port":
         dy = [torch.from_numpy(a) for a in dy]
-    st = ex.ExecutorState(cfg)
+    st = ex.ExecutorState(cfg, **_cpu(pkg))
     ex.load_backward_state_plan(cfg, st, fwd, w1, w2, dy)
     order = []
     ex.execute(s, st, rng=np.random.default_rng(seed), record_order=order)
@@ -201,11 +207,11 @@ def test_balanced_backward_matches_autograd(interleave):
     cfg = _cfg("port", "balanced", 3)
     s = tcompile(todg.build_moe_ffn_backward(cfg), ratr=True,
                  gmm_interleave=interleave)
-    x_src, w1, w2 = tex.make_inputs(cfg, 0)
+    x_src, w1, w2 = tex.make_inputs(cfg, 0, device="cpu")
     fwd = tex.reference_forward(cfg, x_src, w1, w2)
     dy = torch.from_numpy(np.random.default_rng(7).standard_normal(
         tuple(fwd["y_ret"].shape)).astype(np.float32))
-    st = tex.ExecutorState(cfg)
+    st = tex.ExecutorState(cfg, device="cpu")
     tex.load_backward_state(cfg, st, fwd, w1, w2, dy)
     tex.execute(s, st, rng=np.random.default_rng(3))
     want = tex.reference_backward(cfg, x_src, w1, w2, dy)
@@ -220,7 +226,8 @@ def test_balanced_backward_matches_autograd(interleave):
 
 def test_balanced_forward_reference_matches_jax():
     tcfg, jcfg = _cfg("port", "balanced"), _cfg("jax", "balanced")
-    got = tex.reference_forward(tcfg, *tex.make_inputs(tcfg, 2))
+    got = tex.reference_forward(tcfg, *tex.make_inputs(tcfg, 2,
+                                                       device="cpu"))
     want = jex.reference_forward(jcfg, *jex.make_inputs(jcfg, 2))
     for k in want:
         np.testing.assert_allclose(_np(got[k]), want[k], **TOL, err_msg=k)
@@ -241,8 +248,8 @@ def test_hier_int8_dispatch_matches_jax():
         s = compile_schedule(odg.build_moe_ffn_forward(cfg),
                              pipeline=["ratr", "hier_dispatch"])
         assert any(t.meta.get("compress") == "int8" for t in s.tasks)
-        x_src, w1, w2 = ex.make_inputs_plan(cfg, 7)
-        st = ex.ExecutorState(cfg)
+        x_src, w1, w2 = ex.make_inputs_plan(cfg, 7, **_cpu(pkg))
+        st = ex.ExecutorState(cfg, **_cpu(pkg))
         ex.load_forward_state_plan(cfg, st, x_src, w1, w2)
         order = []
         ex.execute(s, st, rng=np.random.default_rng(3), record_order=order)
@@ -299,8 +306,8 @@ def test_buffers_sized_from_rows_map():
     cfg = todg.ScheduleConfig(ep=2, e_loc=2, rows=0, d_model=8, d_ff=4,
                               plan=plan)
     s = tcompile(todg.build_moe_ffn_forward(cfg))
-    x_src, w1, w2 = tex.make_inputs_plan(cfg, 0)
-    st = tex.ExecutorState(cfg)
+    x_src, w1, w2 = tex.make_inputs_plan(cfg, 0, device="cpu")
+    st = tex.ExecutorState(cfg, device="cpu")
     tex.load_forward_state_plan(cfg, st, x_src, w1, w2)
     tex.execute(s, st, rng=np.random.default_rng(1))
     assert st.get("x_recv", 0).shape[0] == 13
@@ -322,7 +329,7 @@ def test_plain_gmm_state_and_bad_tiles():
         calls.append(tuple(x.shape))
         return gmm_ref(x, w)
 
-    plain = tex.ExecutorState(cfg, gmm=counting)
+    plain = tex.ExecutorState(cfg, device="cpu", gmm=counting)
     tex.load_forward_state_plan(cfg, plain, x_src, w1, w2)
     tex.execute(_sched("port", cfg, "forward", []), plain,
                 rng=np.random.default_rng(0))
@@ -333,9 +340,41 @@ def test_plain_gmm_state_and_bad_tiles():
     cfg = _cfg("port", "hotspot", 3)
     td = next(t for t in _sched("port", cfg, "forward", []).tasks
               if t.task_type == "GMM" and not t.meta.get("fallback"))
-    bad = tex.ExecutorState(cfg)
+    bad = tex.ExecutorState(cfg, device="cpu")
     tex.load_forward_state_plan(cfg, bad, x_src, w1, w2)
     bad.ensure(td.inputs[0].tensor, td.inputs[0].rank, 64, cfg.d_model)
     td.inputs[0] = dataclasses.replace(td.inputs[0], lo=5, hi=3)
     with pytest.raises(ScheduleError, match="reversed"):
         tex.HANDLERS["GMM"](td, bad)
+
+
+@pytest.mark.parametrize("entry", ["ExecutorState", "make_inputs",
+                                   "make_inputs_plan"])
+def test_executor_defaults_to_the_card(entry):
+    """The executor's entry points put their tensors on the card unless the
+    caller asks for the CPU: without a card the default raises, naming
+    ``device='cpu'``; with ``device="cpu"`` they run. (On a machine with a
+    card the default runs there; only the CPU half is checked.)"""
+    plan_name = "skewed" if entry == "make_inputs_plan" else "balanced"
+    cfg = _cfg("port", plan_name)
+    fn = {"ExecutorState": lambda **kw: tex.ExecutorState(cfg, **kw),
+          "make_inputs": lambda **kw: tex.make_inputs(cfg, 0, **kw),
+          "make_inputs_plan":
+              lambda **kw: tex.make_inputs_plan(cfg, 0, **kw)}[entry]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
+    out = fn(device="cpu")
+    if entry == "ExecutorState":
+        assert out.device == torch.device("cpu")
+        out.set_buffer("x", 0, np.zeros((2, 3), np.float32))
+        tensors = [out.get("x", 0)]
+    else:
+        x_src, w1, w2 = out
+        tensors = [*(x_src if isinstance(x_src, list) else [x_src]), w1, w2]
+    assert all(t.device.type == "cpu" and t.dtype == torch.float32
+               for t in tensors)
+    # A torch.device passed positionally, as the dropless layer passes one.
+    if entry == "ExecutorState":
+        assert tex.ExecutorState(cfg, torch.device("cpu")).device.type == \
+            "cpu"

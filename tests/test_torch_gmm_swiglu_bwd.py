@@ -231,9 +231,10 @@ def test_c_args_follow_the_kernels_own_signature():
     with pytest.raises(TypeError):       # the forward kernels' 9 arguments
         build.c_args("gmm_swiglu_bwd", (x, w, dout, 2, 3, 8, 4),
                      torch.float32)
-    # gmm's two layout codes come after its sizes, before the dtype code.
-    assert build.c_args("gmm", (x, w, dx, 2, 3, 8, 4, 0, 1),
-                        torch.float32)[-2:] == [1, 0]
+    # gmm's two layout codes and its body code come after its sizes,
+    # before the dtype code.
+    assert build.c_args("gmm", (x, w, dx, 2, 3, 8, 4, 0, 1, 0),
+                        torch.float32)[-3:] == [1, 0, 0]
     with pytest.raises(TypeError):       # without the layout codes
         build.c_args("gmm", (x, w, dx, 2, 3, 8, 4), torch.float32)
 

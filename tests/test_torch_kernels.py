@@ -188,10 +188,12 @@ def _view(a, transposed, dtype):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("layouts", VIEW_LAYOUTS)
-@pytest.mark.parametrize("E,C,K,N", [(3, 27, 40, 24), (2, 64, 96, 128)])
+@pytest.mark.parametrize("E,C,K,N", [(3, 27, 40, 24), (2, 64, 96, 128),
+                                     (1, 65, 48, 40)])
 def test_gmm_on_views_matches_jax_kernel(E, C, K, N, layouts, dtype):
-    """The layouts gmm_trainable's backward passes (transposed views, read
-    in place by the kernel) give the JAX kernel's result on the same values."""
+    """The layouts gmm_trainable's backward and the dropless tiles (E = 1)
+    pass (transposed views, read in place by the kernel) give the JAX
+    kernel's result on the same values."""
     x, w = _inputs(6, (E, C, K), (E, K, N))
     tx, tw = _view(x, layouts[0], dtype), _view(w, layouts[1], dtype)
     assert gmm_mod.operand_layout(tx, "x") == layouts[0]
@@ -277,6 +279,13 @@ def test_fma_bench_checks_every_call_on_the_cpu():
             "fixed_gmm_swiglu"} <= set(calls)
     assert all(r["ok"] and r["bound_ms"] > 0 and "ms" not in r
                for r in out["rows"])
+    # Each row names the fp32 body the card would run it on.
+    assert all(r["body"] in ("tiled", "fma") for r in out["rows"])
+    assert all(r["body"] == "fma" for r in out["rows"]
+               if r["kernel"] == "gmm_swiglu"
+               or r["C"] < gmm_mod.FP32_TILED_MIN_ROWS)
+    assert out["fp32_bodies"] and all(
+        r["fp32_bodies"] == out["fp32_bodies"] for r in out["rows"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench_gmm_fma.main(["--smoke"])
