@@ -84,6 +84,32 @@ Phases, each printing one JSON line:
    steps of 1 x 4096 tokens (the first is warm-up): per step ms, tokens/s,
    the ``ssc_*`` counters, peak memory and ``gmm`` launches, the only
    kernel that path runs, with those of its fp32 tiled body (at least one).
+   Remat runs each fragment's forward once, so every step makes 2 x 32 SSC
+   lookups, all misses (``check_dropless_lookups``); the step ms, peak and
+   lookups of the whole-block checkpoint are printed beside them;
+10. fused_dropless — ``launch.bench_fused_dropless``: K = 2 full-width
+   layers (each its own router and experts, seed 0) on T = 4096 tokens as
+   one fused taskflow with LayerBoundary tiles, at ep = 1 and 4: the fused
+   block's output and every grad bit-equal to its sequential twin's,
+   within 1e-5 of the plain executor (y elementwise, each grad by its
+   relative error norm), its blobs of 2 fragments; then both timed,
+   called alternately (forward and backward ms, busy ms, compile ms on a
+   miss, ``gmm`` launches) beside ``select_fused``'s verdict (a
+   prediction of the Ascend A3 model);
+11. pp_fused — ``core.fusion.compile_pp_fused`` with S = 2 stages and
+   M = 2 microbatches at ep = 4 and granite's widths, each stage on a plan
+   routed from PP_TOKENS tokens by its own router: the StageBoundary
+   taskflow through the executor, forward and backward, with the
+   rank-local stage maps the reference's PP tests use, bit-equal to the
+   cells run one by one;
+12. elastic — ``DroplessMoE(ep=4).rescale(dead_ranks=[1, 3])``: the ep = 2
+   handle shares the re-keyed cache, and its output and grads equal a
+   natively built ep = 2 handle's; a routed ep = 4 plan remapped by
+   ``core.elastic.remap_plan`` runs through the executor on the
+   re-chunked weights, and the survivors' ``y_ret`` equals the ep = 4
+   run's bit for bit (every GMM tile there has at least 16 rows, so it
+   runs the tiled body, one ascending-k chain an output); the compile ms
+   of that plan after ``rekey_for_mesh``.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
@@ -118,15 +144,20 @@ from repro_torch.kernels import gmm_swiglu_bwd as bwd_mod  # noqa: E402
 from repro_torch.kernels import swiglu_add as swa_mod  # noqa: E402
 from repro_torch.kernels.ref import (gmm_ref, gmm_swiglu_bwd_ref,  # noqa
                                      gmm_swiglu_ref, moe_ffn_ref)
+from repro_torch.core import elastic  # noqa: E402
+from repro_torch.core import executor as ex  # noqa: E402
+from repro_torch.core import fusion as fu  # noqa: E402
 from repro_torch.core.ssc import SSCCache  # noqa: E402
 from repro_torch.launch import bench_dropless as dropless_bench  # noqa
+from repro_torch.launch import bench_fused_dropless as fused_bench  # noqa
 from repro_torch.launch import bench_swiglu_add as bench_mod  # noqa: E402
 from repro_torch.launch import dropless as dropless_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
-from repro_torch.models.moe import capacity, moe_grouped  # noqa: E402
+from repro_torch.models.moe import (bridge_dispatch, capacity,  # noqa
+                                    init_moe, moe_grouped, router_topk)
 from repro_torch.optim import adamw  # noqa: E402
 
 ARCH = "granite-moe-3b-a800m"
@@ -185,6 +216,17 @@ DROPLESS_EDGES = (
 DROPLESS_TIMED_ROWS = 683       # an expert's mean share: 4096 x 8 / 48
 # Full-depth dropless training: steps of 1 x 4096 tokens, the first warm-up.
 DROPLESS_STEPS = 3
+# The same step when remat checkpointed each whole block, so that the
+# backward ran every fragment's forward again (PERF.md §5; NVIDIA H100 80GB
+# HBM3, 700.00 W): printed beside this run's numbers, compared with nothing.
+WHOLE_BLOCK_CHECKPOINT = {"step_ms": [4291.99, 5444.44],
+                          "max_memory_allocated_bytes": 67219756544,
+                          "ssc_lookups_per_step": 96}
+# PP fusion: stages, microbatches, the EP group and the tokens each stage's
+# router plans from (a 4096-token batch in 2 microbatches).
+PP_STAGES, PP_MICROBATCHES, PP_EP, PP_TOKENS = 2, 2, 4, 2048
+# Elastic: the ep = 4 group losing ranks 1 and 3 (48 experts on 2 ranks).
+ELASTIC_EP, ELASTIC_DEAD = 4, (1, 3)
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -915,6 +957,21 @@ def run_dropless_fragment():
             **out}
 
 
+def check_dropless_lookups(log, n_layers):
+    """Each dropless step's SSC lookups, ``ssc_hits + ssc_misses``: one
+    forward and one backward schedule per layer, 2 x ``n_layers``, and no
+    hit. A remat that re-ran the fragment's forward would add one hit per
+    layer. Returns the per-step counts; raises otherwise."""
+    counts = [int(m["ssc_hits"] + m["ssc_misses"]) for m in log]
+    hits = [int(m["ssc_hits"]) for m in log]
+    if any(n != 2 * n_layers for n in counts) or any(hits):
+        raise AssertionError(
+            f"dropless SSC lookups per step {counts} (hits {hits}): want "
+            f"{2 * n_layers} misses and no hit, one fragment forward and "
+            f"backward per layer")
+    return counts
+
+
 def run_dropless_train(cfg):
     """Phase 9: 2-layer dropless parity with the fixed-capacity step, then
     ``launch.train --dropless`` at full width and depth."""
@@ -974,6 +1031,7 @@ def run_dropless_train(cfg):
     if tiled == 0:
         raise AssertionError("dropless training never ran gmm's fp32 tiled "
                              "body")
+    lookups = check_dropless_lookups(log, cfg.n_layers)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     step_ms = statistics.median(m["step_ms"] for m in log[1:])
     out = {"phase": "dropless_train", "parity": parity, "arch": cfg.name,
@@ -986,11 +1044,281 @@ def run_dropless_train(cfg):
            "tokens_per_s": tokens / (step_ms / 1e3),
            "max_memory_allocated_bytes": max(m["peak_bytes"] for m in log),
            "launches": launches, "gmm_fp32_tiled_launches": tiled,
+           "ssc_lookups_per_step": lookups,
+           "whole_block_checkpoint": WHOLE_BLOCK_CHECKPOINT,
            "cache": {k: v for k, v in run.dropless.cache.info().items()
                      if k != "per_entry"}}
     del run
     torch.cuda.empty_cache()
     return out, launches
+
+
+def run_fused_dropless(argv=("--device", "cuda")):
+    """Phase 10: ``launch.bench_fused_dropless`` (checks, then times on the
+    card). Its checks raise on a mismatch; here the card's rows must show
+    ``gmm`` launches and finite times."""
+    out = fused_bench.main(list(argv))
+    for r in out["rows"]:
+        if "fused" not in r:
+            continue                     # no times off the card
+        for tag in ("fused", "sequential"):
+            t = r[tag]
+            if not (t["gmm_launches_forward"] > 0
+                    and t["gmm_launches_backward"] > 0):
+                raise AssertionError(f"the {tag} block ran no gmm: {t}")
+            if not all(math.isfinite(t[k]) for k in (
+                    "forward_ms", "backward_ms", "forward_busy_ms",
+                    "backward_busy_ms", "compile_forward_ms",
+                    "compile_backward_ms")):
+                raise AssertionError(f"non-finite fused dropless time: {t}")
+    return {"phase": "fused_dropless",
+            "note": "ep = 4 is four virtual ranks on one card; their puts "
+                    "are device copies, not a collective",
+            **out}
+
+
+def routed_cfgs(cfg, tokens, ep, n, seed, dev):
+    """``n`` dropless schedule configs at ``ep``, each planned (bucket
+    ``linear:16``) from ``tokens`` standard normals by its own router."""
+    mc = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((tokens, cfg.d_model), generator=gen, device=dev)
+    dc = dropless_mod.DroplessConfig(ep=ep)
+    out = []
+    for _ in range(n):
+        router = init_moe(gen, cfg.d_model, mc)["router"]
+        ti = router_topk(router, x, mc)[1].cpu().numpy()
+        plan = dropless_mod._bridge_of(dc, ti, mc).plan
+        out.append(dropless_mod._schedule_cfg(dc, plan, cfg.d_model,
+                                              mc.d_expert))
+    return out
+
+
+def stage_matrices(plans, rng, dev):
+    """One map per junction (stage s to s+1) per rank: rows of stage s+1's
+    send layout from rows of stage s's, standard normals — the reference's
+    PP tests' maps (``tests/test_pp_fusion.py``), on ``dev``."""
+    return [{r: torch.from_numpy(rng.standard_normal(
+                (plans[s + 1].send_rows(r), plans[s].send_rows(r)))
+                .astype(np.float32)).to(dev)
+             for r in range(plans[0].ep)}
+            for s in range(len(plans) - 1)]
+
+
+def pp_boundary_fns(fs, mats, d, transpose=False):
+    """The PP-fused schedule's boundary fns: physical junction
+    ``m*(S-1) + s`` applies stage s's map (transposed for the backward).
+    Each (junction, rank) product is made once and sliced per tile."""
+    pp = fs.opts["pp"]
+    S, M = pp["n_stages"], pp["n_microbatches"]
+    fns = {}
+    for m in range(M):
+        for s in range(S - 1):
+            for r, A in mats[s].items():
+                A = A.T if transpose else A
+
+                def fn(data, lo, hi, A=A, _memo={}):
+                    if "out" not in _memo:
+                        if data is None:
+                            data = A.new_zeros((A.shape[1], d))
+                        _memo["out"] = A @ data
+                    return _memo["out"][lo:hi]
+                fns[(m * (S - 1) + s, r)] = fn
+    return fns
+
+
+def pp_fused_case(cfg, tokens=PP_TOKENS, ep=PP_EP, n_stages=PP_STAGES,
+                  n_micro=PP_MICROBATCHES, dev="cuda", seed=0):
+    """Phase 11's check: the PP-fused taskflow (StageBoundary tiles) through
+    the executor, forward and backward, bit-equal to the cells run one by
+    one (``reference_forward_plan`` / ``reference_backward_plan`` through
+    the same ``gmm``, the stage maps applied between them). Returns the
+    schedule's sizes, the executor's ``gmm`` launches and its host ms."""
+    dev = torch.device(dev)
+    d, S, M = cfg.d_model, n_stages, n_micro
+    cfgs = routed_cfgs(cfg, tokens, ep, S, seed, dev)
+    plans = [c.routing for c in cfgs]
+    rng = np.random.default_rng(seed)
+    mats = stage_matrices(plans, rng, dev)
+    ws = [ex.make_inputs_plan(c, seed + 13 * i, dev)[1:]
+          for i, c in enumerate(cfgs)]
+    x_srcs = [[torch.from_numpy(rng.standard_normal(
+                  (plans[0].send_rows(r), d)).astype(np.float32)).to(dev)
+               for r in range(ep)] for _ in range(M)]
+    refs = []                            # refs[m][s]
+    for m in range(M):
+        cur, per_m = x_srcs[m], []
+        for s in range(S):
+            per_m.append(ex.reference_forward_plan(cfgs[s], cur, *ws[s]))
+            if s < S - 1:
+                cur = [mats[s][r] @ per_m[s]["y_ret"][r] for r in range(ep)]
+        refs.append(per_m)
+    dys = [[torch.from_numpy(rng.standard_normal(
+               tuple(refs[m][S - 1]["y_ret"][r].shape)).astype(np.float32))
+            .to(dev) for r in range(ep)] for m in range(M)]
+    brefs = []                           # brefs[m][s] = (dx, dw1, dw2)
+    for m in range(M):
+        per_m, dy = [None] * S, dys[m]
+        for s in range(S - 1, -1, -1):
+            per_m[s] = ex.reference_backward_plan(cfgs[s], refs[m][s],
+                                                  *ws[s], dy)
+            if s > 0:
+                dy = [mats[s - 1][r].T @ per_m[s][0][r] for r in range(ep)]
+        brefs.append(per_m)
+
+    out = {"n_stages": S, "n_microbatches": M, "ep": ep, "tokens": tokens,
+           "d_model": d, "d_ff": cfg.moe.d_expert,
+           "send_rows": [[p.send_rows(r) for r in range(ep)]
+                         for p in plans]}
+    w1s, w2s = [w[0] for w in ws], [w[1] for w in ws]
+    for direction, pipe in (("forward", ("ratr",)),
+                            ("backward", ("ratr", "gmm_interleave"))):
+        t = time.perf_counter()
+        fs = fu.compile_pp_fused(cfgs, M, direction=direction,
+                                 pipeline=pipe)
+        compile_ms = 1e3 * (time.perf_counter() - t)
+        st = ex.ExecutorState(cfgs[0] if direction == "forward"
+                              else cfgs[-1], dev,
+                              fragment_cfgs=fu.pp_fragment_cfgs(fs, cfgs))
+        if direction == "forward":
+            fu.load_pp_forward_state(fs, cfgs, st, x_srcs, w1s, w2s)
+        else:
+            fu.load_pp_backward_state(fs, cfgs, st, dys, refs, w1s, w2s)
+        st.boundary_fns = pp_boundary_fns(fs, mats, d,
+                                          transpose=direction == "backward")
+        before = gmm_mod.launches
+        t = time.perf_counter()
+        ex.execute(fs, st, rng=np.random.default_rng(seed))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        walk_ms = 1e3 * (time.perf_counter() - t)
+        n_bnd = sum(td.task_type == "StageBoundary" for td in fs.tasks)
+        if not n_bnd:
+            raise AssertionError("pp_fused: no StageBoundary tile")
+        for m in range(M):
+            for s in range(S):
+                lab = f"S{s}M{m}"
+                for r in range(ep):
+                    pairs = []
+                    if direction == "forward" and plans[s].send_rows(r):
+                        pairs.append((f"y_ret#{lab}",
+                                      refs[m][s]["y_ret"][r]))
+                    if direction == "backward":
+                        dx, dw1, dw2 = brefs[m][s]
+                        if plans[s].send_rows(r):
+                            pairs.append((f"dx_ret#{lab}", dx[r]))
+                        if plans[s].recv_rows(r):
+                            pairs += [(f"dW1#{lab}", dw1[r]),
+                                      (f"dW2#{lab}", dw2[r])]
+                    for name, want in pairs:
+                        if not torch.equal(st.get(name, r), want):
+                            raise AssertionError(
+                                f"pp_fused {direction}: {name} rank {r} "
+                                f"differs from the cells run one by one")
+        out[direction] = {"tasks": fs.n_tasks, "fragments": fs.n_fragments,
+                          "stage_boundary_tiles": n_bnd,
+                          "compile_ms": compile_ms, "walk_ms": walk_ms,
+                          "gmm_launches": gmm_mod.launches - before,
+                          "bit_equal_cells": True}
+    return out
+
+
+def run_pp_fused(cfg):
+    """Phase 11 on the card."""
+    out = pp_fused_case(cfg)
+    for direction in ("forward", "backward"):
+        if out[direction]["gmm_launches"] == 0:
+            raise AssertionError(f"pp_fused {direction} ran no gmm")
+    torch.cuda.empty_cache()
+    return {"phase": "pp_fused",
+            "note": "ep = 4 is four virtual ranks on one card", **out}
+
+
+def elastic_case(cfg, tokens=TRAIN_SEQ, ep=ELASTIC_EP, dead=ELASTIC_DEAD,
+                 dev="cuda", seed=0):
+    """Phase 12's checks: the rescaled handle against a native one, and the
+    remapped plan's survivors against the ep-rank run, bit for bit."""
+    dev = torch.device(dev)
+    mc, d, F = cfg.moe, cfg.d_model, cfg.moe.d_expert
+    params, x = dropless_bench.layer(cfg, tokens, seed, dev)
+    survivors = elastic.surviving_ranks(ep, dead)
+    big = dropless_mod.DroplessMoE(dropless_mod.DroplessConfig(ep=ep),
+                                   cache=SSCCache())
+    small = big.rescale(dead_ranks=list(dead))
+    native = dropless_mod.DroplessMoE(
+        dropless_mod.DroplessConfig(ep=len(survivors)), cache=SSCCache())
+    info = big.cache.info()
+    if not (small.cache is big.cache and small.dc == native.dc
+            and info["active_ep"] == len(survivors)):
+        raise AssertionError(f"elastic: rescale gave {small.dc}, cache "
+                             f"{info['active_ep']}")
+    g = torch.randn(tuple(x.shape), generator=torch.Generator(
+        device=dev).manual_seed(7), device=dev)
+    got = {}
+    for name, h in (("rescaled", small), ("native", native)):
+        p = {k: v.detach().clone().requires_grad_(True)
+             for k, v in params.items()}
+        xx = x.detach().clone().requires_grad_(True)
+        y = h.impl(p, xx, mc)
+        y.backward(g)
+        got[name] = [y.detach(), xx.grad] + [p[k].grad for k in sorted(p)]
+    if not all(torch.equal(a, b) for a, b in zip(*got.values())):
+        raise AssertionError("elastic: the rescaled handle differs from a "
+                             "native one")
+
+    # The routed ep-rank plan, remapped onto the survivors.
+    T = tokens
+    xt = x.reshape(T, d)
+    ti = router_topk(params["router"], xt, mc)[1].cpu().numpy()
+    dc = dropless_mod.DroplessConfig(ep=ep)
+    bridge = dropless_mod._bridge_of(dc, ti, mc)
+    cfg_big = dropless_mod._schedule_cfg(dc, bridge.plan, d, F)
+    plan_small = elastic.remap_plan(bridge.plan, dead_ranks=dead)
+    report = elastic.check_remap(bridge.plan, plan_small, survivors)
+    if not report["ok"]:
+        raise AssertionError(f"elastic: remap invariants {report}")
+    cfg_small = dropless_mod._schedule_cfg(
+        dataclasses.replace(dc, ep=len(survivors)), plan_small, d, F)
+    x_src = bridge_dispatch(bridge, xt.reshape(ep, T // ep, d))
+    w1, w2 = dropless_mod._expert_weights(dc, mc, params["w_in"],
+                                          params["w_down"])
+    pipe = dc.pipeline_spec()
+    st_big = ex.ExecutorState(cfg_big, dev)
+    ex.load_forward_state_plan(cfg_big, st_big, x_src, w1, w2)
+    ex.execute(big.cache.get_or_compile(cfg_big, "forward", pipeline=pipe),
+               st_big, rng=np.random.default_rng(0))
+    misses = big.cache.misses
+    t = time.perf_counter()
+    sched = big.cache.get_or_compile(cfg_small, "forward", pipeline=pipe)
+    compile_ms = 1e3 * (time.perf_counter() - t)
+    missed = big.cache.misses > misses
+    st = ex.ExecutorState(cfg_small, dev)
+    ex.load_forward_state_plan(
+        cfg_small, st, [x_src[r] for r in survivors],
+        elastic.rechunk_expert_array(w1, len(survivors), e_total=mc.e_total),
+        elastic.rechunk_expert_array(w2, len(survivors), e_total=mc.e_total))
+    ex.execute(sched, st, rng=np.random.default_rng(0))
+    for i, r in enumerate(survivors):
+        if plan_small.send_rows(i) and not torch.equal(
+                st.get("y_ret", i), st_big.get("y_ret", r)):
+            raise AssertionError(f"elastic: survivor {r}'s y_ret differs "
+                                 f"from the ep = {ep} run's")
+    info = big.cache.info()
+    return {"ep": ep, "dead_ranks": list(dead), "survivors": list(survivors),
+            "tokens": T, "remap": report, "rescaled_equals_native": True,
+            "survivors_y_ret_bit_equal": True,
+            "compile_after_rekey_ms": compile_ms,
+            "compile_after_rekey_was_a_miss": missed,
+            "cache": {k: info[k] for k in ("entries", "hits", "misses",
+                                           "rekeyed", "active_ep",
+                                           "by_ep")}}
+
+
+def run_elastic(cfg):
+    """Phase 12 on the card."""
+    out = elastic_case(cfg)
+    torch.cuda.empty_cache()
+    return {"phase": "elastic", **out}
 
 
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
@@ -1061,6 +1389,17 @@ def main() -> int:
     emit(run_dropless_fragment())
     dropless_out, dropless_launches = run_dropless_train(cfg)
     emit(dropless_out)
+    path_launches = {}
+    for path, run in (("fused_dropless", run_fused_dropless),
+                      ("pp_fused", partial(run_pp_fused, cfg)),
+                      ("elastic", partial(run_elastic, cfg))):
+        reset_launches()
+        emit(run())
+        path_launches[path] = read_launches()
+        if path_launches[path]["gmm"] == 0 or any(
+                v for k, v in path_launches[path].items() if k != "gmm"):
+            raise AssertionError(f"{path} launches {path_launches[path]}: "
+                                 f"gmm only, at least once")
 
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1068,7 +1407,8 @@ def main() -> int:
         by_path = {"serving": serve_launches[name],
                    "training": train_launches[name],
                    "swiglu_add_bench": swa_launches[name],
-                   "dropless": dropless_launches[name]}
+                   "dropless": dropless_launches[name],
+                   **{p: n[name] for p, n in path_launches.items()}}
         if name.startswith("swiglu_add"):
             kernels.append(swiglu_add_entry(name, spec, swa_checks,
                                             bench_out, by_path))

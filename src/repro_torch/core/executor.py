@@ -22,8 +22,11 @@ The ``*_plan`` references run the per-expert products through the same
 them bit for bit; ``reference_backward_plan_autograd`` is an independent
 ``torch.autograd`` oracle (the reference uses ``jax.vjp``).
 
-Multi-fragment schedules (LayerBoundary/StageBoundary tiles) come with the
-port's fusion slice.
+Multi-fragment schedules (``core/fusion``): every handler resolves
+routing through ``ExecutorState.cfg_of`` (the fragment's own plan), and
+LayerBoundary/StageBoundary tiles call the per-(junction, rank)
+``boundary_fns`` — on the card the dropless remaps of ``models/moe.py``,
+which work on device tensors — or copy rows when none is registered.
 """
 
 from __future__ import annotations
@@ -77,7 +80,8 @@ class ExecutorState:
     unless the caller asks for the CPU (``device="cpu"``)."""
 
     def __init__(self, cfg: ScheduleConfig, device="cuda",
-                 gmm: Optional[Callable] = None):
+                 gmm: Optional[Callable] = None,
+                 fragment_cfgs: Optional[list[ScheduleConfig]] = None):
         self.cfg = cfg
         self.device = resolve_device(device)
         self.gmm = gmm or gmm_kernel
@@ -86,6 +90,19 @@ class ExecutorState:
         # (tensor, rank) -> total rows, precomputed from the schedule's write
         # set so lazily-created buffers get their full extent up front.
         self.rows_map: dict[tuple[str, int], int] = {}
+        # Multi-fragment schedules: per-fragment configs in execution order
+        # (each fragment's tasks must resolve routing against *its* plan).
+        self.fragment_cfgs = fragment_cfgs
+        # (junction index, rank) -> fn(full_input|None, lo, hi) -> [hi-lo, w]
+        # tensor on this state's device: the numerical remap of
+        # LayerBoundary/StageBoundary tiles; identity when absent.
+        self.boundary_fns: dict[tuple[int, int], Callable] = {}
+
+    def cfg_of(self, td: TaskDescriptor) -> ScheduleConfig:
+        """The config governing this task's routing extents."""
+        if self.fragment_cfgs is not None:
+            return self.fragment_cfgs[td.meta.get("fragment", 0)]
+        return self.cfg
 
     def _tensor(self, arr):
         return torch.as_tensor(arr, dtype=torch.float32, device=self.device)
@@ -149,7 +166,7 @@ def _h_gmm(td: TaskDescriptor, st: ExecutorState) -> None:
     if td.meta.get("fallback"):
         # Unsplit task: block-diagonal GMM over the plan's expert blocks
         # (ragged extents; empty experts contribute no rows).
-        cfg = st.cfg
+        cfg = st.cfg_of(td)
         plan = cfg.routing
         r = td.rank
         outs = []
@@ -175,7 +192,7 @@ def _h_gmm_wgrad(td: TaskDescriptor, st: ExecutorState) -> None:
     grad = st.get(g_rng.tensor, g_rng.rank)[g_rng.lo:g_rng.hi]
     act = st.get(act_rng.tensor, act_rng.rank)[act_rng.lo:act_rng.hi]
     key = (td.outputs[0].tensor, td.outputs[0].rank)
-    cfg = st.cfg
+    cfg = st.cfg_of(td)
     if key not in st.buffers:
         st.buffers[key] = torch.zeros(
             (cfg.e_loc, act.shape[1], grad.shape[1]), dtype=torch.float32,
@@ -214,12 +231,53 @@ def _h_swiglu_grad(td: TaskDescriptor, st: ExecutorState) -> None:
     buf[o.lo:o.hi] = out
 
 
+def _h_layer_boundary(td: TaskDescriptor, st: ExecutorState) -> None:
+    """Inter-layer token remap tile of a fused multi-fragment schedule.
+
+    The numerical remap (upstream combine-weighted sum composed with the
+    downstream layer's routing) lives outside the schedulable fragment;
+    ``st.boundary_fns[(junction, rank)]`` supplies it with the contract
+    ``fn(full_input_or_None, lo, hi) -> [hi - lo, width]`` where the row
+    range addresses the downstream send buffer; the result is held as an
+    fp32 tensor on the state's device. Without a registered fn the tile is
+    an identity row copy (legal only when the upstream return buffer
+    covers the downstream send rows — e.g. both layers share a plan).
+    """
+    if td.inputs:
+        i = td.inputs[0]
+        data = st.get(i.tensor, i.rank)[i.lo:i.hi]
+    else:
+        data = None              # rank returned no rows upstream
+    o = td.outputs[0]
+    fn = st.boundary_fns.get((td.meta.get("boundary", 0), td.rank))
+    if fn is None:
+        if data is None or data.shape[0] < o.hi:
+            raise ScheduleError(
+                f"{td.op_name}: identity boundary needs {o.hi} upstream "
+                f"rows, have {0 if data is None else data.shape[0]}; "
+                f"register a boundary_fn for mismatched plans")
+        out = data[o.lo:o.hi]
+    else:
+        out = st._tensor(fn(data, o.lo, o.hi))
+    if out.shape[0] != o.hi - o.lo:
+        raise ScheduleError(
+            f"{td.op_name}: boundary fn returned {out.shape[0]} rows "
+            f"for range [{o.lo}, {o.hi})")
+    buf = st.ensure(o.tensor, o.rank, o.hi, out.shape[1])
+    buf[o.lo:o.hi] = out
+
+
 HANDLERS: dict[str, Callable[[TaskDescriptor, ExecutorState], None]] = {
     "put_mem_signal": _h_put_mem_signal,
     "GMM": _h_gmm,
     "GMMWGrad": _h_gmm_wgrad,
     "SwiGLU": _h_swiglu,
     "SwiGLUGrad": _h_swiglu_grad,
+    "LayerBoundary": _h_layer_boundary,
+    # The PP stage handoff computes the same junction remap; only its
+    # scheduling and pricing differ (activation payload over the stage
+    # link), so it shares the handler and the ``boundary_fns`` keys.
+    "StageBoundary": _h_layer_boundary,
 }
 
 

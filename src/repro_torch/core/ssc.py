@@ -15,8 +15,8 @@ format. The blob records the schedule-pass pipeline spec that produced it
 (``Schedule.opts["pipeline"]``). An in-process :class:`SSCCache` keyed by
 shape bucket × pipeline mirrors the paper's "reuse SSC for stable shapes or
 shape buckets" behaviour (Table 2), with LRU eviction bounding it.
-Multi-fragment (fused) schedules come with the port's fusion slice; their
-entry points raise until then.
+Multi-fragment (fused, ``core/fusion``) schedules carry their fragment
+table in the same payload, as the reference's do.
 
 Cache keying and bucketing semantics
 ------------------------------------
@@ -90,9 +90,6 @@ from .passes import resolve_pipeline
 from .scheduler import Event, Schedule
 from .tasks import Range, TaskDescriptor
 
-_FUSION = ("multi-fragment (fused) schedules come with the port's fusion "
-           "slice")
-
 
 def _td_to_dict(td: TaskDescriptor) -> dict:
     d = dataclasses.asdict(td)
@@ -111,8 +108,9 @@ def _td_from_dict(d: dict) -> TaskDescriptor:
 def schedule_to_ssc(s: Schedule) -> bytes:
     """Serialize a full (all-rank) schedule.
 
-    Multi-fragment schedules (the reference's ``core/fusion``) come with
-    the port's fusion slice and are refused here.
+    Multi-fragment schedules (``core/fusion.FusedSchedule``) additionally
+    carry their fragment table; the payload stays version 1 — readers
+    without fusion support would still decode a valid plain Schedule.
     """
     payload = {
         "version": 1,
@@ -127,8 +125,12 @@ def schedule_to_ssc(s: Schedule) -> bytes:
         "queues": [{"rank": r, "qtype": q, "tids": tids}
                    for (r, q), tids in sorted(s.queues.items())],
     }
-    if getattr(s, "fragments", None):
-        raise NotImplementedError(_FUSION)
+    fragments = getattr(s, "fragments", None)
+    if fragments:
+        payload["fragments"] = [
+            {"index": f.index, "label": f.label, "tid_lo": f.tid_lo,
+             "tid_hi": f.tid_hi, "boundary_tids": list(f.boundary_tids)}
+            for f in fragments]
     return json.dumps(payload, separators=(",", ":")).encode()
 
 
@@ -141,7 +143,14 @@ def ssc_to_schedule(blob: bytes) -> Schedule:
               for k, v in p["events"].items()}
     queues = {(e["rank"], e["qtype"]): list(e["tids"]) for e in p["queues"]}
     if p.get("fragments"):
-        raise NotImplementedError(_FUSION)
+        from .fusion import Fragment, FusedSchedule   # lazy: avoid cycle
+        frags = tuple(Fragment(index=f["index"], label=f["label"],
+                               tid_lo=f["tid_lo"], tid_hi=f["tid_hi"],
+                               boundary_tids=tuple(f["boundary_tids"]))
+                      for f in p["fragments"])
+        return FusedSchedule(direction=p["direction"], ep=p["ep"],
+                             tasks=tasks, events=events, queues=queues,
+                             opts=p.get("opts", {}), fragments=frags)
     return Schedule(direction=p["direction"], ep=p["ep"], tasks=tasks,
                     events=events, queues=queues, opts=p.get("opts", {}))
 
@@ -399,16 +408,87 @@ class SSCCache:
         return {"entries": len(self._cache), "active": active,
                 "stale": len(self._cache) - active}
 
-    def get_or_compile_fused(self, cfgs, direction: str, **kw) -> Schedule:
-        """Fused multi-layer twin of :meth:`get_or_compile` (the reference's
-        ``SSCCache.get_or_compile_fused``); not ported yet."""
-        raise NotImplementedError(_FUSION)
+    def get_or_compile_fused(self, cfgs, direction: str, pipeline=None,
+                             pipelines=None,
+                             fused_pipeline=("fuse_boundary",),
+                             boundary_split: Optional[int] = None,
+                             **opts) -> Schedule:
+        """Fused multi-layer twin of :meth:`get_or_compile`.
+
+        ``cfgs`` are the per-layer configs in *layer* order; the cache key
+        is the tuple of the per-layer keys (each resolved exactly as the
+        unfused path resolves it, so per-layer ``pipeline="auto"`` works)
+        plus the fused pipeline, boundary tiling, and the fusion shape
+        tuple ``(boundary kind, n_stages, n_microbatches)`` — layer fusion
+        is ``("layer", K, 1)``, keeping it disjoint from PP-fused blobs of
+        the same plans. One multi-fragment blob per distinct plan tuple;
+        ``info()`` reports its fragment count next to its byte size.
+        """
+        from .fusion import DEFAULT_BOUNDARY_SPLIT, compile_fused
+        if boundary_split is None:
+            boundary_split = DEFAULT_BOUNDARY_SPLIT
+        if pipelines is None:
+            pipelines = [pipeline] * len(cfgs)
+        resolved = [self._resolve(c, direction, p, opts)
+                    for c, p in zip(cfgs, pipelines)]
+        fp = resolve_pipeline(fused_pipeline)
+        k = ("fused", direction, fp.key(), boundary_split,
+             tuple(self.key(c, direction, pipeline=p)
+                   for (c, p) in resolved),
+             ("layer", len(cfgs), 1))
+        blob = self._cache.get(k)
+        if blob is None:
+            self.misses += 1
+            fs = compile_fused([c for (c, _) in resolved], direction,
+                               pipelines=[p for (_, p) in resolved],
+                               fused_pipeline=fp,
+                               boundary_split=boundary_split)
+            blob = schedule_to_ssc(fs)
+            self._insert(k, blob, fragments=len(cfgs))
+        else:
+            self.hits += 1
+            self._cache.move_to_end(k)
+        return ssc_to_schedule(blob)
 
     def get_or_compile_pp_fused(self, cfgs, n_microbatches: int,
-                                direction: str, **kw) -> Schedule:
-        """PP-fused twin (the reference's
-        ``SSCCache.get_or_compile_pp_fused``); not ported yet."""
-        raise NotImplementedError(_FUSION)
+                                direction: str, pipeline=None,
+                                pipelines=None,
+                                fused_pipeline=("pp_interleave",),
+                                boundary_split: Optional[int] = None,
+                                **opts) -> Schedule:
+        """PP-fused twin: ``cfgs`` per *stage* (stage order), replicated
+        across ``n_microbatches`` by ``compile_pp_fused``. Keys share the
+        fused namespace with :meth:`get_or_compile_fused` but carry
+        ``("stage", n_stages, n_microbatches)``, so the same stage plans
+        at different microbatch counts (or vs layer fusion) never alias.
+        """
+        from .fusion import DEFAULT_BOUNDARY_SPLIT, compile_pp_fused
+        if boundary_split is None:
+            boundary_split = DEFAULT_BOUNDARY_SPLIT
+        if pipelines is None:
+            pipelines = [pipeline] * len(cfgs)
+        resolved = [self._resolve(c, direction, p, opts)
+                    for c, p in zip(cfgs, pipelines)]
+        fp = resolve_pipeline(fused_pipeline)
+        k = ("fused", direction, fp.key(), boundary_split,
+             tuple(self.key(c, direction, pipeline=p)
+                   for (c, p) in resolved),
+             ("stage", len(cfgs), int(n_microbatches)))
+        blob = self._cache.get(k)
+        if blob is None:
+            self.misses += 1
+            fs = compile_pp_fused([c for (c, _) in resolved],
+                                  n_microbatches, direction=direction,
+                                  pipelines=[p for (_, p) in resolved],
+                                  fused_pipeline=fp,
+                                  boundary_split=boundary_split)
+            blob = schedule_to_ssc(fs)
+            self._insert(k, blob,
+                         fragments=len(cfgs) * int(n_microbatches))
+        else:
+            self.hits += 1
+            self._cache.move_to_end(k)
+        return ssc_to_schedule(blob)
 
     def record_rows(self, exact_rows: int, padded_rows: int) -> None:
         """Accumulate one bucketed plan's padded-vs-exact row accounting.

@@ -64,8 +64,10 @@ class ModelConfig:
     n_patches: int = 0            # vlm patch-prefix length (stub)
     vocab_pad: int = 256
     dtype: str = "bfloat16"
-    # Training: ``remat`` recomputes each layer in the backward (policy
-    # "full"); the others are kept so configs compare field by field.
+    # Training: ``remat`` recomputes each layer in the backward; policy
+    # "full" recomputes the whole block, "save_moe" keeps each block's MoE
+    # output so the backward never re-runs the MoE (``_run_stack``). The
+    # others are kept so configs compare field by field.
     remat: bool = True
     remat_policy: str = "full"
     scan_layers: bool = True
@@ -174,21 +176,31 @@ def train_moe_impl(cfg: ModelConfig) -> Callable:
                    gmm_fn=partial(ops.moe_expert_ffn, trainable=True))
 
 
+def _attn_half(cfg: ModelConfig, p, x, cache=None):
+    """ln1 → attention → residual: (x, new_cache)."""
+    a, new_cache = L.attention(
+        p["attn"], L.apply_norm(cfg.norm, x, p, "ln1"),
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        rope_theta=cfg.rope_theta, causal=cfg.causal,
+        sliding_window=cfg.sliding_window, block=cfg.attn_block, cache=cache)
+    return x + a, new_cache
+
+
+def _moe_half(cfg: ModelConfig, p, x, moe_impl: Optional[Callable] = None):
+    """ln2 → MoE → residual."""
+    h = L.apply_norm(cfg.norm, x, p, "ln2")
+    impl = moe_impl or default_moe_impl(cfg)
+    return x + impl(p["moe"], h, cfg.moe)
+
+
 def block_apply(cfg: ModelConfig, btype: str, p, x, cache=None,
                 moe_impl: Optional[Callable] = None):
     """One residual block. Returns (x, new_cache)."""
     if btype != "attn_moe":
         raise NotImplementedError(
             f"{btype!r} blocks are not ported yet; the port runs attn_moe")
-    a, new_cache = L.attention(
-        p["attn"], L.apply_norm(cfg.norm, x, p, "ln1"),
-        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-        rope_theta=cfg.rope_theta, causal=cfg.causal,
-        sliding_window=cfg.sliding_window, block=cfg.attn_block, cache=cache)
-    x = x + a
-    h = L.apply_norm(cfg.norm, x, p, "ln2")
-    impl = moe_impl or default_moe_impl(cfg)
-    return x + impl(p["moe"], h, cfg.moe), new_cache
+    x, new_cache = _attn_half(cfg, p, x, cache)
+    return _moe_half(cfg, p, x, moe_impl), new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -208,18 +220,29 @@ def _run_stack(cfg: ModelConfig, params, x, caches=None, moe_impl=None):
     """Apply all layers in a Python loop. caches: list of per-layer dicts or
     None.
 
-    With ``cfg.remat`` and autograd recording, each layer runs under
-    ``torch.utils.checkpoint``: only its input is kept, and the backward
-    recomputes the layer (JAX: ``jax.checkpoint`` around the scan body,
-    policy "full").
+    With ``cfg.remat`` and autograd recording, layers run under non-reentrant
+    ``torch.utils.checkpoint`` (JAX: ``jax.checkpoint`` around the scan
+    body). Policy "full" checkpoints the whole block, so the backward
+    recomputes it. Policy "save_moe", and any ``moe_impl`` whose own
+    backward recomputes what it needs (``moe_impl.self_remat``, the
+    dropless fragment), checkpoint only the attention half: the MoE half
+    runs once, outside the checkpoint, as JAX's remat keeps the MoE output
+    (``save_moe``) or never re-runs the custom-vjp fragment's callback.
     """
     btype = cfg.layer_types()[0]
     if caches is None and cfg.remat and torch.is_grad_enabled():
+        split = (cfg.remat_policy == "save_moe"
+                 or getattr(moe_impl, "self_remat", False))
         for bp in params["blocks"]:
-            x = checkpoint(
-                lambda h, bp=bp: block_apply(cfg, btype, bp, h, None,
-                                             moe_impl)[0],
-                x, use_reentrant=False)
+            if split:
+                x = checkpoint(lambda h, bp=bp: _attn_half(cfg, bp, h)[0],
+                               x, use_reentrant=False)
+                x = _moe_half(cfg, bp, x, moe_impl)
+            else:
+                x = checkpoint(
+                    lambda h, bp=bp: block_apply(cfg, btype, bp, h, None,
+                                                 moe_impl)[0],
+                    x, use_reentrant=False)
         return x, None
     new_caches = []
     for i, bp in enumerate(params["blocks"]):

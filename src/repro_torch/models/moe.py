@@ -10,7 +10,8 @@
 (``repro_torch.core``): it turns a batch's actual top-k assignment into a
 compilable ``RoutingPlan`` on the host, in numpy, and ``bridge_dispatch`` /
 ``bridge_combine`` move the tokens into and out of the plan's send buffers
-on the tensors' device.
+on the tensors' device; ``fused_boundary_forward`` / ``_backward`` are
+their per-rank composition, the LayerBoundary remap of a fused block.
 
 Routing uses fixed expert capacity:
 ``capacity = ceil(tokens · top_k / E · capacity_factor)``; overflow tokens
@@ -375,3 +376,98 @@ def bridge_combine(bridge: RoutingBridge, y_ret: list, top_p):
             c = top_p[s, :, j, None] * y_ret[s][r.clamp(min=0)]
             y[s] += torch.where((r >= 0)[:, None], c, 0.0)
     return y
+
+
+def fused_boundary_forward(bridge_out: RoutingBridge,
+                           bridge_in: RoutingBridge,
+                           top_p_out, d_model: int) -> dict:
+    """Per-rank remap fns for one forward junction of a fused schedule.
+
+    The junction composes layer i's combine-weighted gather (the rank-r
+    slice of :func:`bridge_combine` under ``bridge_out``/``top_p_out``)
+    with layer i+1's send-buffer scatter (the rank-r slice of
+    :func:`bridge_dispatch` under ``bridge_in``). Both are rank-local — a
+    token's returned rows and its next-layer send rows live on its own
+    source rank — so the per-rank restriction equals the full ops run one
+    after the other bit for bit; the statements below are theirs, in the
+    same order, on ``top_p_out``'s device.
+
+    Returns ``{rank: fn}`` with the executor's LayerBoundary contract
+    ``fn(full_y_ret_or_None, lo, hi) -> [hi - lo, d_model]``; the full
+    remap is memoized per rank, so tile granularity costs nothing.
+    """
+    ep, t_loc, k_out = bridge_out.send_row.shape
+    k_in = bridge_in.send_row.shape[2]
+    tp = top_p_out.float().reshape(ep, t_loc, k_out)
+    dev = tp.device
+    rows_out = bridge_out.rows_on(dev)
+    rows_in = bridge_in.rows_on(dev)
+    dropped = bridge_out.dropped
+    fns = {}
+    for r in range(ep):
+        def fn(data, lo, hi, r=r, _memo={}):
+            if "buf" not in _memo:
+                y = torch.zeros((t_loc, d_model), dtype=torch.float32,
+                                device=dev)
+                if data is not None and data.shape[0]:
+                    for j in range(k_out):
+                        rr = rows_out[r, :, j]
+                        if not dropped:
+                            y += tp[r, :, j, None] * data[rr]
+                            continue
+                        c = tp[r, :, j, None] * data[rr.clamp(min=0)]
+                        y += torch.where((rr >= 0)[:, None], c, 0.0)
+                n = bridge_in.plan.send_rows(r)
+                buf = torch.zeros((n + 1, d_model), dtype=torch.float32,
+                                  device=dev)
+                buf[rows_in[r]] = y[:, None, :].expand(t_loc, k_in, -1)
+                _memo["buf"] = buf[:n]
+            return _memo["buf"][lo:hi]
+        fns[r] = fn
+    return fns
+
+
+def fused_boundary_backward(bridge_out: RoutingBridge,
+                            bridge_in: RoutingBridge,
+                            top_p_out, d_model: int) -> dict:
+    """Backward twin of :func:`fused_boundary_forward`.
+
+    Maps ``dx_ret`` of layer i+1's backward fragment (gradient w.r.t. that
+    layer's send buffer) to ``dy_src`` of layer i's (gradient w.r.t. its
+    return buffer): gather-sum the dispatched copies back to tokens
+    (dispatch transpose, in choice order), then scatter the combine
+    weights' products into the upstream send layout (combine transpose).
+    Rank-local for the same reason as the forward, and statement for
+    statement the dropless backward's: a choice owns at most one send row,
+    so the scatter is an assignment (the reference accumulates with
+    ``np.add.at``); a dropped choice's row is the spare one, cut off.
+    """
+    ep, t_loc, k_out = bridge_out.send_row.shape
+    k_in = bridge_in.send_row.shape[2]
+    tp = top_p_out.float().reshape(ep, t_loc, k_out)
+    dev = tp.device
+    rows_out = bridge_out.rows_on(dev)
+    rows_in = bridge_in.rows_on(dev)
+    dropped = bridge_in.dropped
+    fns = {}
+    for r in range(ep):
+        def fn(data, lo, hi, r=r, _memo={}):
+            if "buf" not in _memo:
+                dx_tok = torch.zeros((t_loc, d_model), dtype=torch.float32,
+                                     device=dev)
+                if data is not None and data.shape[0]:
+                    for j in range(k_in):
+                        rr = rows_in[r, :, j]
+                        if not dropped:
+                            dx_tok += data[rr]
+                            continue
+                        dx_tok += torch.where((rr >= 0)[:, None],
+                                              data[rr.clamp(min=0)], 0.0)
+                n = bridge_out.plan.send_rows(r)
+                dy = torch.zeros((n + 1, d_model), dtype=torch.float32,
+                                 device=dev)
+                dy[rows_out[r]] = tp[r][:, :, None] * dx_tok[:, None, :]
+                _memo["buf"] = dy[:n]
+            return _memo["buf"][lo:hi]
+        fns[r] = fn
+    return fns

@@ -1,6 +1,7 @@
 """Helpers of ``chip_smoke.py`` that run without a card: the precision
 control of the trainable expert FFN's end-to-end check, the reader of the
-compiler's register and spill report, and the dropless tiles' body check."""
+compiler's register and spill report, the dropless tiles' body check,
+phase 9's SSC lookups check and the cases of phases 10-12."""
 
 import sys
 from pathlib import Path
@@ -142,3 +143,73 @@ def test_dropless_body_check_fails_on_a_wrong_body(bad):
     rows = [_tile_row(683, "tiled", 1), bad]
     with pytest.raises(AssertionError, match="wrong body"):
         chip_smoke.check_fp32_bodies(rows, 16)
+
+
+def test_fused_pp_and_elastic_phases_run_on_the_cpu():
+    """Phases 10-12's cases at the smoke config's widths on the CPU,
+    where ``gmm`` runs its plain version: the fused block equals its
+    sequential twin bit for bit and the plain executor, the PP-fused
+    taskflow equals its cells run one by one, and the rescaled handle and
+    the remapped plan equal their native ep-rank runs. Without a card the
+    fused block and its benchmark refuse to run unless asked for the CPU.
+    """
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.ssc import SSCCache
+    from repro_torch.launch import bench_fused_dropless
+    from repro_torch.launch.dropless import DroplessConfig, FusedDroplessMoE
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    out = chip_smoke.run_fused_dropless(
+        ["--device", "cpu", "--smoke", "--tokens", "48"])
+    assert [r["ep"] for r in out["rows"]] == [1, 2]
+    for r in out["rows"]:
+        assert r["checks"]["bit_equal_sequential"]
+        assert r["checks"]["fragments"]["fused"] == [2]
+    pp = chip_smoke.pp_fused_case(cfg, tokens=32, ep=2, dev="cpu")
+    for direction in ("forward", "backward"):
+        assert pp[direction]["bit_equal_cells"]
+        assert pp[direction]["fragments"] == 4
+        assert pp[direction]["stage_boundary_tiles"] > 0
+    el = chip_smoke.elastic_case(cfg, tokens=48, ep=3, dead=(1,),
+                                 dev="cpu")
+    assert el["survivors"] == [0, 2] and el["remap"]["ok"]
+    assert el["cache"]["active_ep"] == 2 and el["cache"]["rekeyed"] == 1
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            FusedDroplessMoE(DroplessConfig(), cache=SSCCache())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bench_fused_dropless.main(["--smoke", "--tokens", "48"])
+
+
+def test_dropless_lookups_check_counts_one_fragment_forward_per_layer():
+    """Phase 9's check on the smoke config with remat, two layers, two
+    steps of fresh tokens and exact plans: the dropless impl runs each
+    fragment's forward once (2 x 2 lookups a step, all misses) and passes;
+    the same impl under a whole-block checkpoint re-runs every forward in
+    the backward (one hit more a layer) and the check raises."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.ssc import SSCCache
+    from repro_torch.launch import dropless, steps
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                              dtype="float32", remat=True)
+    params = M.init_params(cfg, torch.Generator().manual_seed(0),
+                           device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    batches = [{k: torch.randint(0, cfg.vocab, (2, 16), generator=gen)
+                for k in ("tokens", "labels")} for _ in range(2)]
+    for whole_block in (False, True):
+        dm = dropless.make_moe_dropless(
+            cfg, dropless.DroplessConfig(ep=2, bucket=1), cache=SSCCache())
+        impl = ((lambda p, h, mc: dm.impl(p, h, mc)) if whole_block
+                else dm.impl)
+        log = []
+        for b in batches:
+            steps.value_and_grad(cfg, params, b, moe_impl=impl)
+            log.append({f"ssc_{k}": v for k, v in dm.step_stats().items()})
+        if whole_block:
+            assert [m["ssc_hits"] for m in log] == [2, 2]
+            with pytest.raises(AssertionError, match="no hit"):
+                chip_smoke.check_dropless_lookups(log, cfg.n_layers)
+        else:
+            assert chip_smoke.check_dropless_lookups(log, 2) == [4, 4]

@@ -265,10 +265,31 @@ def test_handle_rescale_and_step_stats():
     small = dm.rescale(new_ep=1)
     assert small.cache is cache and small.dc.ep == 1
     assert cache.info()["active_ep"] == 1 and cache.rekeyed == 1
-    with pytest.raises(NotImplementedError, match="elastic"):
-        dm.rescale(dead_ranks=[1])
     with pytest.raises(ValueError):
         dm.rescale(new_ep=0)
+    # Rescaling from lost ranks equals the reference's: the same survivor
+    # mesh, config and re-keyed cache, and the same errors.
+    handles = {
+        "port": tdl.make_moe_dropless(cfg, tdl.DroplessConfig(ep=3),
+                                      cache=TCache(max_entries=8)),
+        "jax": jdl.DroplessMoE(jdl.DroplessConfig(ep=3, bucket=16),
+                               cache=JCache(max_entries=8))}
+    lost = {n: h.rescale(dead_ranks=[1]) for n, h in handles.items()}
+    assert lost["port"].dc == tdl.DroplessConfig(ep=2)
+    assert lost["port"].dc.ep == lost["jax"].dc.ep == 2
+    assert lost["port"].dc.bucket_spec().key() == \
+        lost["jax"].dc.bucket_spec().key()
+    for n, h in handles.items():
+        assert lost[n].cache is h.cache
+    info = {n: h.cache.info() for n, h in handles.items()}
+    for k in ("active_ep", "rekeyed", "entries", "hits", "misses"):
+        assert info["port"][k] == info["jax"][k], k
+    for n, h in handles.items():
+        assert h.rescale(dead_ranks=[0], new_ep=1).dc.ep == 1
+        for bad in (dict(), dict(dead_ranks=[3]),
+                    dict(dead_ranks=[0, 1, 2])):
+            with pytest.raises(ValueError):
+                h.rescale(**bad)
     cache.record_rows(8, 12)
     assert dm.step_stats() == {"hits": 0, "misses": 0, "evictions": 0,
                                "entries": 0, "pad_ratio": 1.5}
@@ -393,22 +414,132 @@ def test_smoke_train_step_matches_jax_and_fixed_capacity(
         np.testing.assert_allclose(a.detach().numpy(), b.numpy(), **TOL)
 
 
-def test_smoke_train_step_under_remat_pins_the_recompute_hit(
+def test_smoke_train_step_under_remat_counts_jax_lookups(
         jax_steps, fresh_process_caches):
-    """With per-layer remat the port's checkpoint runs the fragment's
-    forward again in the backward, a cache hit that JAX's remat of the
-    custom-vjp fragment does not make: per layer and step the port counts
-    one more hit; misses, entries and the loss are JAX's."""
+    """With per-layer remat the fragment's forward runs once per layer and
+    step, as JAX's remat of the custom-vjp fragment runs its callback once:
+    the port's (hits, misses, entries) equal JAX's, (0, 2, 2) then
+    (2, 0, 2), and so does the loss."""
     j = jax_steps[True]
     _, _, m2, m3 = _port_steps(j, _smoke_cfgs(True)[1],
                                tdl.DroplessConfig(**DC))
     assert float(m2["loss"]) == pytest.approx(j["losses"][0], rel=1e-5)
     got = [(s["ssc_hits"], s["ssc_misses"], s["ssc_entries"])
            for s in (_ssc(m2), _ssc(m3))]
-    assert got == [(1, 2, 2), (3, 0, 2)]
     want = [(s["ssc_hits"], s["ssc_misses"], s["ssc_entries"])
             for s in j["ssc"]]
-    assert want == [(0, 2, 2), (2, 0, 2)]
+    assert got == want == [(0, 2, 2), (2, 0, 2)]
+
+
+def _remat_case(policy="full", n_layers=2):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model as TM
+    cfg = dataclasses.replace(get_smoke_config(ARCH), n_layers=n_layers,
+                              dtype="float32", remat=True,
+                              remat_policy=policy)
+    params = TM.init_params(cfg, torch.Generator().manual_seed(3),
+                            device="cpu")
+    batch = {k: torch.as_tensor(v, dtype=torch.long)
+             for k, v in BATCH.items()}
+    return cfg, params, batch
+
+
+def _whole_block(impl):
+    """``impl`` without its ``self_remat`` mark: the model checkpoints the
+    whole block around it, as before the split."""
+    return lambda p, h, mc: impl(p, h, mc)
+
+
+@pytest.mark.parametrize("case", ["dropless", "dropless_ep2", "save_moe"])
+def test_remat_split_is_bit_equal_to_whole_block_checkpoint(case):
+    """Checkpointing only the attention half (a dropless MoE, or policy
+    "save_moe" on the fixed-capacity path) gives the loss and every grad
+    leaf bit for bit as the whole-block checkpoint does (policy "full")."""
+    from repro_torch.optim import adamw
+    cfg, params, batch = _remat_case()
+    if case == "save_moe":
+        split_cfg, full_cfg = dataclasses.replace(
+            cfg, remat_policy="save_moe"), cfg
+        split_impl = full_impl = None
+    else:
+        dm = tdl.make_moe_dropless(
+            cfg, tdl.DroplessConfig(ep=2 if case == "dropless_ep2" else 1,
+                                    bucket=4), cache=TCache())
+        split_cfg = full_cfg = cfg
+        split_impl, full_impl = dm.impl, _whole_block(dm.impl)
+    out = {}
+    for name, c, impl in (("split", split_cfg, split_impl),
+                          ("full", full_cfg, full_impl)):
+        p = adamw.tree_map(lambda t: t.detach().clone(), params)
+        out[name] = TSt.value_and_grad(c, p, batch, moe_impl=impl)
+    assert torch.equal(out["split"][0], out["full"][0])
+    got, want = (adamw.tree_leaves(out[n][1]) for n in ("split", "full"))
+    assert len(got) == len(want) > 10
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def _saved_storages(fn, skip=()):
+    """Run ``fn`` under ``saved_tensors_hooks``: the bytes of each distinct
+    storage autograd keeps outside every checkpoint, parameters excluded."""
+    seen, skip = {}, {t.untyped_storage().data_ptr() for t in skip}
+
+    def pack(t):
+        st = t.untyped_storage()
+        if st.data_ptr() not in skip:
+            seen[st.data_ptr()] = st.nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        out = fn()
+    return out, seen
+
+
+def test_remat_split_keeps_only_what_the_recompute_rebuilt():
+    """Under the split the MoE half of each layer keeps exactly what it
+    keeps when run alone, which is what the whole-block recompute rebuilt
+    for it: the router's and the fragment's inputs, no fp32 weight copy
+    and no executor buffer. It is a fraction of what the whole block keeps
+    without remat; the fragment saves its four inputs and nothing else."""
+    from repro_torch.models import model as TM
+    from repro_torch.optim import adamw
+    cfg, params, batch = _remat_case(n_layers=3)
+    dm = tdl.make_moe_dropless(cfg, tdl.DroplessConfig(bucket=4),
+                               cache=TCache())
+    leaves = adamw.tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    nbytes = {}
+    for name, impl in (("split", dm.impl), ("full", _whole_block(dm.impl))):
+        _, seen = _saved_storages(
+            lambda: TM.loss_fn(cfg, params, batch, impl), leaves)
+        nbytes[name] = sum(seen.values())
+    x = TM.embed_inputs(cfg, params, batch).detach().requires_grad_(True)
+    bp = params["blocks"][0]
+    _, half = _saved_storages(lambda: TM._moe_half(cfg, bp, x, dm.impl),
+                              leaves)
+    _, block = _saved_storages(
+        lambda: TM.block_apply(cfg, "attn_moe", bp, x, None, dm.impl),
+        leaves)
+    assert 0 < sum(half.values()) < sum(block.values()) / 2
+    assert nbytes["split"] - nbytes["full"] == \
+        cfg.n_layers * sum(half.values())
+    saved = []
+    orig = tdl._Fragment.forward
+
+    def spy(ctx, *args):
+        y = orig(ctx, *args)
+        saved.append([t.untyped_storage().data_ptr()
+                      for t in ctx.to_save])
+        return y
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tdl._Fragment, "forward", staticmethod(spy))
+        TM._moe_half(cfg, bp, x, dm.impl)
+    (ptrs,) = saved
+    assert len(ptrs) == 4
+    assert {bp["moe"]["w_in"].untyped_storage().data_ptr(),
+            bp["moe"]["w_down"].untyped_storage().data_ptr()} <= set(ptrs)
 
 
 def test_train_main_dropless_on_cpu(fresh_process_caches, capsys):

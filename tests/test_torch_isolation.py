@@ -39,6 +39,31 @@ def test_port_imports_no_jax_and_nothing_of_repro():
     assert n_modules >= 15           # every package and module was imported
 
 
+_ALONE = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("module", [
+    "repro_torch.core.fusion", "repro_torch.core.elastic",
+    "repro_torch.launch.schedsweep", "repro_torch.launch.dropless",
+    "repro_torch.launch.bench_fused_dropless",
+    "repro_torch.launch.bench_fusion", "repro_torch.launch.bench_elastic"])
+def test_fusion_and_elastic_modules_import_alone(module):
+    """Each module of the fusion/elastic slice, imported on its own in a
+    fresh interpreter, pulls in neither JAX, the JAX package nor msgpack."""
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    proc = subprocess.run([sys.executable, "-c", _ALONE, module],
+                          cwd=str(REPO), env=env, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert (REPO / "src" / (module.replace(".", "/") + ".py")).is_file()
+
+
 FORBIDDEN = ("jax", "jaxlib", "repro", "triton", "msgpack")
 
 

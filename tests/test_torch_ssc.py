@@ -231,18 +231,47 @@ def test_record_rows_refuses_a_plan_smaller_than_its_routing():
     assert c.info()["pad_ratio"] == 1.6
 
 
+def _plain_fused(s) -> dict:
+    return {**_plain(s), "fragments": [dataclasses.asdict(f)
+                                       for f in s.fragments]}
+
+
 def test_fused_schedules_wait_for_the_fusion_slice():
-    c = T.ssc.SSCCache()
-    cfg = _cfg(T, "skewed")
-    with pytest.raises(NotImplementedError, match="fusion"):
-        c.get_or_compile_fused([cfg, cfg], "forward")
-    with pytest.raises(NotImplementedError, match="fusion"):
-        c.get_or_compile_pp_fused([cfg, cfg], 2, "forward")
-    s = c.get_or_compile(cfg, "forward")
-    blob = json.loads(T.ssc.schedule_to_ssc(s))
-    blob["fragments"] = [{"index": 0}]
-    with pytest.raises(NotImplementedError, match="fusion"):
-        T.ssc.ssc_to_schedule(json.dumps(blob).encode())
+    """The fusion slice is in: layer- and PP-fused requests key, compile,
+    decode and re-key as the reference's do — equal keys in equal LRU
+    order, equal decoded schedules with their fragment tables, equal
+    ``info()`` fragment counts, hits on repeats, and a blob round trip."""
+    caches = {n: P.ssc.SSCCache(max_entries=16) for n, P in PKGS.items()}
+    got = {}
+    for n, c in caches.items():
+        P = PKGS[n]
+        cfgs = [_cfg(P, "skewed"), _cfg(P, "hotspot")]
+        dl = [_dropless_cfg(P, 16, ep=2, seed=s) for s in (1, 2)]
+        got[n] = [
+            c.get_or_compile_fused(cfgs, "forward", pipeline=["ratr"]),
+            c.get_or_compile_fused(cfgs[::-1], "backward",
+                                   pipeline=["ratr", "gmm_interleave"]),
+            c.get_or_compile_fused(dl, "forward", pipeline="auto"),
+            c.get_or_compile_pp_fused(cfgs, 2, "forward"),
+            c.get_or_compile_pp_fused(cfgs, 1, "backward",
+                                      pipelines=[["ratr"], []]),
+            c.get_or_compile_fused(cfgs, "forward", pipeline=["ratr"]),
+            c.get_or_compile(cfgs[0], "forward", pipeline=["ratr"])]
+    for a, b in zip(got["jax"][:-1], got["port"][:-1]):
+        assert _plain_fused(b) == _plain_fused(a)
+        back = T.ssc.ssc_to_schedule(T.ssc.schedule_to_ssc(b))
+        assert type(back) is type(b) and _plain_fused(back) == \
+            _plain_fused(b)
+    assert list(caches["port"]._cache) == list(caches["jax"]._cache)
+    assert _counters(caches["port"]) == _counters(caches["jax"])
+    assert (caches["port"].hits, caches["port"].misses) == (1, 6)
+    assert [e["fragments"] for e in caches["port"].info()["per_entry"]] == \
+        [e["fragments"] for e in caches["jax"].info()["per_entry"]] == \
+        [2, 2, 4, 2, 2, 1]         # LRU order: the hit moved to the end
+    assert all(k[0] == "fused" for k in list(caches["port"]._cache)[:5])
+    out = {n: c.rekey_for_mesh(2) for n, c in caches.items()}
+    assert out["port"] == out["jax"]
+    assert list(caches["port"]._cache) == list(caches["jax"]._cache)
 
 
 def test_rank_view_and_dump_json_equal_jax(tmp_path):
