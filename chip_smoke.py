@@ -67,7 +67,10 @@ Phases, each printing one JSON line:
    (``gmm.fp32_body``): every tile call of a tile of
    ``gmm.FP32_TILED_MIN_ROWS`` rows or more must run the tiled body, and the tiled body's launch count must
    grow by one for each row that names it. The six calls at C =
-   DROPLESS_TIMED_ROWS are timed;
+   DROPLESS_TIMED_ROWS are timed. Then ``row_count_bits``: at E = 1 and
+   both GMM widths, the rows of ``gmm(x[:, :C], w)`` for C = 1 ...
+   ROW_BITS_MAX (the small-row body under the threshold, the tiled body
+   from it) must be bit-equal to the rows of the C = ROW_BITS_MAX call;
 8. dropless_fragment — ``launch.bench_dropless`` on one full-width layer
    (T = 4096, the layer's own router, seed 0) at ep = 1 and ep = 4 (four
    virtual ranks on the card; their puts are device copies, not a
@@ -111,6 +114,24 @@ Phases, each printing one JSON line:
    runs the tiled body, one ascending-k chain an output); the compile ms
    of that plan after ``rekey_for_mesh``.
 
+13. serve_online — self-tuning serving: one full-width layer's dropless
+   fragment on a decode-sized batch (8 tokens x top-8, ep = 4) bit-equal
+   under ``exact``, ``linear:4`` and the ladder fitted on the decode
+   population, each within 1e-5 of the plain executor
+   (``fragment_bits_case``); the model cut to 2 full-width layers serving
+   8 requests through ``OnlineMoE`` with the same greedy tokens whether or
+   not ``swap_to("linear:4")`` is forced at decode step 2
+   (``forced_swap_case``); the first prefill through ``OnlineMoE`` within
+   LOGIT_TOL x max|logit| of the plain FFN at a capacity that drops
+   nothing (``online_prefill_case``); then ``launch.serve.main`` at full
+   width and depth, 16 requests of 128-token prompts, 8 slots, 32 new
+   tokens, ``--sched auto --online-refit``, ``--slo-us`` the predicted
+   step at SLO_SLOTS busy slots and ``--max-queue`` ONLINE_QUEUE: every
+   request finishes or is reported shed (the first four offers are), no
+   non-finite logit, and only fp32 ``gmm`` launches (by body: small-row,
+   tiled), beside phase 4's fixed-capacity numbers. Its µs are the Ascend
+   A3 cost model's predictions, not H100 times.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
 CUDA device nothing is printed to stdout.
@@ -147,6 +168,7 @@ from repro_torch.kernels.ref import (gmm_ref, gmm_swiglu_bwd_ref,  # noqa
 from repro_torch.core import elastic  # noqa: E402
 from repro_torch.core import executor as ex  # noqa: E402
 from repro_torch.core import fusion as fu  # noqa: E402
+from repro_torch.core.buckets import fit_ladder  # noqa: E402
 from repro_torch.core.ssc import SSCCache  # noqa: E402
 from repro_torch.launch import bench_dropless as dropless_bench  # noqa
 from repro_torch.launch import bench_fused_dropless as fused_bench  # noqa
@@ -157,7 +179,8 @@ from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.moe import (bridge_dispatch, capacity,  # noqa
-                                    init_moe, moe_grouped, router_topk)
+                                    init_moe, moe_grouped,
+                                    plan_from_routing, router_topk)
 from repro_torch.optim import adamw  # noqa: E402
 
 ARCH = "granite-moe-3b-a800m"
@@ -193,14 +216,14 @@ TILE_EDGES = (1, 2, 15, 16, 17, 27, 63, 64, 65, 127, 128, 129, 854)
 # F = 36 not a multiple of the 16-byte vectors (8 bf16 or 4 fp32).
 SWIGLU_ADD_CHECKS = [(M, F) for M in (256, 1000, 4096, 32768)
                      for F in (2048, 36)]
-# Row counts of the dropless fragment's tiles: ragged, across the FMA body's
-# tile edges and the tiled body's threshold, up to an expert's share of a
-# 4096-token batch and beyond.
+# Row counts of the dropless fragment's tiles: ragged, across the small-row
+# body's tile edges and the tiled body's threshold, up to an expert's share
+# of a 4096-token batch and beyond.
 DROPLESS_ROWS = (1, 8, 9, 15, 17, 127, 683, 1001)
 # The tiled body's edges, fp32, E = 3, each in all four layouts: (C, K, N)
 # with C past a 32- or 64-row tile (65 ... 1004; where x is a transposed
 # view C is its contiguous dim, and only C = 68, 132, 684, 1004 keep it a
-# multiple of 4 floats: the others check the FMA body there), K not a
+# multiple of 4 floats: the others check the small-row body there), K not a
 # multiple of the 16-deep slab (1004: in the layouts that read K
 # contiguous), N not a multiple of the 64- or 128-wide tile (1000); and
 # the weight gradients' (M, K, N) with K, the rows summed, ragged (683,
@@ -214,6 +237,9 @@ DROPLESS_EDGES = (
     + [(M, K, N, (1, 0)) for M, N in ((1536, 1024), (512, 1536))
        for K in (683, 1001)])
 DROPLESS_TIMED_ROWS = 683       # an expert's mean share: 4096 x 8 / 48
+# fp32 gmm's rows must not depend on the call's row count: C = 1 ... this,
+# across both fp32 bodies (the small-row body under FP32_TILED_MIN_ROWS).
+ROW_BITS_MAX = 32
 # Full-depth dropless training: steps of 1 x 4096 tokens, the first warm-up.
 DROPLESS_STEPS = 3
 # The same step when remat checkpointed each whole block, so that the
@@ -227,6 +253,15 @@ WHOLE_BLOCK_CHECKPOINT = {"step_ms": [4291.99, 5444.44],
 PP_STAGES, PP_MICROBATCHES, PP_EP, PP_TOKENS = 2, 2, 4, 2048
 # Elastic: the ep = 4 group losing ranks 1 and 3 (48 experts on 2 ranks).
 ELASTIC_EP, ELASTIC_DEAD = 4, (1, 3)
+# Online serving (phase 13): the forced-swap check at 2 full-width layers,
+# 8 requests of MAX_NEW_SWAP new tokens, the swap forced before decode step
+# SWAP_AT; the full-depth run with --slo-us at the predicted step of
+# SLO_SLOTS busy slots and --max-queue ONLINE_QUEUE, so that the first
+# REQUESTS - ONLINE_QUEUE offers are shed.
+SWAP_LAYERS, SWAP_AT, MAX_NEW_SWAP = 2, 2, 8
+SLO_SLOTS, ONLINE_QUEUE = 6, 12
+# fp32 gmm calls timed at decode-tile row counts (E = 1, both GMM widths).
+DECODE_TILE_ROWS = (1, 8)
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -260,6 +295,7 @@ def reset_launches() -> None:
         setattr(mod, attr, 0)
     bwd_mod.launches_tc = 0
     gmm_mod.launches_fp32_tiled = 0
+    gmm_mod.launches_fp32_small = 0
 
 
 def read_launches() -> dict:
@@ -327,7 +363,7 @@ def ptxas_report(log: str) -> list:
     """Registers, static shared memory and spills of each tensor-core
     kernel (namespaces ``gmmtc`` and ``gsbtc``) and of each instance of
     ``gmm``'s fp32 tiled body (``gmmf``; its ring is dynamic shared memory)
-    in a ``-Xptxas -v`` build log."""
+    and small-row body (``gmms``) in a ``-Xptxas -v`` build log."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -335,6 +371,7 @@ def ptxas_report(log: str) -> list:
             t = re.search(r"gmm_tc_kernelI(.*)EEv", m.group(1))
             b = re.search(r"gsbtc10bwd_kernelI(.*)EEv", m.group(1))
             f = re.search(r"gmmf12tiled_kernelI(.*)EEv", m.group(1))
+            g = re.search(r"gmms12small_kernelI(.*)EEv", m.group(1))
             cur = None
             if t:
                 a = re.findall(r"L[ib](\d+)E", t.group(1) + "E")
@@ -351,6 +388,11 @@ def ptxas_report(log: str) -> list:
                 cur = {"kernel": "gmmf::tiled_kernel", "bm": a[0],
                        "bn": a[1], "tm": a[2], "tn": a[3], "ta": a[4],
                        "tb": a[5]}
+            elif g:
+                a = [int(v) for v in re.findall(r"L[ib](\d+)E",
+                                                g.group(1) + "E")]
+                cur = {"kernel": "gmms::small_kernel", "rb": a[0],
+                       "ta": a[1], "tb": a[2], "w16": bool(a[3])}
             if cur:
                 out.append(cur)
             continue
@@ -899,7 +941,7 @@ def check_fp32_bodies(rows, min_rows) -> int:
     dropless tile calls (shape ``dropless_tile``) of a tile with at least
     ``min_rows`` rows names it. (A tile of one row makes the weight
     gradients' x a [1536, 1] view that reads as contiguous, K = 1 floats
-    wide: the FMA body's by the rule.) Returns the tiled launches of the
+    wide: the small-row body's by the rule.) Returns the tiled launches of the
     checked calls; raises AssertionError naming the rows at fault."""
     bad = [r for r in rows
            if r["tiled_launches"] != (r["body"] == "tiled")
@@ -937,6 +979,48 @@ def run_dropless_tiles(cfg):
         r["shape"] = "dropless_edge"
         rows.append(r)
     return rows, check_fp32_bodies(rows, gmm_mod.FP32_TILED_MIN_ROWS)
+
+
+def row_count_bits(cfg):
+    """fp32 ``gmm`` at E = 1 and both GMM widths (GMM1 K/N = d/2F, GMM2
+    F/d): for every C from 1 to ROW_BITS_MAX, the rows of
+    ``gmm(x[:, :C], w)`` must be bit-equal to ``gmm(x, w)[:, :C]`` at C =
+    ROW_BITS_MAX, across both fp32 bodies (each output one ascending-k fmaf
+    chain). A bucket ladder that pads a tile's rows then cannot change a
+    served token. Raises naming the row counts at fault."""
+    D, F2, Fe = cfg.d_model, 2 * cfg.moe.d_expert, cfg.moe.d_expert
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = []
+    for tile, K, N in (("gmm1", D, F2), ("gmm2", Fe, D)):
+        x = torch.randn((1, ROW_BITS_MAX, K), generator=gen, device="cuda")
+        w = torch.randn((1, K, N), generator=gen, device="cuda") * K ** -0.5
+        full = gmm_mod.gmm(x, w)
+        err = float((full - gmm_ref(x, w)).abs().max())
+        bodies, bad = {}, []
+        for C in range(1, ROW_BITS_MAX + 1):
+            xc = x[:, :C]
+            bodies.setdefault(gmm_mod.fp32_body(xc, w), []).append(C)
+            if not torch.equal(gmm_mod.gmm(xc, w), full[:, :C]):
+                bad.append(C)
+        row = {"tile": tile, "K": K, "N": N, "rows": [1, ROW_BITS_MAX],
+               "bodies": {b: [min(c), max(c)] for b, c in bodies.items()},
+               "rows_not_bit_equal": bad, "max_abs_err": err}
+        if bad or set(bodies) != {"small", "tiled"} or err > TOL[
+                torch.float32]:
+            raise AssertionError(f"fp32 gmm's rows depend on the call's "
+                                 f"row count: {row}")
+        row["timed"] = []
+        for C in DECODE_TILE_ROWS:
+            xc = x[:, :C]
+            b_ms, b_by = bound(1, C, K, N, False, torch.float32)
+            row["timed"].append({
+                "C": C, "body": gmm_mod.fp32_body(xc, w),
+                "ms": cuda_ms(lambda: gmm_mod.gmm(xc, w)),
+                "plain_ms": cuda_ms(lambda: gmm_ref(xc, w)),
+                "library_ms": cuda_ms(lambda: torch.bmm(xc, w)),
+                "bound_ms": b_ms, "bound_by": b_by})
+        out.append(row)
+    return out
 
 def run_dropless_fragment():
     """Phase 8: one full-width layer's dropless fragment, checked and timed
@@ -1321,6 +1405,204 @@ def run_elastic(cfg):
     return {"phase": "elastic", **out}
 
 
+def fragment_bits_case(cfg, tokens=SLOTS, ep=None, dev="cuda", seed=0):
+    """Phase 13's fragment check: one full-width MoE layer (fp32, its own
+    router, from ``seed``) on a decode-sized batch of ``tokens`` tokens
+    (tokens x top-k routed rows), at the serving ep. Its output under
+    ``exact``, ``linear:4`` and the ladder fitted on the decode population
+    (``serve --online-refit``'s seed spec) must be bit-equal on the card,
+    and each is checked by ``bench_dropless.check`` (within 1e-5 of the
+    plain executor, the fixed-capacity layer, the grads). The specs must
+    pad the plan to different row counts, or the check would be empty."""
+    dev = torch.device(dev)
+    mc = cfg.moe
+    ep = ep or serve_mod.serving_ep(mc, tokens, PROMPT_LEN)
+    params, x = dropless_bench.layer(cfg, tokens, seed, dev)
+    ti = router_topk(params["router"], x.reshape(tokens, -1), mc)[1]
+    ti = ti.cpu().numpy()
+    specs = {"exact": "exact", "linear:4": "linear:4",
+             "fitted": fit_ladder(serve_mod.decode_population(
+                 mc, ep, tokens), 6, 1.0)}
+    ys, rows, checks = {}, {}, {}
+    for name, spec in specs.items():
+        dc = dropless_mod.DroplessConfig(ep=ep, bucket=spec,
+                                         pipeline=("ratr",))
+        checks[name] = dropless_bench.check(params, x, mc, dc)
+        with torch.no_grad():
+            ys[name] = dropless_mod.DroplessMoE(
+                dc, cache=SSCCache()).impl(params, x, mc)
+        rows[name] = plan_from_routing(ti, mc, ep, capacity=None,
+                                       bucket=spec).plan.total_rows
+    gap = max(float((y - ys["exact"]).abs().max()) for y in ys.values())
+    out = {"tokens": tokens, "ep": ep, "routed_rows": int(ti.size),
+           "plan_rows": rows, "specs": {k: str(fit) if k == "fitted" else k
+                                        for k, fit in specs.items()},
+           "bit_equal": gap == 0.0, "max_gap": gap, "checks": checks}
+    if len(set(rows.values())) < 2:
+        raise AssertionError(f"serve_online: the specs pad alike {rows}")
+    if dev.type == "cuda" and not out["bit_equal"]:
+        raise AssertionError(f"serve_online: the fragment's output moves "
+                             f"with the bucket spec: {out}")
+    return out
+
+
+def forced_swap_case(cfg, n_layers=SWAP_LAYERS, requests=SLOTS,
+                     prompt_len=PROMPT_LEN, max_new=MAX_NEW_SWAP,
+                     swap_at=SWAP_AT, dev="cuda"):
+    """Phase 13's swap check: the model cut to ``n_layers`` (full width, the
+    config's dtype) serves ``requests`` requests through ``OnlineMoE``
+    twice, once unswapped and once with ``swap_to("linear:4")`` forced
+    before decode step ``swap_at``: the greedy tokens must be identical
+    (the reference's serving-stack contract)."""
+    dev = torch.device(dev)
+    pcfg = dataclasses.replace(cfg, n_layers=n_layers)
+    params = M.init_params(pcfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, cfg.vocab, prompt_len)
+               for i in range(requests)}
+    ep = serve_mod.serving_ep(cfg.moe, SLOTS, prompt_len)
+    counts = serve_mod.decode_population(cfg.moe, ep, SLOTS)
+
+    def run(swap):
+        om = serve_mod.make_online_moe(pcfg, ep, counts, cache=SSCCache())
+        b = serve_mod.ContinuousBatcher(
+            pcfg, params, n_slots=SLOTS, max_len=prompt_len + max_new + 1,
+            moe_impl=om.impl, device=dev)
+        pending, finished, steps = list(prompts), [], 0
+        with torch.inference_mode():
+            while pending or b.active.any() or b.instant_done:
+                while pending and b.admit(pending[0], prompts[pending[0]],
+                                          max_new):
+                    pending.pop(0)
+                if swap and steps == swap_at:
+                    om.swap_to("linear:4")
+                finished += b.step()
+                steps += 1
+        if sorted(finished) != sorted(prompts):
+            raise AssertionError("serve_online: a request did not finish")
+        return b.generated, om
+    plain, _ = run(False)
+    swapped, om = run(True)
+    forced = [e for e in om.tuner.swaps if e.get("forced")]
+    out = {"n_layers": n_layers, "requests": requests, "max_new": max_new,
+           "swap_at": swap_at, "forced_swaps": len(forced),
+           "tokens_identical": swapped == plain,
+           "tuner": om.tuner.summary()}
+    if not forced or swapped != plain:
+        raise AssertionError(f"serve_online: a forced swap changed the "
+                             f"served tokens: {out}")
+    return out
+
+
+def online_prefill_case(cfg, dev="cuda"):
+    """Phase 13's prefill check: the first request's prefill (the
+    full-depth run's own params and prompt) through ``OnlineMoE`` against
+    the plain expert FFN at a capacity that drops nothing, within phase
+    4's LOGIT_TOL x max|logit|."""
+    dev = torch.device(dev)
+    mc = cfg.moe
+    params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, PROMPT_LEN)
+    toks = torch.as_tensor(prompt[None, :], device=dev)
+    ep = serve_mod.serving_ep(mc, SLOTS, PROMPT_LEN)
+    om = serve_mod.make_online_moe(
+        cfg, ep, serve_mod.decode_population(mc, ep, SLOTS),
+        cache=SSCCache())
+    pcfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        mc, capacity_factor=mc.e_total / mc.top_k))
+    max_len = PROMPT_LEN + MAX_NEW + 1
+    with torch.inference_mode():
+        lo, _ = M.prefill(cfg, params, {"tokens": toks}, max_len,
+                          moe_impl=om.impl)
+        lp, _ = M.prefill(pcfg, params, {"tokens": toks}, max_len,
+                          moe_impl=plain_moe_impl(pcfg))
+    lo, lp = lo.float(), lp.float()
+    err, scale = float((lo - lp).abs().max()), float(lp.abs().max())
+    out = {"logit_max_abs_err": err, "logit_max_abs": scale,
+           "logit_tol": LOGIT_TOL, "top1_agree": bool(
+               lo.argmax() == lp.argmax()),
+           "finite": bool(torch.isfinite(lo).all())}
+    if not out["finite"] or err > LOGIT_TOL * scale:
+        raise AssertionError(f"serve_online: the online prefill differs "
+                             f"from the plain FFN: {out}")
+    return out
+
+
+def run_serve_online(cfg, fixed):
+    """Phase 13: the checks, then ``launch.serve.main`` at full width and
+    depth with ``--sched auto --online-refit --slo-us --max-queue``.
+    ``fixed`` is phase 4's output, printed beside this run's numbers."""
+    out = {"phase": "serve_online",
+           "note": "slo_us, makespan_us and predicted_us are the Ascend A3 "
+                   "cost model's predicted us, not H100 times"}
+    t = time.perf_counter()
+    out["fragment"] = fragment_bits_case(cfg)
+    out["forced_swap"] = forced_swap_case(cfg)
+    out["prefill"] = online_prefill_case(cfg)
+    out["checks_s"] = time.perf_counter() - t
+    torch.cuda.empty_cache()
+
+    mc = cfg.moe
+    ep = serve_mod.serving_ep(mc, SLOTS, PROMPT_LEN)
+    slo = serve_mod.predict_step_us(
+        cfg, serve_mod.decode_population(mc, ep, SLOTS), SLO_SLOTS)
+    argv = ["--arch", ARCH, "--requests", str(REQUESTS), "--slots",
+            str(SLOTS), "--prompt-len", str(PROMPT_LEN), "--max-new",
+            str(MAX_NEW), "--sched", "auto", "--online-refit", "--slo-us",
+            repr(slo), "--max-queue", str(ONLINE_QUEUE)]
+    reset_launches()
+    t = time.perf_counter()
+    b, stats = serve_mod.main(argv)
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    small, tiled = gmm_mod.launches_fp32_small, gmm_mod.launches_fp32_tiled
+    rep = stats.pop("report")
+    verdicts = stats.pop("verdicts")
+    want_shed = REQUESTS - ONLINE_QUEUE
+    if stats["requests"] + stats["shed"] != REQUESTS or \
+            stats["shed"] != want_shed:
+        raise AssertionError(f"serve_online: {stats['requests']} finished, "
+                             f"{stats['shed']} shed of {REQUESTS}")
+    if stats["nonfinite_steps"]:
+        raise AssertionError(f"serve_online: {stats['nonfinite_steps']} "
+                             f"steps had non-finite logits")
+    if (launches["gmm_swiglu"] or launches["gmm"] != small + tiled
+            or small + tiled == 0 or any(
+                v for k, v in launches.items() if k not in ("gmm",))):
+        raise AssertionError(f"serve_online launches {launches} (fp32 "
+                             f"small {small}, tiled {tiled}): fp32 gmm "
+                             f"only, at least once")
+    cache = rep.get("cache", {})
+    out.update({
+        "argv": argv, "slo_us_predicted": slo, "wall_s": wall,
+        "n_slots": stats["n_slots"], "ep": rep["ep"],
+        "shed_ids": b.shed, "defer_verdicts": stats["deferred"],
+        "verdicts": [v for _, v in verdicts],
+        "decode_step_ms_median": stats["decode_step_ms_median"],
+        "prefill_ms_median": stats["prefill_ms_median"],
+        "tokens_per_s": stats["tokens_per_s"], "stats": stats,
+        "ssc": {"hits": cache.get("hits"), "misses": cache.get("misses"),
+                "compiles": cache.get("misses"),
+                "entries": cache.get("entries"),
+                "pad_ratio": cache.get("pad_ratio")},
+        "tuner_summary": rep["online"],
+        "swaps": rep["online"]["swaps"], "refits": rep["online"]["refits"],
+        "resolve_decode_sched": {"cold": rep["sched"],
+                                 "live": rep.get("sched_live")},
+        "admission": rep.get("admission"),
+        "launches": launches,
+        "gmm_fp32_launches": {"small": small, "tiled": tiled},
+        "fixed_capacity_decode_step_ms_median":
+            fixed["decode_step_ms_median"],
+        "fixed_capacity_prefill_ms_median": fixed["prefill_ms_median"],
+        "fixed_capacity_tokens_per_s": fixed["tokens_per_s"]})
+    del b
+    torch.cuda.empty_cache()
+    return out, launches
+
+
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
     """The ``kernels`` line's entry of a swiglu_add mode: timed at the
     paper's largest size in bf16 (M = 32768), with every size beside it."""
@@ -1382,9 +1664,11 @@ def main() -> int:
     emit(train_out)
 
     tile_rows, tiled = run_dropless_tiles(cfg)
+    bits_rows = row_count_bits(cfg)
     emit({"phase": "dropless_tiles",
           "fp32_tiled_min_rows": gmm_mod.FP32_TILED_MIN_ROWS,
-          "fp32_tiled_launches": tiled, "rows": tile_rows})
+          "fp32_tiled_launches": tiled, "rows": tile_rows,
+          "row_count_bits": bits_rows})
     rows += tile_rows
     emit(run_dropless_fragment())
     dropless_out, dropless_launches = run_dropless_train(cfg)
@@ -1400,6 +1684,10 @@ def main() -> int:
                 v for k, v in path_launches[path].items() if k != "gmm"):
             raise AssertionError(f"{path} launches {path_launches[path]}: "
                                  f"gmm only, at least once")
+
+    online_out, online_launches = run_serve_online(cfg, slice_out)
+    emit(online_out)
+    path_launches["serve_online"] = online_launches
 
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1435,7 +1723,16 @@ def main() -> int:
             kernels[-1]["fp32_tiled_body"] = {
                 "source": "src/repro_torch/kernels/csrc/gmm_fp32.cuh",
                 "launches_by_path": {
-                    "dropless": dropless_out["gmm_fp32_tiled_launches"]}}
+                    "dropless": dropless_out["gmm_fp32_tiled_launches"],
+                    "serve_online":
+                        online_out["gmm_fp32_launches"]["tiled"]}}
+            kernels[-1]["fp32_small_body"] = {
+                "source": "src/repro_torch/kernels/csrc/gmm_fp32_small.cuh",
+                "launches_by_path": {
+                    "serve_online":
+                        online_out["gmm_fp32_launches"]["small"]},
+                "decode_tiles": [dict(x, tile=r["tile"], K=r["K"], N=r["N"])
+                                 for r in bits_rows for x in r["timed"]]}
             kernels[-1]["dropless_tiles"] = [
                 {k: x[k] for k in ("tile", "C", "K", "N", "body", *timing)}
                 for x in tile_rows if "ms" in x]

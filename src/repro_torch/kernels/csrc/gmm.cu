@@ -28,20 +28,24 @@
 // fp32 calls: the wrapper picks the body (kernels/gmm.py, fp32_tile). The
 // dropless fragment's tiles (E = 1, hundreds of rows, fp32) run the
 // register-blocked tiled body (gmm_fp32.cuh) at the tile the wrapper names;
-// small C, and calls whose widths or bases it cannot take, run the first
-// design's FMA body (gmm_common.cuh), as do bf16 calls whose bases or row
-// strides a tensor map cannot take (N = 18 in the ragged checks). All three
-// bodies read the same layouts.
+// small C, and calls whose widths or bases it cannot take, run the
+// small-row body (gmm_fp32_small.cuh). Both sum each output in one fmaf
+// chain over ascending k, so an fp32 row's bits do not depend on the
+// call's row count or on the body. bf16 calls whose bases or row strides a
+// tensor map cannot take (N = 18 in the ragged checks) run the first
+// design's FMA body (gmm_common.cuh). All the bodies read the same layouts.
 
 #include "gmm_common.cuh"
 #include "gmm_fp32.cuh"
+#include "gmm_fp32_small.cuh"
 #include "gmm_tc.cuh"
 
 // a_layout: 0 = x is [E, C, K]; 1 = x is stored [E, K, C] (a transposed
 // view). b_layout: 0 = w is [E, K, N]; 1 = w is stored [E, N, K]. body:
-// 0 = the tensor cores (bf16, where a tensor map fits) or the FMA body;
-// 1-3 = the fp32 tiled body at that tile (gmmf::launch), refused with an
-// error for bf16 or a call it cannot take. dtype: 0 = float32,
+// 0 = for bf16 the tensor cores (where a tensor map fits) or the FMA body,
+// for fp32 the small-row body (gmms::launch); 1-3 = the fp32 tiled body at
+// that tile (gmmf::launch), refused with an error for bf16 or a call it
+// cannot take. dtype: 0 = float32,
 // 1 = bfloat16. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int gmm_launch(const void* x, const void* w, void* y, int E, int C,
                           int K, int N, int a_layout, int b_layout, int body,
@@ -55,8 +59,7 @@ extern "C" int gmm_launch(const void* x, const void* w, void* y, int E, int C,
       gmmtc::usable(x, w, y, C, K, N, b_layout ? K : N, a_layout, b_layout))
     return gmmtc::launch<false>(x, w, y, E, C, K, N, a_layout, b_layout, s);
   if (dtype == 0)
-    return gmmk::launch<float, false>(x, w, y, E, C, K, N, N, a_layout,
-                                      b_layout, s);
+    return gmms::launch(x, w, y, E, C, K, N, a_layout, b_layout, s);
   if (dtype == 1)
     return gmmk::launch<__nv_bfloat16, false>(x, w, y, E, C, K, N, N,
                                               a_layout, b_layout, s);

@@ -9,10 +9,13 @@ CUDA tensor the kernel launches or the call raises.
 Each operand is contiguous or the transpose of a contiguous tensor in its
 last two dims (``operand_layout``); the kernel reads either in place.
 
-The C entry has three bodies: bf16 calls run the tensor cores where a
-tensor map describes them; fp32 calls with enough rows run the
-register-blocked tiled body (``csrc/gmm_fp32.cuh``) at a tile the wrapper
-picks (``fp32_tile``); the rest run the first design's FMA body.
+The C entry has four bodies: bf16 calls run the tensor cores where a
+tensor map describes them, else the first design's FMA body; fp32 calls
+with enough rows run the register-blocked tiled body
+(``csrc/gmm_fp32.cuh``) at a tile the wrapper picks (``fp32_tile``), the
+rest the small-row body (``csrc/gmm_fp32_small.cuh``). Both fp32 bodies sum
+each output in one fmaf chain over ascending k, so on the card an fp32
+row's bits do not depend on how many rows the call has.
 
 ``gmm_trainable`` adds the gradient that the JAX ``gmm`` lacks (it is a bare
 ``pallas_call`` with no VJP): two more calls of the same kernel on
@@ -32,18 +35,18 @@ from .ref import gmm_ref
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches since the last reset (CPU calls not counted): all, and
-# those of the fp32 tiled body.
+# those of the fp32 tiled and small-row bodies.
 launches = 0
 launches_fp32_tiled = 0
+launches_fp32_small = 0
 
 # The fp32 tiled body's tiles (rows x columns of one CTA's output), by the
 # code the C entry takes; largest first. fp32_tile's pick among them was
 # within 1% of the fastest at each dropless call at C = 683, and 9% at
 # C = 1001 (launch/bench_gmm_fma.py --tiles on an H100; PERF.md).
 FP32_TILES = {1: (64, 128), 2: (64, 64), 3: (32, 64)}
-# fp32 calls with fewer rows run the FMA body: at C <= 8 it was the faster;
-# from C = 9, where it changes its row tiling, the tiled body was
-# (bench_gmm_fma.py --tiles on an H100; PERF.md).
+# fp32 calls with fewer rows run the small-row body (bench_gmm_fma.py
+# --tiles times both bodies at C = 1 ... 17 on an H100; PERF.md).
 FP32_TILED_MIN_ROWS = 9
 # SMs of the card the tiles are picked for, where a tensor lies on the CPU
 # (an H100 SXM's 132).
@@ -93,8 +96,8 @@ def _sms(device) -> int:
 
 def fp32_tile(x, w) -> int:
     """The body code a ``gmm(x, w)`` call passes to its C entry: 0 for the
-    tensor cores or the FMA body, else the ``FP32_TILES`` code of the fp32
-    tiled body.
+    tensor cores, the FMA body (bf16) or the small-row body (fp32), else the
+    ``FP32_TILES`` code of the fp32 tiled body.
 
     The tiled body takes fp32 calls with at least ``FP32_TILED_MIN_ROWS``
     rows whose operands' contiguous dims (x: K, or C if a transposed view;
@@ -124,15 +127,17 @@ def _tile(x, w, x_layout: int, w_layout: int) -> int:
 
 def fp32_body(x, w) -> str:
     """Which body a ``gmm(x, w)`` call on the card runs in fp32: "tiled"
-    (``csrc/gmm_fp32.cuh``) or "fma" (``csrc/gmm_common.cuh``); "fma" for
-    a bf16 call, which runs neither fp32 body (``fp32_tile``)."""
-    return "tiled" if fp32_tile(x, w) else "fma"
+    (``csrc/gmm_fp32.cuh``) or "small" (``csrc/gmm_fp32_small.cuh``);
+    "none" for a bf16 call, which runs neither fp32 body."""
+    if x.dtype != torch.float32:
+        return "none"
+    return "tiled" if fp32_tile(x, w) else "small"
 
 
 def gmm(x, w):
     """x: [E, C, K] expert-grouped tokens; w: [E, K, N] → [E, C, N]. Either
     operand may be a transposed view (``operand_layout``)."""
-    global launches, launches_fp32_tiled
+    global launches, launches_fp32_tiled, launches_fp32_small
     check_operands(x, w, w.shape[-1] if w.dim() == 3 else -1)
     layouts = operand_layout(x, "x"), operand_layout(w, "w")
     if x.device.type == "cpu":
@@ -149,6 +154,7 @@ def gmm(x, w):
                  dtype=x.dtype)
     launches += 1
     launches_fp32_tiled += body > 0
+    launches_fp32_small += body == 0 and x.dtype == torch.float32
     return out
 
 

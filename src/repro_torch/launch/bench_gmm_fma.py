@@ -1,9 +1,10 @@
 """Per-call times of the grouped GEMMs' fp32 bodies: the FMA body
-(``csrc/gmm_common.cuh``) and ``gmm``'s tiled body (``csrc/gmm_fp32.cuh``).
+(``csrc/gmm_common.cuh``), ``gmm``'s tiled body (``csrc/gmm_fp32.cuh``) and
+its small-row body (``csrc/gmm_fp32_small.cuh``).
 
 Every fp32 ``gmm_swiglu`` call runs the FMA body; an fp32 ``gmm`` call runs
 the body ``gmm.fp32_body`` names (the tiled body from
-``gmm.FP32_TILED_MIN_ROWS`` rows on). This script holds each call against
+``gmm.FP32_TILED_MIN_ROWS`` rows on, else the small-row body). This script holds each call against
 its plain version and times it beside its bound, at the shapes those
 callers give it on granite-moe-3b-a800m (d 1536, 48 experts of F = 512,
 top-8, T = 4096 tokens):
@@ -25,14 +26,16 @@ The script imports the package absolutely, so it can time another
 checkout's kernels: run this file with that checkout's ``src`` first on
 ``PYTHONPATH`` (each checkout builds its own libraries under its own
 ``build/``). Each output row names the body it ran and, by one hash
-(``fp32_bodies``), the ``gmm_common.cuh`` and ``gmm_fp32.cuh`` it was
-built from (a checkout without the tiled body runs the FMA body only).
+(``fp32_bodies``), the fp32 bodies' headers it was built from (a checkout
+without the small-row body runs the FMA body under the threshold, one
+without the tiled body the FMA body only).
 
 ``--tiles`` also times each fp32 ``gmm`` call through its C entry with
-every body code, the FMA body's (0) and each of the tiled body's tiles
-(``gmm.FP32_TILES``), whatever ``gmm.fp32_tile`` would pick: the
-measurement behind the tile rule and the row threshold. Every tile's
-result must be bit-equal to the others'.
+every body code, 0 (the small-row body, or the FMA body in a checkout
+without it) and each of the tiled body's tiles (``gmm.FP32_TILES``),
+whatever ``gmm.fp32_tile`` would pick: the measurement behind the tile
+rule and the row threshold. Every tile's result must be bit-equal to the
+others', and the small-row body's to theirs.
 
 ``ms`` is the device time per call by CUDA-graph replay; ``bound_ms`` the
 larger of the bytes (each input read once, the output written once, over
@@ -118,6 +121,11 @@ def cuda_ms(fn, iters: int = 20, reps: int = 3) -> float:
     return start.elapsed_time(end) / (iters * reps)
 
 
+# Body code 0's fp32 body: the small-row body, or the FMA body in a
+# checkout without it.
+CODE0 = "small" if hasattr(gmm_mod, "launches_fp32_small") else "fma"
+
+
 def body_of(x, w, swiglu) -> str:
     """The fp32 body a call runs; "fma" in a checkout without the tiled
     body."""
@@ -127,7 +135,8 @@ def body_of(x, w, swiglu) -> str:
 
 def tile_rows(row, x, w, want, dev):
     """The ``--tiles`` rows of one gmm call: each body code through the C
-    entry, checked against ``want``, timed; tiled results bit-equal."""
+    entry, checked against ``want``, timed; tiled results bit-equal, and
+    the small-row body's equal to theirs."""
     E, C, K = x.shape
     N = w.shape[-1]
     layouts = gmm_mod.operand_layout(x, "x"), gmm_mod.operand_layout(w, "w")
@@ -143,14 +152,14 @@ def tile_rows(row, x, w, want, dev):
         if not bool((err <= TOL + TOL * want.abs()).all()):
             raise AssertionError(f"{row['call']} at body code {code} "
                                  f"disagrees with its plain version")
-        if code:
+        if code or CODE0 == "small":
             if tiled is not None and not torch.equal(y, tiled):
-                raise AssertionError(f"{row['call']}: tile {code} differs "
-                                     f"from another tile's result")
+                raise AssertionError(f"{row['call']}: body code {code} "
+                                     f"differs from another's result")
             tiled = y.clone()
         bm, bn = gmm_mod.FP32_TILES.get(code, (None, None))
         out.append({"call": row["call"], "C": C, "K": K, "N": N,
-                    "body": "tiled" if code else "fma", "tile": [bm, bn],
+                    "body": "tiled" if code else CODE0, "tile": [bm, bn],
                     "ctas": (E * -(-C // bm) * -(-N // bn)) if code else None,
                     "max_abs_err": float(err.max()),
                     "ms": cuda_ms(call), "bound_ms": row["bound_ms"]})
@@ -215,7 +224,7 @@ def main(argv=None) -> dict:
     cfg = get_smoke_config(ARCH) if args.smoke else get_config(ARCH)
     csrc = Path(gmm_mod.__file__).resolve().parent / "csrc"
     h = hashlib.sha256()
-    for name in ("gmm_common.cuh", "gmm_fp32.cuh"):
+    for name in ("gmm_common.cuh", "gmm_fp32.cuh", "gmm_fp32_small.cuh"):
         if (csrc / name).exists():
             h.update((csrc / name).read_bytes())
     bodies = h.hexdigest()[:12]

@@ -12,7 +12,8 @@ kernel times; the port runs on one stream, so kernels do not overlap), the
 idle share of the unprofiled step, the kernel launches per step, the device
 ms per step of the port's own CUDA kernels by namespace (``OWN``: the
 tensor-core body of ``gmm_swiglu`` and ``gmm``, their FMA body, ``gmm``'s
-fp32 tiled body, the tensor-core and FMA bodies of ``gmm_swiglu_bwd``, ``swiglu_add``) against all
+fp32 tiled and small-row bodies, the tensor-core and FMA bodies of
+``gmm_swiglu_bwd``, ``swiglu_add``) against all
 other kernels, each of the port's own kernels by name, and the ``TOP``
 kernels with the most device time. ``--dropless`` trains the MoE through
 the dropless tile taskflow (``launch.dropless``, its default config), as
@@ -42,8 +43,9 @@ TOP = 25   # kernels listed by device time
 # Device kernels of the port's CUDA sources, by their C++ namespaces: every
 # namespace under kernels/csrc has a bucket (a test holds them equal).
 OWN = {"gmm_swiglu and gmm, tensor cores (gmmtc::)": "gmmtc::",
-       "gmm_swiglu and gmm, FMA body (gmmk::)": "gmmk::",
+       "gmm_swiglu and bf16 gmm, FMA body (gmmk::)": "gmmk::",
        "gmm fp32 tiled body (gmmf::)": "gmmf::",
+       "gmm fp32 small-row body (gmms::)": "gmms::",
        "gmm_swiglu_bwd, tensor cores (gsbtc::)": "gsbtc::",
        "gmm_swiglu_bwd, FMA body (gsb::)": "gsb::",
        "swiglu_add (swa::)": "swa::"}

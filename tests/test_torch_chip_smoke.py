@@ -116,6 +116,23 @@ def test_ptxas_report_reads_each_fp32_tiled_instance():
          "registers": 228, "static_smem": 0}]
 
 
+def test_ptxas_report_reads_each_fp32_small_row_instance():
+    """``gmms::small_kernel`` instances are read with their rows per CTA,
+    the two layouts and whether w is copied in 16-byte chunks."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN4gmms12small_kernelILi4ELi0ELi0ELb1EEEvPKfS2_Pfiii' for "
+        "'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 90 registers, used 1 barriers, 41472 bytes "
+        "smem",
+    ])
+    assert chip_smoke.ptxas_report(log) == [
+        {"kernel": "gmms::small_kernel", "rb": 4, "ta": 0, "tb": 0,
+         "w16": True, "spill_stores": 0, "spill_loads": 0,
+         "registers": 90, "static_smem": 41472}]
+
+
 def _tile_row(rows, body, launched, shape="dropless_tile"):
     row = {"kernel": "gmm", "C": rows, "body": body,
            "tiled_launches": launched, "shape": shape}
@@ -125,19 +142,19 @@ def _tile_row(rows, body, launched, shape="dropless_tile"):
 
 
 def test_dropless_body_check_counts_the_tiled_rows():
-    wgrad_of_one_row = dict(_tile_row(1, "fma", 0), C=1536, K=1)
-    rows = [_tile_row(683, "tiled", 1), _tile_row(1, "fma", 0),
+    wgrad_of_one_row = dict(_tile_row(1, "small", 0), C=1536, K=1)
+    rows = [_tile_row(683, "tiled", 1), _tile_row(1, "small", 0),
             wgrad_of_one_row, _tile_row(15, "tiled", 1),
-            _tile_row(129, "fma", 0, shape="dropless_edge")]
+            _tile_row(129, "small", 0, shape="dropless_edge")]
     assert chip_smoke.check_fp32_bodies(rows, 16) == 2
 
 
 @pytest.mark.parametrize("bad", [
-    _tile_row(683, "fma", 0),             # a tile call the rule sends on
-    dict(_tile_row(683, "fma", 0), C=1536, K=683),   # its weight gradient
-    _tile_row(16, "fma", 0),              # the threshold itself
+    _tile_row(683, "small", 0),             # a tile call the rule sends on
+    dict(_tile_row(683, "small", 0), C=1536, K=683),   # its weight gradient
+    _tile_row(16, "small", 0),              # the threshold itself
     _tile_row(683, "tiled", 0),           # named, but not launched
-    _tile_row(1, "fma", 1, shape="dropless_edge"),   # launched, not named
+    _tile_row(1, "small", 1, shape="dropless_edge"),   # launched, not named
 ])
 def test_dropless_body_check_fails_on_a_wrong_body(bad):
     rows = [_tile_row(683, "tiled", 1), bad]

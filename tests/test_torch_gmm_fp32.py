@@ -54,10 +54,10 @@ def test_dropless_tile_calls_take_the_tiled_body(C, call, layouts):
     """Each of the six tile calls at an expert's share of rows runs the
     tiled body in the layout the executor passes it, and in every other
     layout whose contiguous dims stay multiples of 4: the rows (683, 1001)
-    read as a contiguous dim send a call to the FMA body."""
+    read as a contiguous dim send a call to the small-row body."""
     _, c, K, N, own = tile_calls(C)[call]
     x, w = operands(1, c, K, N, layouts)
-    want = "tiled" if aligned(c, K, N, layouts) else "fma"
+    want = "tiled" if aligned(c, K, N, layouts) else "small"
     assert aligned(c, K, N, own)
     assert gmm_mod.fp32_body(x, w) == want
     assert (gmm_mod.fp32_tile(x, w) in gmm_mod.FP32_TILES) == (
@@ -88,14 +88,14 @@ def test_tile_rule_at_the_cards_sm_count(call, code):
 
 
 @pytest.mark.parametrize("E,C,K,N,body", [
-    (1, 8, D, F2, "fma"),           # below FP32_TILED_MIN_ROWS
-    (1, 8, FE, 160, "fma"),
-    (3, 1, 1536, 18, "fma"),        # the CPU tests' ragged shapes
-    (3, 2, 1536, 40, "fma"),
+    (1, 8, D, F2, "small"),         # below FP32_TILED_MIN_ROWS
+    (1, 8, FE, 160, "small"),
+    (3, 1, 1536, 18, "small"),      # the CPU tests' ragged shapes
+    (3, 2, 1536, 40, "small"),
     (3, 27, 1536, 160, "tiled"),    # N = 160: a multiple of 4, masked
     (3, 64, 96, 160, "tiled"),
-    (1, 683, D, 18, "fma"),         # N = 18: not a multiple of 4
-    (1, 683, 1538, F2, "fma"),      # K contiguous, not a multiple of 4
+    (1, 683, D, 18, "small"),       # N = 18: not a multiple of 4
+    (1, 683, 1538, F2, "small"),    # K contiguous, not a multiple of 4
     (1, 9, D, F2, "tiled"),         # the threshold itself
 ])
 def test_fp32_body_rule(E, C, K, N, body):
@@ -109,10 +109,10 @@ def test_unaligned_bases_and_bf16_take_the_fma_body():
     x4 = torch.empty(683 * D + 1)[1:].view(1, 683, D)
     w4 = torch.empty(D * F2 + 1)[1:].view(1, D, F2)
     assert x4.data_ptr() % 16 and w4.data_ptr() % 16
-    assert gmm_mod.fp32_body(x4, w) == "fma"
-    assert gmm_mod.fp32_body(x, w4) == "fma"
+    assert gmm_mod.fp32_body(x4, w) == "small"
+    assert gmm_mod.fp32_body(x, w4) == "small"
     xb, wb = operands(1, 683, D, F2, (0, 0), torch.bfloat16)
-    assert gmm_mod.fp32_body(xb, wb) == "fma"
+    assert gmm_mod.fp32_body(xb, wb) == "none"
     assert gmm_mod.fp32_tile(xb, wb) == 0
 
 
@@ -123,11 +123,14 @@ def test_cpu_calls_leave_the_tiled_count_at_zero():
     x = torch.from_numpy(rng.standard_normal((1, 64, 32), dtype=np.float32))
     w = torch.from_numpy(rng.standard_normal((1, 32, 64), dtype=np.float32))
     assert gmm_mod.fp32_body(x, w) == "tiled"
-    before = gmm_mod.launches, gmm_mod.launches_fp32_tiled
+    before = (gmm_mod.launches, gmm_mod.launches_fp32_tiled,
+              gmm_mod.launches_fp32_small)
     got = gmm_mod.gmm(x, w)
     assert torch.equal(got, torch.bmm(x, w))
-    assert (gmm_mod.launches, gmm_mod.launches_fp32_tiled) == before \
-        == (0, 0)
+    assert gmm_mod.fp32_body(x[:, :3], w) == "small"
+    assert gmm_mod.gmm(x[:, :3], w).shape == (1, 3, 64)
+    assert (gmm_mod.launches, gmm_mod.launches_fp32_tiled,
+            gmm_mod.launches_fp32_small) == before == (0, 0, 0)
 
 
 def test_gmm_c_entry_takes_the_body_code():
@@ -136,7 +139,7 @@ def test_gmm_c_entry_takes_the_body_code():
     src, entry, argtypes = build.KERNELS["gmm"]
     assert (src, entry) == ("gmm.cu", "gmm_launch")
     assert len(argtypes) == 12 and argtypes[9] is build.ctypes.c_int
-    assert "gmm_fp32.cuh" in build.HEADERS
+    assert {"gmm_fp32.cuh", "gmm_fp32_small.cuh"} <= set(build.HEADERS)
     x, w, y = torch.zeros(2, 3, 8), torch.zeros(2, 8, 4), torch.zeros(2, 3, 4)
     args = build.c_args("gmm", (x, w, y, 2, 3, 8, 4, 0, 1, 3),
                         torch.float32)

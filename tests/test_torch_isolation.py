@@ -52,10 +52,14 @@ assert not bad, bad
     "repro_torch.core.fusion", "repro_torch.core.elastic",
     "repro_torch.launch.schedsweep", "repro_torch.launch.dropless",
     "repro_torch.launch.bench_fused_dropless",
-    "repro_torch.launch.bench_fusion", "repro_torch.launch.bench_elastic"])
+    "repro_torch.launch.bench_fusion", "repro_torch.launch.bench_elastic",
+    "repro_torch.parallel.ep", "repro_torch.launch.replay",
+    "repro_torch.launch.online", "repro_torch.launch.bench_replay",
+    "repro_torch.launch.serve", "repro_torch.launch.profile_serve"])
 def test_fusion_and_elastic_modules_import_alone(module):
-    """Each module of the fusion/elastic slice, imported on its own in a
-    fresh interpreter, pulls in neither JAX, the JAX package nor msgpack."""
+    """Each module of the fusion/elastic slice and of the online serving
+    slice, imported on its own in a fresh interpreter, pulls in neither
+    JAX, the JAX package nor msgpack."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", _ALONE, module],
                           cwd=str(REPO), env=env, capture_output=True,
@@ -136,6 +140,12 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
         ContinuousBatcher(cfg, params, n_slots=2, max_len=8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         main(["--smoke", "--requests", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--smoke", "--sched", "auto", "--online-refit", "--slo-us",
+              "40"])
+    from repro_torch.launch import profile_serve
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profile_serve.main(["--online-refit"])
 
 
 def test_unported_families_raise():

@@ -280,10 +280,12 @@ def test_fma_bench_checks_every_call_on_the_cpu():
     assert all(r["ok"] and r["bound_ms"] > 0 and "ms" not in r
                for r in out["rows"])
     # Each row names the fp32 body the card would run it on.
-    assert all(r["body"] in ("tiled", "fma") for r in out["rows"])
+    assert all(r["body"] in ("tiled", "small", "fma") for r in out["rows"])
     assert all(r["body"] == "fma" for r in out["rows"]
-               if r["kernel"] == "gmm_swiglu"
-               or r["C"] < gmm_mod.FP32_TILED_MIN_ROWS)
+               if r["kernel"] == "gmm_swiglu")
+    assert all(r["body"] == "small" for r in out["rows"]
+               if r["kernel"] == "gmm"
+               and r["C"] < gmm_mod.FP32_TILED_MIN_ROWS)
     assert out["fp32_bodies"] and all(
         r["fp32_bodies"] == out["fp32_bodies"] for r in out["rows"])
     if not torch.cuda.is_available():
