@@ -40,7 +40,12 @@ Phases, each printing one JSON line:
    outputs rounded, and its row names the body that ran: the training
    shape must run the tensor-core body. Its timed row gives the main path's
    call, the fp32-output call, and the three ``torch.bmm`` products of the
-   same sizes (``gemm_only_ms``);
+   same sizes (``gemm_only_ms``). Then the EP paths' shapes
+   (``ep_kernel_rows``, phase 14 (a)): granite's at ep = 4 (12 experts a
+   rank, a ring chunk's C_pair = 688 rows and a baseline call's 2,752,
+   forward and backward, the backward on its tensor-core body) and the
+   paper module's (E = 8, K = 7168, F = 2048 at C = 2,560 and 10,240),
+   those timed by device time only beside their bound and ``torch.bmm``;
 4. slice — full-width, 32-layer granite-moe-3b-a800m in bf16 with random
    weights from a seed: one prefill through the kernels against the plain
    expert FFN, then ``launch.serve.serve`` answers 16 requests of 128-token
@@ -132,6 +137,27 @@ Phases, each printing one JSON line:
    tiled), beside phase 4's fixed-capacity numbers. Its µs are the Ascend
    A3 cost model's predictions, not H100 times.
 
+14. ep — expert parallelism on ep = 4 virtual ranks (mesh 1 x 4; each
+   collective a device copy), the MoE's expert FFN through the kernels:
+   (b) ``ep_parity``: granite at full width cut to 2 layers, one
+   4096-token step through ``make_train_step(mesh=, ep=EPConfig(mode,
+   capacity_factor=4.0))`` in each mode, the kernels against the plain
+   FFN within phase 5's limits, and the modes against each other (bit
+   equality reported); (c) ``ep_train``: ``launch.train --mesh 1x4
+   --ep-mode hyperparallel`` then ``baseline`` at full width and depth,
+   EP_STEPS steps of 1 x 4096 tokens: finite losses, step ms, tokens/s,
+   peak memory, collectives and bytes a rank, and per layer per step 2F
+   ``gmm_swiglu``, 4F ``gmm`` and F ``gmm_swiglu_bwd`` launches (F = 16
+   FFN calls a ring forward, 4 a baseline one), every one on its
+   tensor-core body; (d) ``ep_modes``: ``launch.bench_ep_modes --full``
+   (the paper's module, 8192 tokens a rank, bf16), each mode within 2e-2
+   of the output's scale of its plain FFN, its forward launches F, its
+   forward and forward + backward ms and bytes a rank; (e)
+   ``ep_flash_decode``: ``make_flash_decode`` at the serving cell's
+   decode shape against ``decode_attention`` on the written cache, and
+   ``ep_nccl``: a one-rank NCCL group running ``make_moe_ep`` on
+   ``DistComm`` in both modes, y and grads bit-equal to ``VirtualComm``.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
 CUDA device nothing is printed to stdout.
@@ -170,18 +196,24 @@ from repro_torch.core import executor as ex  # noqa: E402
 from repro_torch.core import fusion as fu  # noqa: E402
 from repro_torch.core.buckets import fit_ladder  # noqa: E402
 from repro_torch.core.ssc import SSCCache  # noqa: E402
+from repro_torch.configs import deepseek_moe_paper  # noqa: E402
 from repro_torch.launch import bench_dropless as dropless_bench  # noqa
+from repro_torch.launch import bench_ep_modes as ep_bench  # noqa: E402
 from repro_torch.launch import bench_fused_dropless as fused_bench  # noqa
 from repro_torch.launch import bench_swiglu_add as bench_mod  # noqa: E402
 from repro_torch.launch import dropless as dropless_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch.mesh import dist_mesh, make_test_mesh  # noqa: E402
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.moe import (bridge_dispatch, capacity,  # noqa
                                     init_moe, moe_grouped,
                                     plan_from_routing, router_topk)
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.parallel.ep import (EPConfig, _pair_capacity,  # noqa
+                                     make_moe_ep)
+from repro_torch.parallel.flash_decode import make_flash_decode  # noqa
 
 ARCH = "granite-moe-3b-a800m"
 SLOTS, REQUESTS, PROMPT_LEN, MAX_NEW = 8, 16, 128, 32
@@ -262,6 +294,15 @@ SWAP_LAYERS, SWAP_AT, MAX_NEW_SWAP = 2, 2, 8
 SLO_SLOTS, ONLINE_QUEUE = 6, 12
 # fp32 gmm calls timed at decode-tile row counts (E = 1, both GMM widths).
 DECODE_TILE_ROWS = (1, 8)
+# Expert parallelism (phase 14): EP virtual ranks on mesh 1 x EP, the
+# launcher's capacity factor, steps of the full-depth runs (the first is
+# warm-up), the modes in the order they run.
+EP, EP_CF, EP_STEPS = 4, 4.0, 3
+EP_MODES = ("hyperparallel", "baseline")
+# The paper's §5.2 module at ep = 4 (8 experts a rank, K = 7168, F = 2048)
+# with 8192 tokens a rank at the default capacity factor.
+PAPER = deepseek_moe_paper.config(ep=EP, n_layers=1)
+PAPER_TOKENS_PER_RANK = 8192
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -294,6 +335,8 @@ def reset_launches() -> None:
     for mod, attr in COUNTERS.values():
         setattr(mod, attr, 0)
     bwd_mod.launches_tc = 0
+    gmm_mod.launches_tc = 0
+    swiglu_mod.launches_tc = 0
     gmm_mod.launches_fp32_tiled = 0
     gmm_mod.launches_fp32_small = 0
 
@@ -479,17 +522,21 @@ def kernel_case(name, E, C, K, N, dtype, gen, timed, layouts=(0, 0),
                                  f"differ: {row}")
     if timed:
         b_ms, b_by = bound(E, C, K, N, spec["two"], dtype)
-        row.update(ms=cuda_ms(lambda: spec["fn"](x, w)),
-                   eager_ms=eager_ms(lambda: spec["fn"](x, w)),
-                   host_us=host_us(lambda: spec["fn"](x, w)),
-                   plain_ms=cuda_ms(lambda: spec["plain"](x, w)),
-                   library_ms=(cuda_ms(lambda: torch.bmm(x, w))
+        # timed="device": device times only, over fewer calls (the paper's
+        # widths, where one call takes milliseconds).
+        kw = {} if timed is True else {"iters": 3, "reps": 2}
+        row.update(ms=cuda_ms(lambda: spec["fn"](x, w), **kw),
+                   plain_ms=cuda_ms(lambda: spec["plain"](x, w), **kw),
+                   library_ms=(cuda_ms(lambda: torch.bmm(x, w), **kw)
                                if name == "gmm" else None),
                    bound_ms=b_ms, bound_by=b_by)
+        if timed is True:
+            row.update(eager_ms=eager_ms(lambda: spec["fn"](x, w)),
+                       host_us=host_us(lambda: spec["fn"](x, w)))
         if spec["two"]:
             # Not the same function: the [E, C, 2F] product without SwiGLU,
             # stored to device memory.
-            row["gemm_only_ms"] = cuda_ms(lambda: torch.bmm(x, w))
+            row["gemm_only_ms"] = cuda_ms(lambda: torch.bmm(x, w), **kw)
     return row
 
 
@@ -707,6 +754,7 @@ def check_kernels(cfg):
         r["shape"] = "tile_edge"
         rows.append(r)
     rows.append(trainable_ffn_case(E, c_train, D, Fe, gen))
+    rows += ep_kernel_rows(cfg, gen)
     for dtype in (torch.bfloat16, torch.float32):
         for E_, C, K, F in ((2, 128, 64, 128), (3, 64, 96, 64),
                             (3, 27, 1536, 40), (3, 1, 1536, 18)):
@@ -731,7 +779,53 @@ def check_kernels(cfg):
             rows.append(kernel_case("gmm_swiglu", E_, C, K, F, dtype, gen,
                                     False))
     return rows, {"decode8": c_dec8, "decode4": c_dec4, "prefill": c_pre,
-                  "train": c_train}
+                  "train": c_train, **ep_capacities(cfg)}
+
+
+def ep_capacities(cfg):
+    """The EP pair capacities: granite's training step at ep = EP, and the
+    paper module's at its default capacity factor."""
+    return {"ep_train": _pair_capacity(TRAIN_BATCH * TRAIN_SEQ // EP,
+                                       cfg.moe, EP, EP_CF),
+            "paper": _pair_capacity(PAPER_TOKENS_PER_RANK, PAPER.moe, EP,
+                                    EPConfig.capacity_factor)}
+
+
+def ep_kernel_rows(cfg, gen):
+    """Phase 14 (a), run in phase 3: the GMM kernels at the EP paths'
+    shapes. Granite's training step at ep = EP: e_loc experts, a ring
+    chunk's C_pair rows and a baseline call's EP x C_pair, forward and
+    backward, each call twice and bit-equal. The paper module's widths
+    (E = 8 a rank, K = 7168, F = 2048) at a ring chunk's C and a baseline
+    call's EP x C: each held against its plain version and timed beside
+    its bound and, for gmm, ``torch.bmm``; the backward at the ring
+    chunk."""
+    caps = ep_capacities(cfg)
+    e_loc, D, Fe = cfg.moe.e_total // EP, cfg.d_model, cfg.moe.d_expert
+    rows = []
+    for tag, C in (("ep_ring", caps["ep_train"]),
+                   ("ep_baseline", EP * caps["ep_train"])):
+        for name, (K, N) in (("gmm_swiglu", (D, Fe)), ("gmm", (Fe, D))):
+            r = kernel_case(name, e_loc, C, K, N, torch.bfloat16, gen,
+                            timed=False, repeat=True)
+            rows.append(dict(r, shape=tag))
+        r = bwd_case(e_loc, C, D, Fe, torch.bfloat16, gen, timed=False)
+        if r["body"] != "tensor_cores":
+            raise AssertionError(f"EP gmm_swiglu_bwd ran the FMA body: {r}")
+        rows.append(dict(r, shape=tag))
+    pe, pd, pf = (PAPER.moe.e_total // EP, PAPER.d_model,
+                  PAPER.moe.d_expert)
+    for tag, C in (("paper_ring", caps["paper"]),
+                   ("paper_baseline", EP * caps["paper"])):
+        for name, (K, N) in (("gmm_swiglu", (pd, pf)), ("gmm", (pf, pd))):
+            r = kernel_case(name, pe, C, K, N, torch.bfloat16, gen,
+                            timed="device")
+            rows.append(dict(r, shape=tag))
+            torch.cuda.empty_cache()
+    r = bwd_case(pe, caps["paper"], pd, pf, torch.bfloat16, gen, False)
+    rows.append(dict(r, shape="paper_ring"))
+    torch.cuda.empty_cache()
+    return rows
 
 
 def run_swiglu_add():
@@ -1603,6 +1697,228 @@ def run_serve_online(cfg, fixed):
     return out, launches
 
 
+def _clone(tree):
+    return adamw.tree_map(lambda t: t.detach().clone(), tree)
+
+
+def ep_parity_case(cfg, n_layers=PARITY_LAYERS, tokens=TRAIN_SEQ,
+                   dev="cuda"):
+    """Phase 14 (b): one training step of ``tokens`` tokens at full width
+    on ``n_layers`` layers through ``make_train_step(mesh=1 x EP, ep=
+    EPConfig(mode, capacity_factor=EP_CF))``, in each mode, with the
+    kernels and with the plain expert FFN, from the same params. The grads
+    are those the step's ``grad_transform`` hook sees (before clipping).
+    Kernels vs plain and mode vs mode: loss within LOSS_TOL relative, each
+    grad leaf's norm within GNORM_TOL; whether the modes are bit-equal."""
+    dev = torch.device(dev)
+    pcfg = train_mod.pad_experts(dataclasses.replace(cfg, n_layers=n_layers),
+                                 EP)
+    params0 = adamw.cast_params(M.init_params(
+        pcfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        pcfg.compute_dtype)
+    batch = SyntheticStream(DataConfig(vocab=pcfg.vocab, seq_len=tokens,
+                                       global_batch=1)).batch(0, dev)
+    runs = {}
+    for mode in EP_MODES:
+        for route, use_pallas in (("kernels", True), ("plain", False)):
+            seen = {}
+
+            def keep(g, seen=seen):
+                seen["grads"] = _clone(g)
+                return g
+            step = steps_mod.make_train_step(
+                pcfg, mesh=make_test_mesh(1, EP, device=dev),
+                ep=EPConfig(mode=mode, capacity_factor=EP_CF,
+                            use_pallas=use_pallas), grad_transform=keep)
+            _, _, m = step(_clone(params0), adamw.init_opt_state(params0),
+                           batch)
+            runs[mode, route] = (float(m["loss"]),
+                                 adamw.tree_leaves(seen["grads"]))
+
+    def gaps(a, b):
+        (la, ga), (lb, gb) = runs[a], runs[b]
+        if not (math.isfinite(la) and math.isfinite(lb)):
+            raise AssertionError(f"EP parity: non-finite loss {la}, {lb}")
+        norm = [abs(float(x.float().norm()) - float(y.float().norm()))
+                / max(float(y.float().norm()), 1e-30)
+                for x, y in zip(ga, gb)]
+        return {"loss": [la, lb], "loss_rel_gap": abs(la - lb) / abs(lb),
+                "grad_norm_rel_gap_max": max(norm),
+                "bit_equal": la == lb and all(torch.equal(x, y)
+                                              for x, y in zip(ga, gb))}
+    out = {"n_layers": n_layers, "tokens": tokens, "ep": EP,
+           "capacity_factor": EP_CF, "loss_tol": LOSS_TOL,
+           "grad_norm_tol": GNORM_TOL,
+           "kernels_vs_plain": {m: gaps((m, "kernels"), (m, "plain"))
+                                for m in EP_MODES},
+           "modes": gaps((EP_MODES[0], "kernels"),
+                         (EP_MODES[1], "kernels"))}
+    for g in (*out["kernels_vs_plain"].values(), out["modes"]):
+        if g["loss_rel_gap"] > LOSS_TOL or \
+                g["grad_norm_rel_gap_max"] > GNORM_TOL:
+            raise AssertionError(f"EP parity beyond its limits: {out}")
+    return out
+
+
+def run_ep_train(cfg):
+    """Phase 14 (c): ``launch.train --mesh 1xEP`` at full width and depth
+    in each mode. Finite losses and grad norms; per layer per step,
+    gmm_swiglu 2F, gmm 4F and gmm_swiglu_bwd F launches (F the mode's
+    FFN calls a forward), every one on its tensor-core body. Returns the
+    rows and the launches of both runs."""
+    rows, total = {}, {k: 0 for k in COUNTERS}
+    for mode in EP_MODES:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t = time.perf_counter()
+        run = train_mod.main([
+            "--arch", ARCH, "--mesh", f"1x{EP}", "--ep-mode", mode,
+            "--seq", str(TRAIN_SEQ), "--global-batch", str(TRAIN_BATCH),
+            "--steps", str(EP_STEPS)])
+        wall = time.perf_counter() - t
+        launches = read_launches()
+        tc = {"gmm_swiglu": swiglu_mod.launches_tc,
+              "gmm": gmm_mod.launches_tc,
+              "gmm_swiglu_bwd": bwd_mod.launches_tc}
+        log = run.metrics_log
+        if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                   for m in log):
+            raise AssertionError(f"non-finite EP training metrics: {log}")
+        F = ep_bench.ffn_calls(mode, EP, 1)
+        want = {k: cfg.n_layers * EP_STEPS * F * n
+                for k, n in TRAIN_LAUNCHES.items()}
+        if launches != want or tc != {k: want[k] for k in tc}:
+            raise AssertionError(
+                f"EP {mode} launches {launches} (tensor cores {tc}) != "
+                f"{want} = {cfg.n_layers} layers x {EP_STEPS} steps x "
+                f"{F} FFN calls x {TRAIN_LAUNCHES}")
+        step_ms = statistics.median(m["step_ms"] for m in log[1:])
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        C = _pair_capacity(tokens // EP, cfg.moe, EP, EP_CF)
+        rows[mode] = {
+            "wall_s": wall, "losses": [m["loss"] for m in log],
+            "grad_norms": [m["grad_norm"] for m in log],
+            "step_ms": [m["step_ms"] for m in log],
+            "step_ms_median_after_warmup": step_ms,
+            "tokens_per_s": tokens / (step_ms / 1e3),
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "collectives_per_step": log[-1]["collectives"],
+            "comm_bytes_per_rank_per_step": log[-1]["comm_bytes_per_rank"],
+            "ffn_calls_per_moe_forward": F, "pair_capacity": C,
+            "rows_per_expert": EP * C, "launches": launches,
+            "tensor_core_launches": tc}
+        for k, v in launches.items():
+            total[k] += v
+        del run
+    torch.cuda.empty_cache()
+    return {"phase": "ep_train", "arch": cfg.name, "mesh": [1, EP],
+            "capacity_factor": EP_CF, "seq": TRAIN_SEQ,
+            "batch": TRAIN_BATCH, "steps": EP_STEPS,
+            "fixed_capacity_rows_per_expert": capacity(
+                TRAIN_BATCH * TRAIN_SEQ, cfg.moe), "modes": rows}, total
+
+
+def run_ep_modes(argv=("--full",)):
+    """Phase 14 (d): ``launch.bench_ep_modes`` (on the card, the paper's
+    module at 8192 tokens a rank): each mode within bf16 tolerance of its
+    plain FFN and its forward launches equal to its FFN calls (checked by
+    the benchmark), then its times and bytes."""
+    out = ep_bench.main(list(argv))
+    for mode, r in out["modes"].items():
+        times = [r["forward_ms"], r.get("forward_backward_ms", 0.0)]
+        if not all(math.isfinite(t) for t in times):
+            raise AssertionError(f"ep_modes {mode}: non-finite time {r}")
+    return dict(out, phase="ep_modes")
+
+
+def flash_decode_case(B=SLOTS, max_len=PROMPT_LEN + MAX_NEW, H=24, K=8,
+                      hd=64, length=PROMPT_LEN + 3, dtype=torch.bfloat16,
+                      dev="cuda"):
+    """Phase 14 (e): ``make_flash_decode`` over mesh 1 x EP at the serving
+    cell's decode shape (B = 8, a 160-slot cache, granite's 24/8 heads of
+    64) against ``decode_attention`` on the written cache, within the bf16
+    tolerance; the caches written equal."""
+    from repro_torch.models.layers import decode_attention
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    q, kc, vc = rnd(B, 1, H, hd), rnd(B, max_len, K, hd), \
+        rnd(B, max_len, K, hd)
+    nk, nv = rnd(B, 1, K, hd), rnd(B, 1, K, hd)
+    kw, vw = kc.clone(), vc.clone()
+    kw[:, length], vw[:, length] = nk[:, 0], nv[:, 0]
+    want = decode_attention(q, kw, vw, torch.tensor(length + 1, device=dev))
+    fd = make_flash_decode(make_test_mesh(1, EP, device=dev))
+    got, kc2, vc2 = fd(q, kc, vc, nk, nv, torch.tensor(length, device=dev))
+    err = float((got.float() - want.float()).abs().max())
+    tol = TOL[dtype]
+    if not (err <= tol * max(1.0, float(want.float().abs().max()))
+            and torch.equal(kc2, kw) and torch.equal(vc2, vw)):
+        raise AssertionError(f"flash decoding differs from decode_attention"
+                             f": {err}")
+    return {"B": B, "max_len": max_len, "heads": H, "kv_heads": K, "hd": hd,
+            "cache_len": length, "dtype": str(dtype)[6:],
+            "max_abs_err": err, "tol": tol, "caches_equal": True}
+
+
+def dist_case(cfg, backend="nccl", tokens=512, dev="cuda", init_dir=None):
+    """Phase 14 (e): a one-rank ``torch.distributed`` group (NCCL on the
+    card) runs one full-width MoE layer through ``make_moe_ep`` at ep = 1
+    on ``DistComm`` in both modes, forward and backward; y and every grad
+    must equal the ``VirtualComm`` run's bit for bit."""
+    import tempfile
+    import torch.distributed as dist
+    dev = torch.device(dev)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    params = init_moe(gen, cfg.d_model, cfg.moe, cfg.compute_dtype)
+    x = torch.randn((1, tokens, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.compute_dtype)
+    dy = torch.randn(x.shape, generator=gen, device=dev).to(x.dtype)
+
+    def run(mesh, mode):
+        p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        xx = x.clone().requires_grad_(True)
+        y = make_moe_ep(mesh, EPConfig(mode=mode))(p, xx, cfg.moe)
+        y.backward(dy)
+        return [y.detach(), xx.grad] + [p[k].grad for k in sorted(p)]
+    with tempfile.TemporaryDirectory(dir=init_dir) as d:
+        dist.init_process_group(backend, init_method=f"file://{d}/init",
+                                world_size=1, rank=0)
+        try:
+            got = {m: run(dist_mesh(), m) for m in EP_MODES}
+        finally:
+            dist.destroy_process_group()
+    out = {"backend": backend, "tokens": tokens, "modes": {}}
+    for mode in EP_MODES:
+        want = run(make_test_mesh(1, 1, device=dev), mode)
+        if not all(torch.equal(a, b) for a, b in zip(got[mode], want)):
+            raise AssertionError(f"{backend} {mode}: DistComm differs from "
+                                 f"VirtualComm")
+        out["modes"][mode] = {"bit_equal": True}
+    return out
+
+
+def run_ep(cfg):
+    """Phase 14 (b), (c), (d) and (e) on the card; (a) runs in phase 3.
+    Returns the phase's line and the launches of paths ep_train and
+    ep_modes."""
+    out = {"phase": "ep", "ep_parity": ep_parity_case(cfg)}
+    torch.cuda.empty_cache()
+    train_out, train_launches = run_ep_train(cfg)
+    emit(train_out)
+    reset_launches()
+    modes_out = run_ep_modes()
+    modes_launches = read_launches()
+    emit(modes_out)
+    torch.cuda.empty_cache()
+    out["ep_flash_decode"] = flash_decode_case()
+    out["ep_nccl"] = dist_case(cfg, init_dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    return out, {"ep_train": train_launches, "ep_modes": modes_launches}
+
+
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
     """The ``kernels`` line's entry of a swiglu_add mode: timed at the
     paper's largest size in bf16 (M = 32768), with every size beside it."""
@@ -1688,6 +2004,9 @@ def main() -> int:
     online_out, online_launches = run_serve_online(cfg, slice_out)
     emit(online_out)
     path_launches["serve_online"] = online_launches
+    ep_out, ep_launches = run_ep(cfg)
+    emit(ep_out)
+    path_launches.update(ep_launches)
 
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1719,6 +2038,11 @@ def main() -> int:
             "train_shape": {k: t[k] for k in (
                 "C", "K", "N", *timing, "eager_ms", "host_us", "gemm_only_ms",
                 "fp32_out_ms", "body") if k in t}})
+        kernels[-1]["ep_shapes"] = [
+            {k: x[k] for k in ("shape", "E", "C", "K", "N", *timing,
+                               "gemm_only_ms") if k in x}
+            for x in rows if x["kernel"] == name
+            and x.get("shape", "").startswith(("ep_", "paper_"))]
         if name == "gmm":          # the dropless tiles' calls, fp32, E = 1
             kernels[-1]["fp32_tiled_body"] = {
                 "source": "src/repro_torch/kernels/csrc/gmm_fp32.cuh",

@@ -11,6 +11,7 @@ from importlib import import_module
 
 ARCHS = [
     "granite-moe-3b-a800m",
+    "deepseek-moe-paper",      # the paper's §5.2 module (EP benchmark)
 ]
 
 _ALIASES = {

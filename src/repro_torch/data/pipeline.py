@@ -6,9 +6,10 @@ the JAX package, so both give the same tokens bit for bit. The synthetic
 distribution is a Zipf-ish marginal with a repeated motif in each row, so
 losses move in short runs.
 
-``sharded_batch`` (per-host shards of a global array on a mesh) waits for
-the port's EP/sharding slice; :meth:`SyntheticStream.batch` puts the global
-batch on one device.
+:meth:`SyntheticStream.batch` puts the global batch on one device;
+:meth:`SyntheticStream.sharded_batch` builds it data group by data group,
+each from its own rows, as the reference assembles a global array from its
+shards, or gives one data group's rows only.
 """
 
 from __future__ import annotations
@@ -59,3 +60,24 @@ class SyntheticStream:
         """The global batch at ``step`` as int64 tensors on ``device``."""
         return {k: torch.as_tensor(v, dtype=torch.long, device=device)
                 for k, v in self.global_batch_np(step).items()}
+
+    def sharded_batch(self, step: int, mesh, device,
+                      data_rank=None) -> dict:
+        """The batch at ``step`` over ``mesh``'s data groups (the batch
+        split over the pod and data axes, replicated over ``model``).
+
+        ``data_rank=None``: every group's rows, concatenated in group order
+        — the global batch, as a one-card mesh of virtual ranks holds it.
+        An int: that group's rows only, which every rank of its model group
+        holds (a ``DistComm`` process passes its own).
+        """
+        dc, n = self.dc, mesh.dp_size
+        if dc.global_batch % n:
+            raise ValueError(f"global batch {dc.global_batch} does not "
+                             f"split over {n} data groups")
+        per = dc.global_batch // n
+        groups = range(n) if data_rank is None else [data_rank]
+        t = np.concatenate([self._tokens(step, g * per, (g + 1) * per)
+                            for g in groups])
+        return {k: torch.as_tensor(v, dtype=torch.long, device=device)
+                for k, v in (("tokens", t[:, :-1]), ("labels", t[:, 1:]))}

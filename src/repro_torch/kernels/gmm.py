@@ -35,8 +35,10 @@ from .ref import gmm_ref
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches since the last reset (CPU calls not counted): all, and
-# those of the fp32 tiled and small-row bodies.
+# those of the bf16 tensor-core body and of the fp32 tiled and small-row
+# bodies.
 launches = 0
+launches_tc = 0
 launches_fp32_tiled = 0
 launches_fp32_small = 0
 
@@ -125,6 +127,19 @@ def _tile(x, w, x_layout: int, w_layout: int) -> int:
     return code
 
 
+def tensor_core_body(x, w, out, layouts=(0, 0)) -> bool:
+    """Whether the C entry runs a bf16 call on the tensor cores: its
+    ``gmmtc::usable`` rule — 16-byte aligned bases, and x's and w's row
+    strides and the output's width multiples of 8 elements. For
+    ``gmm_swiglu`` w is w_in [E, K, 2F] and out [E, C, F]."""
+    la, lb = layouts
+    lda = x.shape[1] if la else x.shape[2]
+    ldb = w.shape[1] if lb else w.shape[2]
+    return (x.dtype == torch.bfloat16 and lda % 8 == 0 and ldb % 8 == 0
+            and out.shape[2] % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in (x, w, out)))
+
+
 def fp32_body(x, w) -> str:
     """Which body a ``gmm(x, w)`` call on the card runs in fp32: "tiled"
     (``csrc/gmm_fp32.cuh``) or "small" (``csrc/gmm_fp32_small.cuh``);
@@ -137,7 +152,7 @@ def fp32_body(x, w) -> str:
 def gmm(x, w):
     """x: [E, C, K] expert-grouped tokens; w: [E, K, N] → [E, C, N]. Either
     operand may be a transposed view (``operand_layout``)."""
-    global launches, launches_fp32_tiled, launches_fp32_small
+    global launches, launches_tc, launches_fp32_tiled, launches_fp32_small
     check_operands(x, w, w.shape[-1] if w.dim() == 3 else -1)
     layouts = operand_layout(x, "x"), operand_layout(w, "w")
     if x.device.type == "cpu":
@@ -153,6 +168,7 @@ def gmm(x, w):
     build.launch("gmm", x, w, out, E, C, x.shape[2], N, *layouts, body,
                  dtype=x.dtype)
     launches += 1
+    launches_tc += tensor_core_body(x, w, out, layouts)
     launches_fp32_tiled += body > 0
     launches_fp32_small += body == 0 and x.dtype == torch.float32
     return out

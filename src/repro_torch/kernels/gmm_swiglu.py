@@ -12,15 +12,18 @@ from __future__ import annotations
 import torch
 
 from . import build
-from .gmm import check_operands
+from .gmm import check_operands, tensor_core_body
 from .ref import gmm_swiglu_ref
 
-launches = 0   # kernel launches since the last reset (CPU calls not counted)
+# Kernel launches since the last reset (CPU calls not counted): all, and
+# those of the tensor-core body.
+launches = 0
+launches_tc = 0
 
 
 def gmm_swiglu(x, w_in):
     """x: [E, C, K]; w_in: [E, K, 2F] (gate ‖ up) → [E, C, F]."""
-    global launches
+    global launches, launches_tc
     two_f = w_in.shape[-1] if w_in.dim() == 3 else -1
     if two_f % 2:
         raise ValueError(f"w_in's last dim {two_f} is not 2F")
@@ -42,4 +45,5 @@ def gmm_swiglu(x, w_in):
     build.launch("gmm_swiglu", x, w_in, out, E, C, x.shape[2], F,
                  dtype=x.dtype)
     launches += 1
+    launches_tc += tensor_core_body(x, w_in, out)
     return out

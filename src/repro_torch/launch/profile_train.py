@@ -1,6 +1,8 @@
 """Where a training step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train [--dropless]
+    PYTHONPATH=src python -m repro_torch.launch.profile_train --mesh 1x4 \
+        --ep-mode hyperparallel
 
 Trains granite-moe-3b-a800m at full width and depth with the shapes of
 ``chip_smoke.py``'s training phase: batches of 1 x 4096 tokens from
@@ -17,7 +19,9 @@ fp32 tiled and small-row bodies, the tensor-core and FMA bodies of
 other kernels, each of the port's own kernels by name, and the ``TOP``
 kernels with the most device time. ``--dropless`` trains the MoE through
 the dropless tile taskflow (``launch.dropless``, its default config), as
-``launch.train --dropless`` does. Needs a CUDA device.
+``launch.train --dropless`` does. ``--mesh DxM`` runs the MoE
+expert-parallel over the mesh's model axis of virtual ranks (``--ep-mode``,
+capacity factor 4.0), as ``launch.train --mesh`` does. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,8 +38,11 @@ from ..data.pipeline import DataConfig, SyntheticStream
 from ..device import resolve_device
 from ..models import model as M
 from ..optim import adamw
+from ..parallel.ep import EPConfig
 from . import steps as St
 from .dropless import DroplessConfig
+from .mesh import make_mesh, mesh_dims
+from .train import pad_experts
 
 ARCH, BATCH, SEQ = "granite-moe-3b-a800m", 1, 4096
 WARMUP, STEPS = 1, 2
@@ -59,16 +66,26 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--dropless", action="store_true",
                     help="the MoE through the dropless tile taskflow")
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="the MoE expert-parallel over DxM virtual ranks")
+    ap.add_argument("--ep-mode", default="hyperparallel",
+                    choices=["hyperparallel", "baseline"])
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
     cfg = get_config(ARCH)
+    mesh = ep = None
+    if args.mesh:
+        mesh = make_mesh(mesh_dims(args.mesh), dev)
+        cfg = pad_experts(cfg, mesh.shape["model"])
+        ep = EPConfig(mode=args.ep_mode, capacity_factor=4.0)
     params = adamw.cast_params(
         M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                       device=dev), cfg.compute_dtype)
     state = adamw.init_opt_state(params)
     step = St.make_train_step(cfg, adamw.OptConfig(
         lr=1e-3, warmup_steps=2, total_steps=WARMUP + 2 * STEPS),
-        dropless=DroplessConfig() if args.dropless else None)
+        dropless=DroplessConfig() if args.dropless else None, mesh=mesh,
+        ep=ep)
     stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=SEQ,
                                         global_batch=BATCH))
     batches = [stream.batch(i, dev) for i in range(WARMUP + 2 * STEPS)]
@@ -103,7 +120,9 @@ def main(argv=None):
     busy_ms = busy_us / 1e3 / STEPS
     out = {
         "arch": cfg.name, "batch": BATCH, "seq": SEQ, "steps": STEPS,
-        "moe": "dropless" if args.dropless else "fixed capacity",
+        "moe": ("dropless" if args.dropless else
+                f"EP {args.ep_mode} over {args.mesh}" if args.mesh
+                else "fixed capacity"),
         "device": torch.cuda.get_device_name(0),
         "step_ms": step_ms,
         "step_ms_profiled": 1e3 * wall / STEPS,

@@ -11,6 +11,13 @@ On the CPU, at the smoke size:
 ``--sched`` as in the JAX launcher):
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --dropless --steps 3
+``--mesh DxM`` (or ``PxDxM``) runs the steps of ``launch.steps.make_steps``
+over a mesh of virtual ranks on the one device: the MoE expert-parallel over
+the model axis (``--ep-mode hyperparallel`` or ``baseline``, capacity factor
+4.0, the experts padded so the axis divides them), the batch built data
+group by data group; ``--mode`` as in the JAX launcher:
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --mesh 1x4 --ep-mode baseline --steps 3
 
 Params come from ``init_params`` (seed 0), cast to the compute dtype as the
 JAX launcher casts them; batches from ``SyntheticStream``. Each step logs
@@ -36,13 +43,13 @@ from ..data.pipeline import DataConfig, SyntheticStream
 from ..kernels import gmm as gmm_kernel
 from ..models import model as M
 from ..optim import adamw
+from ..parallel.ep import EPConfig
 from . import steps as St
 from .dropless import DroplessConfig
+from .mesh import make_mesh, mesh_dims
 
 # Options of the JAX launcher and the slice of the port that brings them.
 _REFUSED = {
-    "--mesh": "the port's EP/sharding slice",
-    "--mode": "the port's EP/sharding slice",
     "--ckpt-dir": "the port's checkpoint/fault-tolerance slice",
     "--ckpt-every": "the port's checkpoint/fault-tolerance slice",
 }
@@ -59,6 +66,18 @@ class TrainRun:
     dropless: object = None   # the DroplessMoE handle of a dropless run
 
 
+def pad_experts(cfg, ep: int):
+    """``cfg`` with its experts padded so that ``ep`` divides them (the
+    router never selects padding)."""
+    if cfg.family != "moe":
+        return cfg
+    extra = (-cfg.moe.e_total) % ep
+    if not extra:
+        return cfg
+    return dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_padding_experts=cfg.moe.n_padding_experts + extra))
+
+
 def main(argv=None) -> TrainRun:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="granite-moe-3b-a800m")
@@ -73,9 +92,20 @@ def main(argv=None) -> TrainRun:
                     help="compile/reuse schedules from each batch's actual "
                          "router output (capacity=None) instead of running "
                          "the fixed-capacity path")
-    ap.add_argument("--dropless-ep", type=int, default=1,
+    ap.add_argument("--mesh", default=None, metavar="DxM",
+                    help="dataxmodel (or podxdataxmodel) virtual ranks on "
+                         "the device; the MoE runs expert-parallel over "
+                         "model")
+    ap.add_argument("--mode", default=None, choices=St.MODES,
+                    help="the reference's parallel mode (needs --mesh; "
+                         "ep_dp shards tokens over every axis)")
+    ap.add_argument("--ep-mode", default=None,
+                    choices=["hyperparallel", "baseline"],
+                    help="EP dispatch (needs --mesh; default hyperparallel)")
+    ap.add_argument("--dropless-ep", type=int, default=0,
                     help="EP group size of the compiled dropless fragment "
-                         "(virtual ranks on the one device)")
+                         "(virtual ranks on the one device; 0 = the "
+                         "mesh's model-axis size, 1 without --mesh)")
     ap.add_argument("--dropless-bucket", default="16", metavar="SPEC",
                     help="shape-bucket policy for plan row counts: a linear "
                          "bucket size int ('16'; '1' = exact plans), "
@@ -94,6 +124,14 @@ def main(argv=None) -> TrainRun:
         if getattr(args, flag[2:].replace("-", "_")) is not None:
             ap.error(f"{flag} is not ported yet; it comes with {later}")
 
+    dims = None
+    if args.mesh is not None:
+        try:
+            dims = mesh_dims(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+    elif args.mode or args.ep_mode:
+        ap.error("--mode and --ep-mode need --mesh")
     kw = {}
     if args.sched is not None:
         # Validate eagerly: an unknown pass name fails fast, and a --sched
@@ -111,7 +149,9 @@ def main(argv=None) -> TrainRun:
             bucket = BucketSpec.parse(args.dropless_bucket)
         except ValueError as e:
             ap.error(str(e))
-        dropless = DroplessConfig(ep=args.dropless_ep, bucket=bucket, **kw)
+        dropless = DroplessConfig(
+            ep=args.dropless_ep or (dims[-1] if dims else 1), bucket=bucket,
+            **kw)
         print(f"dropless shape buckets: {bucket}")
         if kw:
             print(f"dropless schedule pipeline: {dropless.pipeline!r}")
@@ -121,7 +161,17 @@ def main(argv=None) -> TrainRun:
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     oc = adamw.OptConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),
                          total_steps=args.steps)
-    step_fn = St.make_train_step(cfg, oc, dropless=dropless)
+    mesh = None
+    if dims is None:
+        step_fn = St.make_train_step(cfg, oc, dropless=dropless)
+    else:
+        mesh = make_mesh(dims, dev)
+        cfg = pad_experts(cfg, mesh.shape["model"])
+        ep = EPConfig(mode=args.ep_mode or "hyperparallel",
+                      capacity_factor=4.0)
+        step_fn = St.make_steps(cfg, mesh, opt=oc, ep=ep,
+                                mode=args.mode or "tp_sp",
+                                dropless=dropless).train_step
     params = adamw.cast_params(
         M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                       device=dev), cfg.compute_dtype)
@@ -131,7 +181,10 @@ def main(argv=None) -> TrainRun:
     log = []
     cuda = dev.type == "cuda"
     for s in range(args.steps):
-        batch = stream.batch(s, dev)
+        batch = (stream.batch(s, dev) if mesh is None
+                 else stream.sharded_batch(s, mesh, dev))
+        if mesh is not None:
+            mesh.comm.stats.reset()
         launches = gmm_kernel.launches
         t = time.perf_counter()
         params, opt_state, m = step_fn(params, opt_state, batch)
@@ -144,6 +197,9 @@ def main(argv=None) -> TrainRun:
                "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
                               else None)}
         rec.update({k: v for k, v in m.items() if k.startswith("ssc_")})
+        if mesh is not None:
+            rec["collectives"] = dict(mesh.comm.stats.counts)
+            rec["comm_bytes_per_rank"] = mesh.comm.stats.bytes / mesh.dp_size
         log.append(rec)
         ssc = ("" if dropless is None else
                f" ssc hits {rec['ssc_hits']} misses {rec['ssc_misses']} "

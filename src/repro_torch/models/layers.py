@@ -210,12 +210,17 @@ def init_attention(gen: torch.Generator, d_model, n_heads, n_kv_heads,
 
 
 def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
-              causal=True, sliding_window=0, block=1024, cache=None):
+              causal=True, sliding_window=0, block=1024, cache=None,
+              flash_decode=None):
     """Returns (out, new_cache). ``cache`` = dict(k, v, len) for serving.
 
     Unlike the JAX function, which returns fresh cache arrays, the port
     writes the new keys and values into ``cache["k"]``/``cache["v"]`` in
     place (no copy of the cache per token); ``len`` is a new tensor.
+    ``flash_decode``: an impl of ``parallel.flash_decode.make_flash_decode``
+    for one-token decode with a scalar length (the JAX package installs it
+    by ``flash_decode_context``); where it returns ``None`` the dense path
+    runs.
     """
     B, S, _ = x.shape
     compute_dtype = x.dtype
@@ -254,7 +259,13 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
                 "slice of the other model families")
         kc, vc, lens = cache["k"], cache["v"], cache["len"]
         W = kc.shape[1]
-        if S == 1:
+        res = None
+        if S == 1 and flash_decode is not None and lens.dim() == 0:
+            res = flash_decode(q, kc, vc, k, v, lens)
+        if res is not None:
+            o, kc, vc = res
+            new_cache = {"k": kc, "v": vc, "len": lens + 1}
+        elif S == 1:
             # Decode: write this token's K/V at each slot's length. As with
             # the JAX dynamic_update_slice, the index is clamped to the
             # cache (slots that decode while idle run past max_len).

@@ -176,13 +176,14 @@ def train_moe_impl(cfg: ModelConfig) -> Callable:
                    gmm_fn=partial(ops.moe_expert_ffn, trainable=True))
 
 
-def _attn_half(cfg: ModelConfig, p, x, cache=None):
+def _attn_half(cfg: ModelConfig, p, x, cache=None, flash_decode=None):
     """ln1 → attention → residual: (x, new_cache)."""
     a, new_cache = L.attention(
         p["attn"], L.apply_norm(cfg.norm, x, p, "ln1"),
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta, causal=cfg.causal,
-        sliding_window=cfg.sliding_window, block=cfg.attn_block, cache=cache)
+        sliding_window=cfg.sliding_window, block=cfg.attn_block, cache=cache,
+        flash_decode=flash_decode)
     return x + a, new_cache
 
 
@@ -194,12 +195,12 @@ def _moe_half(cfg: ModelConfig, p, x, moe_impl: Optional[Callable] = None):
 
 
 def block_apply(cfg: ModelConfig, btype: str, p, x, cache=None,
-                moe_impl: Optional[Callable] = None):
+                moe_impl: Optional[Callable] = None, flash_decode=None):
     """One residual block. Returns (x, new_cache)."""
     if btype != "attn_moe":
         raise NotImplementedError(
             f"{btype!r} blocks are not ported yet; the port runs attn_moe")
-    x, new_cache = _attn_half(cfg, p, x, cache)
+    x, new_cache = _attn_half(cfg, p, x, cache, flash_decode)
     return _moe_half(cfg, p, x, moe_impl), new_cache
 
 
@@ -216,7 +217,8 @@ def embed_inputs(cfg: ModelConfig, params, batch):
     return x
 
 
-def _run_stack(cfg: ModelConfig, params, x, caches=None, moe_impl=None):
+def _run_stack(cfg: ModelConfig, params, x, caches=None, moe_impl=None,
+               flash_decode=None):
     """Apply all layers in a Python loop. caches: list of per-layer dicts or
     None.
 
@@ -247,7 +249,8 @@ def _run_stack(cfg: ModelConfig, params, x, caches=None, moe_impl=None):
     new_caches = []
     for i, bp in enumerate(params["blocks"]):
         x, nc = block_apply(cfg, btype, bp, x,
-                            None if caches is None else caches[i], moe_impl)
+                            None if caches is None else caches[i], moe_impl,
+                            flash_decode)
         new_caches.append(nc)
     return x, (None if caches is None else new_caches)
 
@@ -341,14 +344,17 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     return caches
 
 
-def decode_step(cfg: ModelConfig, params, token, cache, moe_impl=None):
+def decode_step(cfg: ModelConfig, params, token, cache, moe_impl=None,
+                flash_decode=None):
     """token: [B, 1] → (logits [B, 1, Vp], new_cache).
 
     The keys and values are written into ``cache`` in place (see
     ``layers.attention``); the returned cache holds the new lengths.
+    ``flash_decode``: the sharded one-token attention of
+    ``parallel.flash_decode`` (scalar lengths only).
     """
     x = embed_inputs(cfg, params, {"tokens": token})
-    x, new_cache = _run_stack(cfg, params, x, cache, moe_impl)
+    x, new_cache = _run_stack(cfg, params, x, cache, moe_impl, flash_decode)
     x, unembed = _final(cfg, params, x)
     return x @ unembed, new_cache
 

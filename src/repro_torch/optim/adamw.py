@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Callable, Optional
 
 import torch
 
@@ -123,14 +124,17 @@ def decay_flags(params) -> list:
 
 
 @torch.no_grad()
-def apply_updates(params, grads, state, oc: OptConfig):
+def apply_updates(params, grads, state, oc: OptConfig,
+                  grad_transform: Optional[Callable] = None):
     """One AdamW step on the fp32 masters; refreshes the compute params.
 
     Returns ``(params, state, metrics)``. ``params``, ``grads`` and the
     tensors of ``state`` are updated in place (see the module docstring);
-    ``state["step"]`` is a new int. The JAX ``grad_transform`` hook comes
-    with the port's sharding slice.
+    ``state["step"]`` is a new int. ``grad_transform(grads) -> grads`` runs
+    before clipping (``parallel.compression``'s transforms).
     """
+    if grad_transform is not None:
+        grads = grad_transform(grads)
     grads, gnorm = clip_by_global_norm(grads, oc.clip_norm)
     step = state["step"] + 1
     lr = schedule(oc, step)

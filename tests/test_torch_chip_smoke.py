@@ -230,3 +230,39 @@ def test_dropless_lookups_check_counts_one_fragment_forward_per_layer():
                 chip_smoke.check_dropless_lookups(log, cfg.n_layers)
         else:
             assert chip_smoke.check_dropless_lookups(log, 2) == [4, 4]
+
+
+def test_ep_phase_runs_on_the_cpu():
+    """Phase 14's cases (b), (d) and (e) at the smoke config's widths on
+    the CPU, where the kernels run their plain versions: the EP train step
+    through the kernels against the plain FFN in both modes and the modes
+    against each other, the EP-modes benchmark's CPU run, flash decoding
+    against dense decode, and the one-rank group (gloo here, NCCL on the
+    card) bit-equal to the virtual rank. Without a card the benchmark
+    refuses to run unless asked for the CPU."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import bench_ep_modes
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    par = chip_smoke.ep_parity_case(cfg, n_layers=2, tokens=32, dev="cpu")
+    assert set(par["kernels_vs_plain"]) == set(chip_smoke.EP_MODES)
+    for g in (*par["kernels_vs_plain"].values(), par["modes"]):
+        assert g["loss_rel_gap"] <= chip_smoke.LOSS_TOL
+        assert g["grad_norm_rel_gap_max"] <= chip_smoke.GNORM_TOL
+    modes = chip_smoke.run_ep_modes(["--device", "cpu"])
+    assert modes["phase"] == "ep_modes"
+    assert modes["modes"]["hyperparallel"]["ffn_calls"] == 2 * 16
+    assert modes["modes"]["baseline"]["collectives"] == {"all-to-all": 2}
+    fd = chip_smoke.flash_decode_case(B=4, max_len=32, H=4, K=2, hd=16,
+                                      length=17, dtype=torch.float32,
+                                      dev="cpu")
+    assert fd["caches_equal"] and fd["max_abs_err"] < 1e-5
+    d = chip_smoke.dist_case(cfg, backend="gloo", tokens=32, dev="cpu")
+    assert all(m["bit_equal"] for m in d["modes"].values())
+    assert bench_ep_modes.ffn_calls("hyperparallel", 4, 1) == 16
+    assert bench_ep_modes.ffn_calls("baseline", 4, 1) == 4
+    caps = chip_smoke.ep_capacities(chip_smoke.get_config(
+        "granite-moe-3b-a800m"))
+    assert caps == {"ep_train": 688, "paper": 2560}
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            bench_ep_modes.main(["--full"])

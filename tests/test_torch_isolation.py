@@ -55,7 +55,10 @@ assert not bad, bad
     "repro_torch.launch.bench_fusion", "repro_torch.launch.bench_elastic",
     "repro_torch.parallel.ep", "repro_torch.launch.replay",
     "repro_torch.launch.online", "repro_torch.launch.bench_replay",
-    "repro_torch.launch.serve", "repro_torch.launch.profile_serve"])
+    "repro_torch.launch.serve", "repro_torch.launch.profile_serve",
+    "repro_torch.parallel.comm", "repro_torch.parallel.flash_decode",
+    "repro_torch.launch.mesh", "repro_torch.launch.bench_ep_modes",
+    "repro_torch.configs.deepseek_moe_paper"])
 def test_fusion_and_elastic_modules_import_alone(module):
     """Each module of the fusion/elastic slice and of the online serving
     slice, imported on its own in a fresh interpreter, pulls in neither
@@ -146,6 +149,19 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     from repro_torch.launch import profile_serve
     with pytest.raises(RuntimeError, match="device='cpu'"):
         profile_serve.main(["--online-refit"])
+
+
+def test_ep_entry_points_raise_without_cuda_unless_asked_for_cpu():
+    _require_no_cuda()
+    from repro_torch.launch import bench_ep_modes, train
+    from repro_torch.launch.mesh import make_mesh, make_test_mesh
+    from repro_torch.parallel.comm import VirtualComm
+    for fn in (lambda: make_test_mesh(1, 4), lambda: make_mesh((2, 2)),
+               lambda: VirtualComm(4),
+               lambda: bench_ep_modes.main([]),
+               lambda: train.main(["--smoke", "--mesh", "1x4"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn()
 
 
 def test_unported_families_raise():

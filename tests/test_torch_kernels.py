@@ -291,3 +291,31 @@ def test_fma_bench_checks_every_call_on_the_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             bench_gmm_fma.main(["--smoke"])
+
+
+@pytest.mark.parametrize("shape,layouts,dtype,want", [
+    ((12, 688, 1536, 1024), (0, 0), torch.bfloat16, True),   # EP ring GMM1
+    ((12, 512, 2752, 1536), (1, 0), torch.bfloat16, True),   # its dW
+    ((8, 2560, 2048, 7168), (0, 1), torch.bfloat16, True),   # paper dx
+    ((3, 27, 1536, 18), (0, 0), torch.bfloat16, False),      # N = 18
+    ((3, 27, 40, 24), (1, 0), torch.bfloat16, False),        # lda = C = 27
+    ((2, 64, 854, 16), (0, 1), torch.bfloat16, False),       # ldb = K = 854
+    ((12, 688, 1536, 1024), (0, 0), torch.float32, False),   # fp32
+])
+def test_tensor_core_body_follows_the_c_entry_rule(shape, layouts, dtype,
+                                                   want):
+    """``gmm.tensor_core_body`` (the launches_tc counters of gmm and
+    gmm_swiglu) mirrors ``gmmtc::usable``: bf16, 16-byte aligned bases,
+    both row strides and the output width multiples of 8."""
+    E, C, K, N = shape
+    la, lb = layouts
+    x = torch.zeros((E, K, C) if la else (E, C, K), dtype=dtype)
+    w = torch.zeros((E, N, K) if lb else (E, K, N), dtype=dtype)
+    x = x.transpose(1, 2) if la else x
+    w = w.transpose(1, 2) if lb else w
+    out = torch.zeros((E, C, N), dtype=dtype)
+    assert gmm_mod.tensor_core_body(x, w, out, layouts) is want
+    if want:                                  # an unaligned output base
+        shifted = torch.zeros(E * C * N + 1, dtype=dtype)[1:]
+        assert not gmm_mod.tensor_core_body(x, w, shifted.view(E, C, N),
+                                            layouts)

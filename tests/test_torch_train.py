@@ -283,12 +283,38 @@ def test_accum_steps_average_the_microbatches(smoke):
 
 
 def test_later_slices_raise():
-    cfg = tget_smoke(ARCH)
-    for kw in ("mesh", "ep", "grad_transform"):
-        with pytest.raises(NotImplementedError, match="slice"):
-            St.make_train_step(cfg, **{kw: object()})
+    """``mesh``, ``ep`` and ``grad_transform`` work now; a ``sharding=``
+    keyword (the sharding slice) and a mode the port does not know
+    raise."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.ep import EPConfig
+    from repro_torch.parallel.compression import bf16_compress
+    cfg = dataclasses.replace(tget_smoke(ARCH), moe=dataclasses.replace(
+        tget_smoke(ARCH).moe, n_padding_experts=3))
+    params = tadamw.cast_params(_init_params(cfg), cfg.compute_dtype)
+    state = tadamw.init_opt_state(params)
+    batch = tpipe.SyntheticStream(tpipe.DataConfig(cfg.vocab, 32, 2)) \
+        .batch(0, "cpu")
+    step = St.make_train_step(cfg, mesh=make_test_mesh(1, 4, device="cpu"),
+                              ep=EPConfig(mode="baseline"),
+                              grad_transform=bf16_compress)
+    _, state, m = step(params, state, batch)
+    assert np.isfinite(float(m["loss"])) and state["step"] == 1
+    with pytest.raises(ValueError, match="mesh="):
+        St.make_train_step(cfg, ep=EPConfig())
     with pytest.raises(TypeError):
         St.make_train_step(cfg, sharding=object())
+    with pytest.raises(TypeError):
+        St.make_steps(cfg, make_test_mesh(1, 4, device="cpu"),
+                      sharding=object())
+    with pytest.raises(ValueError, match="mode"):
+        St.make_steps(cfg, make_test_mesh(1, 4, device="cpu"), mode="fsdp")
+
+
+def _init_params(cfg):
+    from repro_torch.models import model as TM
+    return TM.init_params(cfg, torch.Generator().manual_seed(0),
+                          device="cpu")
 
 
 def test_train_main_on_cpu():
@@ -305,11 +331,24 @@ def test_train_main_needs_cuda_unless_asked_for_cpu(capsys):
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--smoke", "--steps", "1"])
-    for flag in (["--mesh", "2x4"], ["--mode", "ep_dp"],
-                 ["--ckpt-dir", "ck"]):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ttrain.main(["--smoke", "--steps", "1", "--mesh", "1x4"])
+    for flag in (["--ckpt-dir", "ck"], ["--ckpt-every", "3"]):
         with pytest.raises(SystemExit):
             ttrain.main(["--smoke", "--device", "cpu", *flag])
         assert "slice" in capsys.readouterr().err
+    for flag, msg in ((["--mode", "ep_dp"], "need --mesh"),
+                      (["--mesh", "4"], "DxM")):
+        with pytest.raises(SystemExit):
+            ttrain.main(["--smoke", "--device", "cpu", *flag])
+        assert msg in capsys.readouterr().err
+    run = ttrain.main(["--smoke", "--device", "cpu", "--mesh", "1x4",
+                       "--ep-mode", "baseline", "--steps", "2", "--seq",
+                       "16", "--global-batch", "2"])
+    assert all(np.isfinite(m["loss"]) for m in run.metrics_log)
+    assert [m["collectives"] for m in run.metrics_log] == [
+        {"all-to-all": 4}] * 2        # dispatch and return, x 2 layers
+    assert run.params["blocks"][0]["moe"]["w_in"].shape[0] == 8   # padded
 
 
 def test_training_conversions_cast_like_cast_params(smoke):
@@ -326,3 +365,184 @@ def test_training_conversions_cast_like_cast_params(smoke):
     assert all(t.dtype == torch.float32
                for k in ("m", "v", "master")
                for t in tadamw.tree_leaves(st[k]))
+
+
+# ---------------------------------------------------------------------------
+# Expert parallelism: make_steps on a 1x4 mesh against JAX's
+# ---------------------------------------------------------------------------
+
+_EP_JAX = r"""
+import dataclasses, os, sys
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+sys.path.insert(0, "src")
+import jax, jax.numpy as jnp, numpy as np
+from repro.configs import get_smoke_config
+from repro.data.pipeline import DataConfig, SyntheticStream
+from repro.launch import steps as St
+from repro.launch.mesh import make_test_mesh
+from repro.models import model as M
+from repro.optim import adamw
+from repro.parallel.ep import EPConfig
+
+cfg = get_smoke_config("granite-moe-3b-a800m")
+cfg = dataclasses.replace(cfg, dtype="float32", moe=dataclasses.replace(
+    cfg.moe, n_padding_experts=3))
+mesh = make_test_mesh(1, 4)
+oc = adamw.OptConfig(lr=3e-3, warmup_steps=2, total_steps=10)
+stream = SyntheticStream(DataConfig(cfg.vocab, 16, 4))
+out = {}
+for mode in ("baseline", "hyperparallel"):
+    fns = St.make_steps(cfg, mesh, opt=oc, ep=EPConfig(
+        mode=mode, capacity_factor=4.0))
+    p = adamw.cast_params(M.init_params(cfg, jax.random.PRNGKey(0)),
+                          jnp.float32)
+    s = adamw.init_opt_state(p)
+    with jax.set_mesh(mesh):
+        step = jax.jit(fns.train_step)
+        losses = []
+        for i in range(3):
+            b = {k: jnp.asarray(v) for k, v in
+                 stream.global_batch_np(i).items()}
+            p, s, m = step(p, s, b)
+            losses.append(float(m["loss"]))
+        out[f"{mode}/losses"] = np.asarray(losses)
+        p0 = adamw.cast_params(M.init_params(cfg, jax.random.PRNGKey(0)),
+                               jnp.float32)
+        toks = jnp.asarray(stream.global_batch_np(7)["tokens"][:, :8])
+        logits, cache = fns.prefill_step(p0, {"tokens": toks}, 16)
+        out[f"{mode}/prefill"] = np.asarray(logits)
+        nxt = jnp.argmax(logits, -1)[:, None].astype(jnp.int32)
+        for i in range(2):
+            lg, cache = jax.jit(fns.decode_step)(p0, nxt, cache)
+            out[f"{mode}/decode{i}"] = np.asarray(lg)
+            nxt = jnp.argmax(lg[:, -1], -1)[:, None].astype(jnp.int32)
+# sharded_batch over a 2x2 mesh: the batch split over data.
+m22 = make_test_mesh(2, 2)
+sh = jax.sharding.NamedSharding(m22, jax.sharding.PartitionSpec("data", None))
+arr = SyntheticStream(DataConfig(cfg.vocab, 16, 6)).sharded_batch(
+    5, m22, {"tokens": sh, "labels": sh})
+for k in ("tokens", "labels"):
+    out[f"sharded/{k}"] = np.asarray(arr[k])
+    for s_ in arr[k].addressable_shards:
+        out[f"sharded/{k}/{s_.index[0].start or 0}"] = np.asarray(s_.data)
+np.savez(sys.argv[1], **out)
+print("EP_STEPS_OK")
+"""
+
+
+@pytest.fixture(scope="module")
+def jax_ep_steps(tmp_path_factory):
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+    path = tmp_path_factory.mktemp("ep_steps") / "ref.npz"
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run(
+        [sys.executable, "-c", _EP_JAX, str(path)],
+        cwd=str(Path(__file__).resolve().parents[1]), env=env,
+        capture_output=True, text=True, timeout=300)
+    assert "EP_STEPS_OK" in proc.stdout, proc.stderr[-3000:]
+    with np.load(path) as z:
+        return dict(z)
+
+
+def _ep_cfgs():
+    jcfg, tcfg = (dataclasses.replace(c, dtype="float32",
+                                      moe=dataclasses.replace(
+                                          c.moe, n_padding_experts=3))
+                  for c in (jget_smoke(ARCH), tget_smoke(ARCH)))
+    return jcfg, tcfg
+
+
+@pytest.mark.parametrize("mode", ["baseline", "hyperparallel"])
+def test_make_steps_ep_train_matches_jax(jax_ep_steps, mode):
+    """Three fp32 steps of ``make_steps(...).train_step`` with EP over a
+    1x4 mesh (capacity factor 4, the experts padded to 8), the port's
+    expert FFN through the kernels' plain versions and their backward:
+    losses within 1e-5 of JAX's."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.ep import EPConfig
+    jcfg, tcfg = _ep_cfgs()
+    jp = jadamw.cast_params(JM.init_params(jcfg, KEY), jnp.float32)
+    tp = train_params_from_numpy(_np(jp), tcfg, "cpu")
+    ts = opt_state_from_numpy(_np(jadamw.init_opt_state(jp)), tcfg, "cpu")
+    mesh = make_test_mesh(1, 4, device="cpu")
+    fns = St.make_steps(tcfg, mesh, opt=tadamw.OptConfig(
+        lr=3e-3, warmup_steps=2, total_steps=10), ep=EPConfig(
+        mode=mode, capacity_factor=4.0))
+    assert fns.ep_cfg.mode == mode and fns.dropless is None
+    stream = tpipe.SyntheticStream(tpipe.DataConfig(tcfg.vocab, 16, 4))
+    losses = []
+    for i in range(3):
+        tp, ts, m = fns.train_step(tp, ts, stream.sharded_batch(i, mesh,
+                                                                "cpu"))
+        losses.append(float(m["loss"]))
+    np.testing.assert_allclose(losses, jax_ep_steps[f"{mode}/losses"],
+                               rtol=1e-5, atol=1e-5)
+    assert mesh.comm.stats.counts[
+        "all-to-all" if mode == "baseline" else "collective-permute"] > 0
+
+
+@pytest.mark.parametrize("mode", ["baseline", "hyperparallel"])
+def test_make_steps_ep_serving_with_flash_decoding_matches_jax(
+        jax_ep_steps, mode):
+    """``prefill_step`` through EP, then two ``decode_step`` calls with
+    flash decoding over the 1x4 mesh (every rank routing the whole
+    decode batch): logits within 1e-4 of JAX's, and equal to the dense
+    decode of a step without a mesh."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import model as TM
+    from repro_torch.parallel.ep import EPConfig, make_moe_ep
+    jcfg, tcfg = _ep_cfgs()
+    tp = train_params_from_numpy(_np(jadamw.cast_params(
+        JM.init_params(jcfg, KEY), jnp.float32)), tcfg, "cpu")
+    mesh = make_test_mesh(1, 4, device="cpu")
+    fns = St.make_steps(tcfg, mesh, ep=EPConfig(mode=mode,
+                                                capacity_factor=4.0))
+    toks = torch.as_tensor(tpipe.SyntheticStream(tpipe.DataConfig(
+        tcfg.vocab, 16, 4)).global_batch_np(7)["tokens"][:, :8])
+    plain_ep = make_moe_ep(make_test_mesh(1, 4, device="cpu"), EPConfig(
+        mode=mode, capacity_factor=4.0), tcfg.act)
+    with torch.no_grad():
+        logits, cache = fns.prefill_step(tp, {"tokens": toks}, 16)
+        np.testing.assert_allclose(logits.numpy(),
+                                   jax_ep_steps[f"{mode}/prefill"],
+                                   rtol=1e-4, atol=1e-4)
+        nxt = logits.argmax(-1)[:, None]
+        dense = [{k: v.clone() for k, v in c.items()} for c in cache]
+        for i in range(2):
+            before = mesh.comm.stats.counts["all-reduce"]
+            lg, cache = fns.decode_step(tp, nxt, cache)
+            assert mesh.comm.stats.counts["all-reduce"] == \
+                before + 3 * tcfg.n_layers      # flash decoding ran
+            np.testing.assert_allclose(lg.numpy(),
+                                       jax_ep_steps[f"{mode}/decode{i}"],
+                                       rtol=1e-4, atol=1e-4)
+            ld, dense = TM.decode_step(tcfg, tp, nxt, dense,
+                                       moe_impl=plain_ep)
+            torch.testing.assert_close(lg, ld, rtol=1e-5, atol=1e-5)
+            nxt = lg[:, -1].argmax(-1)[:, None]
+
+
+
+def test_sharded_batch_matches_jax(jax_ep_steps):
+    """Over a 2x2 mesh: the whole batch built group by group equals JAX's
+    global array, and each data group's rows equal the shards JAX's
+    callback built for that group."""
+    from repro_torch.launch.mesh import make_test_mesh
+    mesh = make_test_mesh(2, 2, device="cpu")
+    stream = tpipe.SyntheticStream(tpipe.DataConfig(128, 16, 6))
+    whole = stream.sharded_batch(5, mesh, "cpu")
+    for k in ("tokens", "labels"):
+        np.testing.assert_array_equal(whole[k].numpy(),
+                                      jax_ep_steps[f"sharded/{k}"])
+        for g in range(2):
+            rows = stream.sharded_batch(5, mesh, "cpu", data_rank=g)[k]
+            assert rows.shape == (3, 16)
+            np.testing.assert_array_equal(
+                rows.numpy(), jax_ep_steps[f"sharded/{k}/{3 * g}"])
+    with pytest.raises(ValueError, match="data groups"):
+        tpipe.SyntheticStream(tpipe.DataConfig(128, 16, 5)).sharded_batch(
+            0, mesh, "cpu")
