@@ -158,6 +158,28 @@ Phases, each printing one JSON line:
    ``ep_nccl``: a one-rank NCCL group running ``make_moe_ep`` on
    ``DistComm`` in both modes, y and grads bit-equal to ``VirtualComm``.
 
+15. ft — checkpoint and fault tolerance, under
+   ``torch.use_deterministic_algorithms(True)``: (a) granite at full width
+   cut to PARITY_LAYERS layers, the fixed-capacity ``make_train_step`` on
+   ``SyntheticStream`` batches of 1 x 4096 tokens through
+   ``ft.runner.train_loop`` with checkpoints in the JAX package's layout
+   (``convert.JaxTrainLayout``) under ``tempfile.mkdtemp()`` (removed
+   after; the phase raises if the disk cannot hold two checkpoints): an
+   uninterrupted FT_STEPS-step run saving every FT_EVERY steps and keeping
+   FT_KEEP, then a run killed by ``inject_fault`` before step FT_CRASH and
+   its resume from step FT_EVERY; the resumed (step, loss, grad_norm) log
+   and the final params and optimizer state must equal the uninterrupted
+   run's bit for bit (``torch.equal`` on every leaf). The resume restores
+   in place: the device memory it adds over the fresh state it fills,
+   read from ``torch.cuda.max_memory_allocated`` before the first resumed
+   step, must stay within one leaf. It prints the checkpoint's bytes (from
+   its manifest), that peak, each save's and restore's seconds and GB/s
+   (host copy, CRC and the disk of the card's machine: not a device rate),
+   and the kernels' launches (2, 4 and 1 a layer a step, every one on its
+   tensor-core body);
+   (b) ``ft.harness`` on the card: all six (kind, profile) cells, every
+   check true, launching ``gmm`` and no other kernel.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
 CUDA device nothing is printed to stdout.
@@ -170,9 +192,11 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from functools import partial
 
@@ -182,8 +206,12 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from repro_torch.checkpoint import ckpt as ckpt_mod  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.convert import JaxTrainLayout  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa
+from repro_torch.ft import harness as ft_harness  # noqa: E402
+from repro_torch.ft import runner as ft_runner  # noqa: E402
 from repro_torch.kernels import build, ops  # noqa: E402
 from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu as swiglu_mod  # noqa: E402
@@ -303,6 +331,11 @@ EP_MODES = ("hyperparallel", "baseline")
 # with 8192 tokens a rank at the default capacity factor.
 PAPER = deepseek_moe_paper.config(ep=EP, n_layers=1)
 PAPER_TOKENS_PER_RANK = 8192
+# Checkpoint and fault tolerance (phase 15): the training cell cut to
+# PARITY_LAYERS layers; FT_STEPS steps, a checkpoint every FT_EVERY steps
+# and at the last, the newest FT_KEEP kept; the crashed run dies before step
+# FT_CRASH and resumes from the checkpoint at FT_EVERY.
+FT_STEPS, FT_EVERY, FT_KEEP, FT_CRASH = 4, 2, 1, 3
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -1868,7 +1901,6 @@ def dist_case(cfg, backend="nccl", tokens=512, dev="cuda", init_dir=None):
     card) runs one full-width MoE layer through ``make_moe_ep`` at ep = 1
     on ``DistComm`` in both modes, forward and backward; y and every grad
     must equal the ``VirtualComm`` run's bit for bit."""
-    import tempfile
     import torch.distributed as dist
     dev = torch.device(dev)
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1919,6 +1951,188 @@ def run_ep(cfg):
     return out, {"ep_train": train_launches, "ep_modes": modes_launches}
 
 
+def tree_bytes(tree) -> int:
+    return sum(t.numel() * t.element_size() for t in adamw.tree_leaves(tree)
+               if isinstance(t, torch.Tensor))
+
+
+def manifest_bytes(step_dir) -> int:
+    """The bytes of a checkpoint's arrays, from its manifest."""
+    with open(os.path.join(step_dir, "manifest.json")) as f:
+        leaves = json.load(f)["leaves"]
+    size = {"bfloat16": 2, "float32": 4, "int32": 4}
+    return sum(math.prod(v["shape"]) * size[v["dtype"]]
+               for v in leaves.values())
+
+
+def ft_train_case(cfg, root, dev="cuda", seq=TRAIN_SEQ):
+    """Phase 15 (a): an uninterrupted run, a crashed one and its resume at
+    full width on PARITY_LAYERS layers, checkpoints under ``root``. On the
+    card the kernels' launches must be TRAIN_LAUNCHES a layer a step, all
+    on tensor cores, and the in-place resume must add at most one leaf's
+    bytes of device memory to the fresh state it fills."""
+    dev = torch.device(dev)
+    cuda = dev.type == "cuda"
+    pcfg = dataclasses.replace(cfg, n_layers=PARITY_LAYERS)
+    oc = adamw.OptConfig(lr=1e-3, warmup_steps=2, total_steps=FT_STEPS)
+    step_fn = steps_mod.make_train_step(pcfg, oc)
+    stream = SyntheticStream(DataConfig(vocab=pcfg.vocab, seq_len=seq,
+                                        global_batch=TRAIN_BATCH))
+
+    def fresh():
+        params = adamw.cast_params(M.init_params(
+            pcfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+            pcfg.compute_dtype)
+        return params, adamw.init_opt_state(params)
+
+    params, opt_state = fresh()
+    state = tree_bytes((params, opt_state))
+    leaf = max(t.numel() * t.element_size()
+               for t in adamw.tree_leaves((params, opt_state))
+               if isinstance(t, torch.Tensor))
+    free = shutil.disk_usage(root).free
+    if free < 2 * state:
+        raise RuntimeError(f"{root} has {free} bytes free; two checkpoints "
+                           f"of {state} bytes do not fit")
+
+    def loop(name, params, opt_state, inject=None):
+        return ft_runner.train_loop(
+            step_fn=step_fn, params=params, opt_state=opt_state,
+            stream=stream, mesh=None, device=dev, n_steps=FT_STEPS,
+            ft=ft_runner.FTConfig(ckpt_dir=os.path.join(root, name),
+                                  ckpt_every=FT_EVERY, keep=FT_KEEP),
+            inject_fault=inject, log_every=1, layout=JaxTrainLayout)
+
+    def bomb(step):
+        if step == FT_CRASH:
+            raise RuntimeError(f"injected kill at step {FT_CRASH}")
+
+    mem = {}
+
+    def restore_peak(step):
+        # Called before each resumed step: the first call follows the
+        # restore and precedes any step's activations.
+        if cuda and "peak" not in mem:
+            torch.cuda.synchronize(dev)
+            mem["peak"] = torch.cuda.max_memory_allocated(dev)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset_launches()
+        base = loop("base", params, opt_state)
+        ckpt_bytes = manifest_bytes(
+            ckpt_mod.latest_step_dir(os.path.join(root, "base")))
+        shutil.rmtree(os.path.join(root, "base"))
+        try:
+            loop("crash", *fresh(), inject=bomb)
+            raise AssertionError("the injected fault did not fire")
+        except RuntimeError as e:
+            if "injected" not in str(e):
+                raise
+        params, opt_state = fresh()
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            mem["before"] = torch.cuda.memory_allocated(dev)
+        run = loop("crash", params, opt_state, inject=restore_peak)
+        del params, opt_state
+        launches = read_launches()
+        tc = {"gmm_swiglu": swiglu_mod.launches_tc,
+              "gmm": gmm_mod.launches_tc,
+              "gmm_swiglu_bwd": bwd_mod.launches_tc}
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+    def log(r):
+        return [(m["step"], m["loss"], m["grad_norm"]) for m in r.metrics_log]
+    a = adamw.tree_leaves((base.params, base.opt_state))
+    b = adamw.tree_leaves((run.params, run.opt_state))
+    unequal = [i for i, (x, y) in enumerate(zip(a, b))
+               if not (x == y if isinstance(x, int) else torch.equal(x, y))]
+    steps_run = FT_STEPS + FT_CRASH + (FT_STEPS - FT_EVERY)
+    want = {k: PARITY_LAYERS * steps_run * n
+            for k, n in TRAIN_LAUNCHES.items()}
+    added = mem["peak"] - mem["before"] if cuda else None
+    out = {"n_layers": PARITY_LAYERS, "tokens": TRAIN_BATCH * seq,
+           "steps": FT_STEPS, "ckpt_every": FT_EVERY, "keep": FT_KEEP,
+           "crash_before_step": FT_CRASH, "resumed_from": run.resumed_from,
+           "log": log(run), "log_uninterrupted": log(base),
+           "log_bit_equal": log(run) == log(base),
+           "state_leaves": len(a), "state_leaves_unequal": unequal,
+           "state_bytes": state, "largest_leaf_bytes": leaf,
+           "checkpoint_bytes": ckpt_bytes, "disk_free_bytes": free,
+           "restore_device_bytes_before": mem.get("before"),
+           "restore_device_peak_bytes": mem.get("peak"),
+           "restore_device_bytes_added": added,
+           "deterministic_algorithms": True,
+           "ckpt": [dict(e, run=name, gb_per_s=e["bytes"] / e["s"] / 1e9)
+                    for name, r in (("uninterrupted", base),
+                                    ("resumed", run))
+                    for e in r.ckpt_log],
+           "step_s": [m["step_time_s"] for m in run.metrics_log],
+           "launches": launches, "launches_tc": tc,
+           "expected_launches": want}
+    if run.resumed_from != FT_EVERY or not out["log_bit_equal"] \
+            or unequal or len(a) != len(b):
+        raise AssertionError(f"the resumed run differs from the "
+                             f"uninterrupted one: {out}")
+    if cuda and (launches != want or tc != {k: want[k] for k in tc}):
+        raise AssertionError(f"ft launch counts {launches} (tensor cores "
+                             f"{tc}) != {want}")
+    if cuda and added > leaf:
+        raise AssertionError(f"the resume added {added} bytes of device "
+                             f"memory to the fresh state; one leaf is "
+                             f"{leaf}")
+    if not all(math.isfinite(m[1]) for m in log(run)):
+        raise AssertionError(f"non-finite FT losses: {log(run)}")
+    return out, launches
+
+
+def ft_harness_case(root, dev="cuda"):
+    """Phase 15 (b): the chaos harness's six cells on the card, where its
+    fragment launches ``gmm`` and no other kernel."""
+    reset_launches()
+    torch.use_deterministic_algorithms(True)
+    try:
+        cells = [{"scenario": kind, "profile": profile,
+                  "checks": ft_harness.run_scenario(
+                      kind, profile, os.path.join(root, f"{kind}_{profile}"),
+                      device=dev)}
+                 for kind in ft_harness.KINDS
+                 for profile in ft_harness.PROFILES]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = read_launches()
+    failed = [c for c in cells if not all(c["checks"].values())]
+    if failed:
+        raise AssertionError(f"harness cells failed on the card: {failed}")
+    if torch.device(dev).type == "cuda" and (
+            launches["gmm"] == 0
+            or any(v for k, v in launches.items() if k != "gmm")):
+        raise AssertionError(f"harness launches {launches}: gmm only, at "
+                             f"least once")
+    return cells, launches
+
+
+def run_ft(cfg):
+    """Phase 15. Returns the phase's line and the launches of paths ft and
+    ft_harness."""
+    t = time.perf_counter()
+    root = tempfile.mkdtemp()
+    try:
+        torch.cuda.empty_cache()
+        train_out, train_launches = ft_train_case(cfg, root)
+        torch.cuda.empty_cache()
+        cells, harness_launches = ft_harness_case(root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"phase": "ft", **train_out, "harness": cells,
+           "harness_launches": harness_launches,
+           "harness_gmm_fp32_small_launches": gmm_mod.launches_fp32_small,
+           "seconds": time.perf_counter() - t}
+    return out, {"ft": train_launches, "ft_harness": harness_launches}
+
+
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
     """The ``kernels`` line's entry of a swiglu_add mode: timed at the
     paper's largest size in bf16 (M = 32768), with every size beside it."""
@@ -1942,6 +2156,11 @@ def swiglu_add_entry(name, spec, checks, bench_out, by_path):
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    # Phase 15 runs under use_deterministic_algorithms, which accepts cuBLAS
+    # only with this variable set. cuBLAS reads it once, when the first
+    # handle is made, so it is set before any phase; ":4096:8" (32 MiB) is
+    # the workspace PyTorch chooses on sm_90 without it.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -2007,6 +2226,9 @@ def main() -> int:
     ep_out, ep_launches = run_ep(cfg)
     emit(ep_out)
     path_launches.update(ep_launches)
+    ft_out, ft_launches = run_ft(cfg)
+    emit(ft_out)
+    path_launches.update(ft_launches)
 
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

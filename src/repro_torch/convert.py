@@ -13,7 +13,12 @@ and the norm scales stay fp32, as the JAX code reads them in fp32.
 Training casts every float leaf to the compute dtype (``adamw.cast_params``
 in the JAX launcher): ``train_params_from_numpy`` does the same, and
 ``opt_state_from_numpy`` carries a JAX AdamW state over, so both packages
-can start a run from the same params and state.
+can start a run from the same params and state. Their inverses,
+``train_params_to_jax`` and ``opt_state_to_jax``, stack the per-layer dicts
+back into the JAX package's ``[L, ...]`` leaves: a training checkpoint's
+tree is then exactly the JAX launcher's ``(params, opt_state)``, and a
+checkpoint written by either package restores in the other
+(``jax_train_tree``, ``restore_jax_train``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .checkpoint import ckpt as CK
 from .device import resolve_device
 
 _FP32_LEAVES = ("router",)
@@ -75,3 +81,67 @@ def opt_state_from_numpy(np_state: dict, cfg, device) -> dict:
            for k in ("m", "v", "master")}
     out["step"] = int(np_state["step"])
     return out
+
+
+def _to_jax(tree: dict, stack) -> dict:
+    """The JAX package's tree of a port params-like ``tree``: the list of
+    per-layer ``blocks`` dicts becomes one dict of ``stack(parts)``
+    leaves."""
+    def blocks(parts: list):
+        if isinstance(parts[0], dict):
+            return {k: blocks([p[k] for p in parts]) for k in parts[0]}
+        return stack(parts)
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = blocks(tree["blocks"])
+    return out
+
+
+def _host_stack(parts: list) -> torch.Tensor:
+    return torch.stack([p.detach().cpu() for p in parts])
+
+
+def train_params_to_jax(params: dict) -> dict:
+    """The port's params → the JAX package's tree: the per-layer block dicts
+    stacked into ``[L, ...]`` leaves, every leaf a host tensor in its own
+    dtype."""
+    return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
+            for k, v in _to_jax(params, _host_stack).items()}
+
+
+def opt_state_to_jax(state: dict) -> dict:
+    """The port's AdamW state → the JAX package's, as
+    :func:`train_params_to_jax` does for ``m``, ``v`` and ``master``; the
+    step stays an int (saved as the reference's int32 scalar)."""
+    out = {k: train_params_to_jax(state[k]) for k in ("m", "v", "master")}
+    out["step"] = int(state["step"])
+    return out
+
+
+def jax_train_tree(params: dict, opt_state: dict) -> tuple:
+    """The JAX launcher's ``(params, opt_state)`` tree over the port's own
+    tensors, copying none: each per-layer leaf list is one
+    ``checkpoint.ckpt.Stacked`` leaf. ``ckpt.save`` writes it in the JAX
+    package's layout, and ``ckpt.restore(..., into=True)`` fills it in
+    place."""
+    state = {k: _to_jax(opt_state[k], CK.Stacked)
+             for k in ("m", "v", "master")}
+    state["step"] = opt_state["step"]
+    return _to_jax(params, CK.Stacked), state
+
+
+def restore_jax_train(step_dir: str, params: dict, opt_state: dict) -> dict:
+    """Restore a training checkpoint in the JAX package's layout into the
+    port's ``params`` and ``opt_state`` in place (``opt_state["step"]``
+    included), one leaf at a time; returns the manifest."""
+    (_, state), manifest = CK.restore(
+        step_dir, jax_train_tree(params, opt_state), into=True)
+    opt_state["step"] = state["step"]
+    return manifest
+
+
+class JaxTrainLayout:
+    """``ft.runner.train_loop``'s checkpoint layout for a port training
+    state: the JAX launcher's ``(params, opt_state)``."""
+
+    tree = staticmethod(jax_train_tree)
+    restore = staticmethod(restore_jax_train)

@@ -69,9 +69,10 @@ class SyntheticStream:
         ``data_rank=None``: every group's rows, concatenated in group order
         — the global batch, as a one-card mesh of virtual ranks holds it.
         An int: that group's rows only, which every rank of its model group
-        holds (a ``DistComm`` process passes its own).
+        holds (a ``DistComm`` process passes its own). ``mesh=None`` is one
+        data group: the global batch, as :meth:`batch` gives it.
         """
-        dc, n = self.dc, mesh.dp_size
+        dc, n = self.dc, (1 if mesh is None else mesh.dp_size)
         if dc.global_batch % n:
             raise ValueError(f"global batch {dc.global_batch} does not "
                              f"split over {n} data groups")

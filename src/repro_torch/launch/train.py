@@ -23,23 +23,35 @@ Params come from ``init_params`` (seed 0), cast to the compute dtype as the
 JAX launcher casts them; batches from ``SyntheticStream``. Each step logs
 its loss, grad norm, host-clock ms (the step ends by waiting for the
 device), the ``gmm`` kernel launches it made and, on the card, the peak
-device memory so far; a dropless step also its ``ssc_*`` cache counters. The JAX
-launcher's mesh, EP and checkpoint options belong to later slices of the
-port and are refused.
+device memory so far; a dropless step also its ``ssc_*`` cache counters.
+
+The steps run through ``ft.runner.train_loop``. ``--ckpt-dir D`` resumes
+from D's newest complete checkpoint, in place (printing ``resumed from step
+N``, as the JAX launcher does), saves every ``--ckpt-every`` steps (default
+10) and at the last step in the JAX package's layout
+(``convert.JaxTrainLayout``: either package restores the other's), and
+keeps the newest 3; the log of the steps before the resume comes back with
+it. Without ``--ckpt-dir`` nothing is saved or resumed: the JAX launcher's
+default directory under ``/tmp`` would make each run resume from the one
+before it.
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --steps 6 --ckpt-dir ckpt --ckpt-every 2
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import time
+from typing import Optional
 
 import torch
 
+from ..convert import JaxTrainLayout
 from ..core.buckets import BucketSpec
 from ..core.passes import pipeline_arg
 from ..device import resolve_device
 from ..data.pipeline import DataConfig, SyntheticStream
+from ..ft.runner import FTConfig, train_loop
 from ..kernels import gmm as gmm_kernel
 from ..models import model as M
 from ..optim import adamw
@@ -48,22 +60,18 @@ from . import steps as St
 from .dropless import DroplessConfig
 from .mesh import make_mesh, mesh_dims
 
-# Options of the JAX launcher and the slice of the port that brings them.
-_REFUSED = {
-    "--ckpt-dir": "the port's checkpoint/fault-tolerance slice",
-    "--ckpt-every": "the port's checkpoint/fault-tolerance slice",
-}
-
 
 @dataclasses.dataclass
 class TrainRun:
     params: dict
     opt_state: dict
-    # Per step: step, loss, grad_norm, lr, step_ms, gmm_launches,
-    # peak_bytes (the card's peak so far; None off the card), and ssc_*
-    # when dropless.
+    # Per step (from 0; with --ckpt-dir the steps before a resume too):
+    # step, loss, grad_norm, lr, step_ms, gmm_launches, peak_bytes (the
+    # card's peak so far; None off the card), ssc_* when dropless, and
+    # collectives and comm_bytes_per_rank with --mesh.
     metrics_log: list
     dropless: object = None   # the DroplessMoE handle of a dropless run
+    resumed_from: Optional[int] = None   # the checkpoint step resumed from
 
 
 def pad_experts(cfg, ep: int):
@@ -78,7 +86,9 @@ def pad_experts(cfg, ep: int):
         cfg.moe, n_padding_experts=cfg.moe.n_padding_experts + extra))
 
 
-def main(argv=None) -> TrainRun:
+def main(argv=None, *, inject_fault=None) -> TrainRun:
+    """Parse ``argv`` and train. ``inject_fault(step)`` is called before
+    each step and may raise to simulate a node loss."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="granite-moe-3b-a800m")
     ap.add_argument("--smoke", action="store_true",
@@ -116,13 +126,21 @@ def main(argv=None) -> TrainRun:
                          "'auto', a named core.passes.SCHED_PIPELINES entry "
                          "(e.g. 'ratr+crit'), or a comma-separated pass "
                          "list; default keeps the DroplessConfig default")
-    for flag in _REFUSED:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="checkpoint directory: resume from its newest "
+                         "complete checkpoint and save into it (default: "
+                         "none, nothing saved or resumed)")
+    ap.add_argument("--ckpt-every", type=int, default=None,
+                    help="steps between checkpoints (default 10; needs "
+                         "--ckpt-dir)")
     args = ap.parse_args(argv)
-    for flag, later in _REFUSED.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} is not ported yet; it comes with {later}")
+    if args.ckpt_every is not None:
+        if args.ckpt_dir is None:
+            ap.error("--ckpt-every needs --ckpt-dir")
+        if args.ckpt_every < 1:
+            ap.error("--ckpt-every must be at least 1")
+    else:
+        args.ckpt_every = 10
 
     dims = None
     if args.mesh is not None:
@@ -178,35 +196,42 @@ def main(argv=None) -> TrainRun:
     opt_state = adamw.init_opt_state(params)
     stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                         global_batch=args.global_batch))
-    log = []
     cuda = dev.type == "cuda"
-    for s in range(args.steps):
-        batch = (stream.batch(s, dev) if mesh is None
-                 else stream.sharded_batch(s, mesh, dev))
-        if mesh is not None:
-            mesh.comm.stats.reset()
-        launches = gmm_kernel.launches
-        t = time.perf_counter()
-        params, opt_state, m = step_fn(params, opt_state, batch)
-        if cuda:
-            torch.cuda.synchronize(dev)
-        ms = 1e3 * (time.perf_counter() - t)
-        rec = {"step": s, "loss": float(m["loss"]),
-               "grad_norm": float(m["grad_norm"]), "lr": m["lr"],
-               "step_ms": ms, "gmm_launches": gmm_kernel.launches - launches,
+    launches = gmm_kernel.launches
+    if mesh is not None:
+        mesh.comm.stats.reset()
+
+    def on_step(s, m, dt):
+        nonlocal launches
+        rec = {"lr": m["lr"], "step_ms": 1e3 * dt,
+               "gmm_launches": gmm_kernel.launches - launches,
                "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
                               else None)}
+        launches = gmm_kernel.launches
         rec.update({k: v for k, v in m.items() if k.startswith("ssc_")})
         if mesh is not None:
             rec["collectives"] = dict(mesh.comm.stats.counts)
             rec["comm_bytes_per_rank"] = mesh.comm.stats.bytes / mesh.dp_size
-        log.append(rec)
+            mesh.comm.stats.reset()
         ssc = ("" if dropless is None else
                f" ssc hits {rec['ssc_hits']} misses {rec['ssc_misses']} "
                f"entries {rec['ssc_entries']} "
                f"pad {rec['ssc_pad_ratio']:.3f}")
-        print(f"step {s:4d} loss {rec['loss']:.4f} "
-              f"gnorm {rec['grad_norm']:.3f} {ms:.0f}ms{ssc}", flush=True)
+        print(f"step {s:4d} loss {float(m['loss']):.4f} "
+              f"gnorm {float(m['grad_norm']):.3f} {1e3 * dt:.0f}ms{ssc}",
+              flush=True)
+        return rec
+
+    run = train_loop(
+        step_fn=step_fn, params=params, opt_state=opt_state, stream=stream,
+        mesh=mesh, device=dev, n_steps=args.steps,
+        ft=FTConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
+        inject_fault=inject_fault, log_every=1, layout=JaxTrainLayout,
+        on_step=on_step)
+    if run.resumed_from is not None:
+        print(f"resumed from step {run.resumed_from}")
+    if run.stragglers:
+        print("stragglers:", run.stragglers)
     if dropless is not None:
         info = step_fn.dropless.cache.info()
         total = max(1, info["hits"] + info["misses"])
@@ -214,8 +239,13 @@ def main(argv=None) -> TrainRun:
               f"({info['bytes'] / 1024:.0f} KiB), "
               f"hit rate {info['hits'] / total:.1%} "
               f"({info['misses']} compiles, {info['evictions']} evictions)")
-    return TrainRun(params=params, opt_state=opt_state, metrics_log=log,
-                    dropless=step_fn.dropless)
+    # One record a step, numbered by the step that made it (from 0), the
+    # steps before a resume included.
+    log = [dict({k: v for k, v in m.items() if k != "step_time_s"},
+                step=m["step"] - 1) for m in run.metrics_log]
+    return TrainRun(params=run.params, opt_state=run.opt_state,
+                    metrics_log=log, dropless=step_fn.dropless,
+                    resumed_from=run.resumed_from)
 
 
 if __name__ == "__main__":

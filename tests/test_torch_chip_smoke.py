@@ -266,3 +266,26 @@ def test_ep_phase_runs_on_the_cpu():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             bench_ep_modes.main(["--full"])
+
+
+def test_ft_cases_on_the_cpu(tmp_path):
+    """Phase 15's cases at the smoke size on the CPU (the kernels' plain
+    versions; launches are checked on the card only): the resumed run's
+    log and state bit-equal to the uninterrupted run's, the checkpoint's
+    manifest bytes equal to the state's, every harness check true."""
+    from repro_torch.configs import get_smoke_config
+    cfg = get_smoke_config("granite-moe-3b-a800m")
+    out, _ = chip_smoke.ft_train_case(cfg, str(tmp_path), dev="cpu", seq=32)
+    assert out["resumed_from"] == chip_smoke.FT_EVERY
+    assert out["log_bit_equal"] and not out["state_leaves_unequal"]
+    assert [m[0] for m in out["log"]] == list(
+        range(1, chip_smoke.FT_STEPS + 1))
+    assert out["checkpoint_bytes"] == out["state_bytes"] + 4   # int32 step
+    assert [e["op"] for e in out["ckpt"]] == ["save", "save", "restore",
+                                              "save"]
+    assert out["deterministic_algorithms"]
+    assert out["restore_device_bytes_added"] is None   # measured on the card
+    assert not torch.are_deterministic_algorithms_enabled()
+    cells, _ = chip_smoke.ft_harness_case(str(tmp_path / "h"), dev="cpu")
+    assert len(cells) == 6 and all(all(c["checks"].values()) for c in cells)
+    assert not torch.are_deterministic_algorithms_enabled()

@@ -23,7 +23,7 @@ for n in names:
 sys.argv = ["chip_smoke.py"]
 import chip_smoke  # module import only; main() is not run
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "ml_dtypes"))
 print(len(names), bad)
 assert not bad, bad
 """
@@ -43,7 +43,8 @@ _ALONE = r"""
 import importlib, sys
 importlib.import_module(sys.argv[1])
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack"))
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                    "ml_dtypes"))
 assert not bad, bad
 """
 
@@ -58,11 +59,14 @@ assert not bad, bad
     "repro_torch.launch.serve", "repro_torch.launch.profile_serve",
     "repro_torch.parallel.comm", "repro_torch.parallel.flash_decode",
     "repro_torch.launch.mesh", "repro_torch.launch.bench_ep_modes",
-    "repro_torch.configs.deepseek_moe_paper"])
+    "repro_torch.configs.deepseek_moe_paper",
+    "repro_torch.checkpoint.ckpt", "repro_torch.ft.runner",
+    "repro_torch.ft.harness", "repro_torch.launch.train"])
 def test_fusion_and_elastic_modules_import_alone(module):
-    """Each module of the fusion/elastic slice and of the online serving
-    slice, imported on its own in a fresh interpreter, pulls in neither
-    JAX, the JAX package nor msgpack."""
+    """Each module of the fusion/elastic slice, of the online serving
+    slice, of EP and of checkpointing, imported on its own in a fresh
+    interpreter, pulls in neither JAX, the JAX package, msgpack nor
+    ml_dtypes."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", _ALONE, module],
                           cwd=str(REPO), env=env, capture_output=True,
@@ -71,7 +75,7 @@ def test_fusion_and_elastic_modules_import_alone(module):
     assert (REPO / "src" / (module.replace(".", "/") + ".py")).is_file()
 
 
-FORBIDDEN = ("jax", "jaxlib", "repro", "triton", "msgpack")
+FORBIDDEN = ("jax", "jaxlib", "repro", "triton", "msgpack", "ml_dtypes")
 
 
 def _imported_roots(tree):
@@ -98,15 +102,45 @@ def test_no_forbidden_import_anywhere_in_the_source():
     """A static check of what the subprocess probe cannot see: imports in
     function bodies that an import alone never runs. Nothing of the port
     or ``chip_smoke.py`` may import JAX, the JAX package, Triton (absent
-    where the CPU tests run) or msgpack (absent on the card's machine)."""
-    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
-    files.append(REPO / "chip_smoke.py")
+    where the CPU tests run), msgpack or ml_dtypes (absent on the card's
+    machine)."""
+    files = _port_files()
     bad = [f"{f.relative_to(REPO)}:{line}: {root}"
            for f in files
            for line, root in _imported_roots(ast.parse(f.read_text()))
            if root in FORBIDDEN]
     assert len(files) >= 30
     assert not bad, bad
+
+
+def _port_files() -> list:
+    files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    files.append(REPO / "chip_smoke.py")
+    return files
+
+
+def _tmp_paths(tree):
+    """(line, string) of every string constant that names a path under
+    ``/tmp``."""
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and node.value.startswith("/tmp")):
+            yield node.lineno, node.value
+
+
+def test_no_fixed_path_under_tmp():
+    """No module of the port and not ``chip_smoke.py`` holds a path under
+    ``/tmp`` (as a default or otherwise): a fixed directory is shared by
+    every run on the machine, and the reference's default checkpoint
+    directory makes each run resume from the one before it. Checkpoints and
+    scratch go where the caller says, or under ``tempfile``."""
+    bad = [f"{f.relative_to(REPO)}:{line}: {v!r}"
+           for f in _port_files()
+           for line, v in _tmp_paths(ast.parse(f.read_text()))]
+    assert not bad, bad
+    assert [v for _, v in _tmp_paths(ast.parse(
+        'def f(d="/tmp/repro_ckpt"):\n    """under /tmp"""\n'))] == [
+        "/tmp/repro_ckpt"]
 
 
 def test_static_check_sees_lazy_imports():
@@ -151,15 +185,19 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
         profile_serve.main(["--online-refit"])
 
 
-def test_ep_entry_points_raise_without_cuda_unless_asked_for_cpu():
+def test_ep_entry_points_raise_without_cuda_unless_asked_for_cpu(tmp_path):
     _require_no_cuda()
+    ckpt = str(tmp_path / "ckpt")
+    from repro_torch.ft import harness
     from repro_torch.launch import bench_ep_modes, train
     from repro_torch.launch.mesh import make_mesh, make_test_mesh
     from repro_torch.parallel.comm import VirtualComm
     for fn in (lambda: make_test_mesh(1, 4), lambda: make_mesh((2, 2)),
                lambda: VirtualComm(4),
                lambda: bench_ep_modes.main([]),
-               lambda: train.main(["--smoke", "--mesh", "1x4"])):
+               lambda: train.main(["--smoke", "--mesh", "1x4"]),
+               lambda: train.main(["--smoke", "--ckpt-dir", ckpt]),
+               lambda: harness.main(["--kinds", "slow"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             fn()
 

@@ -3,6 +3,7 @@ stream, the loss and its grads, and whole train steps on the granite-moe
 smoke config, with inputs and params made once and fed to both."""
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -333,12 +334,11 @@ def test_train_main_needs_cuda_unless_asked_for_cpu(capsys):
         ttrain.main(["--smoke", "--steps", "1"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ttrain.main(["--smoke", "--steps", "1", "--mesh", "1x4"])
-    for flag in (["--ckpt-dir", "ck"], ["--ckpt-every", "3"]):
-        with pytest.raises(SystemExit):
-            ttrain.main(["--smoke", "--device", "cpu", *flag])
-        assert "slice" in capsys.readouterr().err
     for flag, msg in ((["--mode", "ep_dp"], "need --mesh"),
-                      (["--mesh", "4"], "DxM")):
+                      (["--mesh", "4"], "DxM"),
+                      (["--ckpt-every", "3"], "needs --ckpt-dir"),
+                      (["--ckpt-dir", "ck", "--ckpt-every", "0"],
+                       "at least 1")):
         with pytest.raises(SystemExit):
             ttrain.main(["--smoke", "--device", "cpu", *flag])
         assert msg in capsys.readouterr().err
@@ -349,6 +349,28 @@ def test_train_main_needs_cuda_unless_asked_for_cpu(capsys):
     assert [m["collectives"] for m in run.metrics_log] == [
         {"all-to-all": 4}] * 2        # dispatch and return, x 2 layers
     assert run.params["blocks"][0]["moe"]["w_in"].shape[0] == 8   # padded
+
+
+@pytest.mark.parametrize("flags, saved", [
+    ([], [4]), (["--ckpt-every", "2"], [2, 4])])
+def test_train_main_accepts_the_checkpoint_flags(flags, saved, tmp_path,
+                                                 capsys):
+    """``--ckpt-dir``, with or without ``--ckpt-every``, is accepted: the
+    first run starts fresh and saves every ``--ckpt-every`` steps (default
+    10) and at the last; the second resumes from the last step's checkpoint
+    and has nothing left to run."""
+    argv = ["--smoke", "--device", "cpu", "--steps", "4", "--seq", "16",
+            "--global-batch", "2", "--ckpt-dir", str(tmp_path), *flags]
+    run = ttrain.main(argv)
+    assert run.resumed_from is None and run.opt_state["step"] == 4
+    assert [m["step"] for m in run.metrics_log] == [0, 1, 2, 3]
+    assert sorted(d for d in os.listdir(tmp_path)
+                  if d.startswith("step_")) == [f"step_{s:08d}"
+                                                for s in saved]
+    again = ttrain.main(argv)
+    assert again.resumed_from == 4 and again.opt_state["step"] == 4
+    assert "resumed from step 4" in capsys.readouterr().out
+    assert again.metrics_log == run.metrics_log
 
 
 def test_training_conversions_cast_like_cast_params(smoke):
