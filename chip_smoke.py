@@ -45,7 +45,13 @@ Phases, each printing one JSON line:
    rank, a ring chunk's C_pair = 688 rows and a baseline call's 2,752,
    forward and backward, the backward on its tensor-core body) and the
    paper module's (E = 8, K = 7168, F = 2048 at C = 2,560 and 10,240),
-   those timed by device time only beside their bound and ``torch.bmm``;
+   each timed by device time only beside its bound and ``torch.bmm``
+   (the backward beside the three ``torch.bmm`` of its sizes); and
+   dbrx-132b's shapes (phase 16 (d) and (e): E = 16, K = 6144, F = 10752
+   at a decode step's C = 3, a 128-token prefill's C = 40 and a
+   4096-token training step's C = 1,280; at the last also gmm as GMM2's
+   two backward calls and the backward kernel on its tensor-core body),
+   twice and bit-equal, timed the same way;
 4. slice — full-width, 32-layer granite-moe-3b-a800m in bf16 with random
    weights from a seed: one prefill through the kernels against the plain
    expert FFN, then ``launch.serve.serve`` answers 16 requests of 128-token
@@ -179,6 +185,34 @@ Phases, each printing one JSON line:
    tensor-core body);
    (b) ``ft.harness`` on the card: all six (kind, profile) cells, every
    check true, launching ``gmm`` and no other kernel.
+
+16. families — the dense, ssm and hybrid families and dbrx-132b, each
+   arch's memory freed before the next and its peak read after
+   ``torch.cuda.reset_peak_memory_stats()``: (a) path consistency at full
+   width in fp32, cut in depth (FAMILY_CONSISTENCY: 2 layers, 5 for
+   recurrentgemma-2b, one super-block and its tail): the prefill's last
+   logits and teacher-forced decode steps within FAMILY_TOL x max|logit|
+   of the forward on the same tokens, recurrentgemma's 2,100-token prompt
+   past its 2,048-token window so that its ring wraps (gated), mamba2's
+   lengths those its SSD chunk accepts; (b) llama3_2-3b, mamba2-1_3b and
+   recurrentgemma-2b at full width and depth in bf16 serving phase 4's
+   traffic through ``launch.serve.serve``: every request its MAX_NEW
+   tokens, no non-finite logit, no kernel launch (their matmuls are
+   cuBLAS); prefill and decode step ms, tokens/s, peak memory; (c) the
+   same three through ``launch.train.main --arch`` for FAMILY_TRAIN_STEPS
+   steps of 1 x TRAIN_SEQ tokens: finite losses and grad norms, no kernel
+   launch, step ms, peak memory; (d) dbrx-132b at full width cut from 40
+   layers to DBRX_LAYERS (bf16, ~15 GB): one 128-token prefill through the
+   kernels within LOGIT_TOL x max|logit| of the plain expert FFN, then
+   DBRX_REQUESTS requests served, ``gmm_swiglu`` and ``gmm`` launching
+   DBRX_LAYERS x (prefills + decode steps) times each, the path
+   ``families`` of the ``kernels`` line; (e) the same 2 layers' training
+   step on one 1 x TRAIN_SEQ batch (loss and grads, without the AdamW
+   update, whose fp32 state does not fit one card) through the kernels,
+   launching TRAIN_LAUNCHES x DBRX_LAYERS times (the path
+   ``families_train``, every backward on the tensor cores), and through
+   the plain expert FFN: loss within LOSS_TOL, every grad leaf's norm
+   within GNORM_TOL, as phase 5.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
@@ -336,6 +370,25 @@ PAPER_TOKENS_PER_RANK = 8192
 # and at the last, the newest FT_KEEP kept; the crashed run dies before step
 # FT_CRASH and resumes from the checkpoint at FT_EVERY.
 FT_STEPS, FT_EVERY, FT_KEEP, FT_CRASH = 4, 2, 1, 3
+# The model families (phase 16). (a) Path consistency at full width in fp32,
+# cut in depth: arch -> (layers, prompt tokens, teacher-forced decode
+# steps); recurrentgemma's prompt passes its 2,048-token window, so its
+# ring wraps; mamba2's prompt is below its 256-token chunk and prompt +
+# steps a multiple of it (the reference's SSD length rule). Each reading
+# within FAMILY_TOL x max|logit| of the forward on the same tokens.
+FAMILY_CONSISTENCY = {
+    "llama3_2-3b": (2, 128, 4), "qwen2-1_5b": (2, 128, 4),
+    "olmo-1b": (2, 128, 4), "gemma-2b": (2, 128, 4),
+    "mamba2-1_3b": (2, 192, 64), "recurrentgemma-2b": (5, 2100, 4)}
+FAMILY_TOL = 1e-3
+# (b), (c): serving (phase 4's traffic) and FAMILY_TRAIN_STEPS training
+# steps of 1 x TRAIN_SEQ tokens at full width and depth, bf16.
+FAMILY_FULL = ("llama3_2-3b", "mamba2-1_3b", "recurrentgemma-2b")
+FAMILY_TRAIN_STEPS = 3
+# (d) dbrx-132b at full width cut from 40 layers to DBRX_LAYERS (132 B
+# parameters do not fit one card; 2 layers are ~15 GB), serving
+# DBRX_REQUESTS requests; (e) the same layers' training step.
+DBRX, DBRX_LAYERS, DBRX_REQUESTS = "dbrx-132b", 2, 8
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -596,9 +649,11 @@ def bwd_case(E, C, K, F, dtype, gen, timed):
     tol = TOL[dtype]
     err, ok = 0.0, True
     for g, p in zip(got, want):
-        e = (g - p).abs()
-        err = max(err, float(e.max()))
-        ok = ok and bool((e <= tol + tol * p.abs()).all())
+        for ge, pe in zip(g, p):        # an expert at a time: dbrx's fp32
+            e = (ge - pe).abs()         # dW is 8.5 GB
+            err = max(err, float(e.max()))
+            ok = ok and bool((e <= tol + tol * pe.abs()).all())
+    del want
     row = {"kernel": "gmm_swiglu_bwd", "E": E, "C": C, "K": K, "N": F,
            "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err,
            "tol": tol, "ok": ok,
@@ -618,20 +673,24 @@ def bwd_case(E, C, K, F, dtype, gen, timed):
         if not row["bf16_out_is_fp32_rounded"]:
             raise AssertionError(f"gmm_swiglu_bwd's bf16 outputs are not "
                                  f"its fp32 outputs rounded: {row}")
+    del got
     if timed:
         b_ms, b_by = bwd_bound(E, C, K, F, dtype)
         w_in = w4.view(E, K, 2 * F)
         dgu = torch.randn((E, C, 2 * F), generator=gen,
                           device="cuda").to(dtype)
+        # timed="device": fewer calls a graph (the EP shapes, where one call
+        # takes milliseconds and its fp32 outputs hundreds of MB).
+        it, pit = (10, 10) if timed is True else (3, 2)
         row.update(
             ms=cuda_ms(lambda: spec["fn"](x, w4, dout, out_dtype=dtype),
-                       10, 2),
-            fp32_out_ms=cuda_ms(lambda: spec["fn"](x, w4, dout), 10, 2),
-            plain_ms=cuda_ms(lambda: spec["plain"](x, w4, dout), 10, 1),
+                       it, 2),
+            fp32_out_ms=cuda_ms(lambda: spec["fn"](x, w4, dout), it, 2),
+            plain_ms=cuda_ms(lambda: spec["plain"](x, w4, dout), pit, 1),
             library_ms=None, bound_ms=b_ms, bound_by=b_by,
             gemm_only_ms=cuda_ms(lambda: (
                 torch.bmm(x, w_in), torch.bmm(dgu, w_in.transpose(1, 2)),
-                torch.bmm(x.transpose(1, 2), dgu)), 10, 2))
+                torch.bmm(x.transpose(1, 2), dgu)), it, 2))
     return row
 
 
@@ -788,6 +847,7 @@ def check_kernels(cfg):
         rows.append(r)
     rows.append(trainable_ffn_case(E, c_train, D, Fe, gen))
     rows += ep_kernel_rows(cfg, gen)
+    rows += dbrx_kernel_rows(gen)
     for dtype in (torch.bfloat16, torch.float32):
         for E_, C, K, F in ((2, 128, 64, 128), (3, 64, 96, 64),
                             (3, 27, 1536, 40), (3, 1, 1536, 18)):
@@ -812,7 +872,8 @@ def check_kernels(cfg):
             rows.append(kernel_case("gmm_swiglu", E_, C, K, F, dtype, gen,
                                     False))
     return rows, {"decode8": c_dec8, "decode4": c_dec4, "prefill": c_pre,
-                  "train": c_train, **ep_capacities(cfg)}
+                  "train": c_train, **ep_capacities(cfg),
+                  **dbrx_capacities()}
 
 
 def ep_capacities(cfg):
@@ -840,9 +901,9 @@ def ep_kernel_rows(cfg, gen):
                    ("ep_baseline", EP * caps["ep_train"])):
         for name, (K, N) in (("gmm_swiglu", (D, Fe)), ("gmm", (Fe, D))):
             r = kernel_case(name, e_loc, C, K, N, torch.bfloat16, gen,
-                            timed=False, repeat=True)
+                            timed="device", repeat=True)
             rows.append(dict(r, shape=tag))
-        r = bwd_case(e_loc, C, D, Fe, torch.bfloat16, gen, timed=False)
+        r = bwd_case(e_loc, C, D, Fe, torch.bfloat16, gen, timed="device")
         if r["body"] != "tensor_cores":
             raise AssertionError(f"EP gmm_swiglu_bwd ran the FMA body: {r}")
         rows.append(dict(r, shape=tag))
@@ -855,8 +916,52 @@ def ep_kernel_rows(cfg, gen):
                             timed="device")
             rows.append(dict(r, shape=tag))
             torch.cuda.empty_cache()
-    r = bwd_case(pe, caps["paper"], pd, pf, torch.bfloat16, gen, False)
+    r = bwd_case(pe, caps["paper"], pd, pf, torch.bfloat16, gen, "device")
+    if r["body"] != "tensor_cores":
+        raise AssertionError(f"EP gmm_swiglu_bwd ran the FMA body: {r}")
     rows.append(dict(r, shape="paper_ring"))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def dbrx_capacities():
+    """dbrx-132b's expert capacity in phase 16: a decode step of the
+    8-slot batch, a PROMPT_LEN-token prefill, and a training step of
+    TRAIN_BATCH x TRAIN_SEQ tokens."""
+    mc = get_config(DBRX).moe
+    return {"dbrx_decode8": capacity(SLOTS, mc),
+            "dbrx_prefill": capacity(PROMPT_LEN, mc),
+            "dbrx_train": capacity(TRAIN_BATCH * TRAIN_SEQ, mc)}
+
+
+def dbrx_kernel_rows(gen):
+    """Phase 16 (d) and (e), run in phase 3: the kernels at dbrx-132b's
+    widths (E = 16, K = 6144, F = 10752; a 4.2 GB w_in), each against its
+    plain version, twice and bit-equal, and timed by device time beside
+    its bound and, for gmm, ``torch.bmm``: the forward kernels at the
+    serving and training capacities, gmm as the two calls of GMM2's
+    backward (the views ``check_kernels`` names), and the backward kernel
+    at the training capacity."""
+    cfg = get_config(DBRX)
+    E, D, Fe = cfg.moe.e_total, cfg.d_model, cfg.moe.d_expert
+    caps = dbrx_capacities()
+    C = caps["dbrx_train"]
+    calls = [(tag, name, caps[tag], K, N, (0, 0))
+             for tag in caps
+             for name, (K, N) in (("gmm_swiglu", (D, Fe)),
+                                  ("gmm", (Fe, D)))]
+    calls += [("dbrx_train_bwd_dx", "gmm", C, D, Fe, (0, 1)),
+              ("dbrx_train_bwd_dw", "gmm", Fe, C, D, (1, 0))]
+    rows = []
+    for tag, name, C_, K, N, lay in calls:
+        r = kernel_case(name, E, C_, K, N, torch.bfloat16, gen,
+                        timed="device", repeat=True, layouts=lay)
+        rows.append(dict(r, shape=tag))
+        torch.cuda.empty_cache()
+    r = bwd_case(E, C, D, Fe, torch.bfloat16, gen, timed="device")
+    if r["body"] != "tensor_cores":
+        raise AssertionError(f"dbrx's gmm_swiglu_bwd ran the FMA body: {r}")
+    rows.append(dict(r, shape="dbrx_train"))
     torch.cuda.empty_cache()
     return rows
 
@@ -2133,6 +2238,258 @@ def run_ft(cfg):
     return out, {"ft": train_launches, "ft_harness": harness_launches}
 
 
+def _free(dev="cuda") -> None:
+    """Release the cached blocks of the arch just run, so that the next
+    arch's peak is its own."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak(dev="cuda"):
+    return (torch.cuda.max_memory_allocated()
+            if torch.device(dev).type == "cuda" else None)
+
+
+def family_consistency_case(arch, n_layers, prompt, steps, dev="cuda",
+                            cfg=None):
+    """Phase 16 (a): ``arch`` (or ``cfg``) at full width, cut to
+    ``n_layers``, fp32: the prefill's last logits and ``steps``
+    teacher-forced decode steps against the forward on the same prompt +
+    steps tokens."""
+    cfg = dataclasses.replace(cfg or get_config(arch), n_layers=n_layers,
+                              dtype="float32")
+    params = M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    S = prompt + steps
+    toks = torch.as_tensor(
+        np.random.default_rng(0).integers(0, cfg.vocab, (1, S)), device=dev)
+    with torch.inference_mode():
+        full = M.forward(cfg, params, {"tokens": toks})[0]
+        last, cache = M.prefill(cfg, params, {"tokens": toks[:, :prompt]},
+                                max_len=S)
+        errs = [float((last[0] - full[prompt - 1]).abs().max())]
+        for t in range(prompt, S):
+            lg, cache = M.decode_step(cfg, params, toks[:, t:t + 1], cache)
+            errs.append(float((lg[0, 0] - full[t]).abs().max()))
+    scale = float(full[prompt - 1:].abs().max())
+    out = {"arch": arch, "n_layers": n_layers, "dtype": "float32",
+           "prompt": prompt, "decode_steps": steps,
+           "prefill_max_abs_err": errs[0],
+           "decode_max_abs_err": max(errs[1:]), "logit_max_abs": scale,
+           "tol": FAMILY_TOL, "limit": FAMILY_TOL * scale}
+    if cfg.family == "hybrid":
+        ring = cache["super"][-1][0]
+        out["ring_slots"] = ring["k"].shape[1]
+        out["ring_tokens"] = int(ring["len"])
+        if not out["ring_tokens"] > out["ring_slots"] == cfg.sliding_window:
+            raise AssertionError(f"the window cache did not wrap: {out}")
+    finite = bool(torch.isfinite(full).all())
+    del params, cache, full
+    if not finite or max(errs) > FAMILY_TOL * scale:
+        raise AssertionError(f"{arch}: prefill and decode disagree with "
+                             f"the forward: {out}")
+    return out
+
+
+def family_serve_case(arch, dev="cuda", cfg=None, requests=REQUESTS,
+                      prompt_len=PROMPT_LEN):
+    """Phase 16 (b): ``arch`` (or ``cfg``) at full width and depth, bf16,
+    serving phase 4's traffic through ``launch.serve.serve``. No kernel of
+    the port is on this path (the matmuls are cuBLAS, as the reference's
+    are plain XLA)."""
+    cfg = cfg or get_config(arch)
+    _free(dev)
+    params = M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, cfg.vocab, prompt_len)
+               for i in range(requests)}
+    reset_launches()
+    with torch.inference_mode():
+        b, stats = serve_mod.serve(cfg, params, prompts, n_slots=SLOTS,
+                                   max_new=MAX_NEW, device=dev)
+    launches = read_launches()
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "params": cfg.param_count(), "launches": launches,
+           "max_memory_allocated_bytes": _peak(dev),
+           **{k: stats[k] for k in (
+               "requests", "tokens", "wall_s", "tokens_per_s", "prefills",
+               "decode_steps", "prefill_ms_median", "decode_step_ms_median",
+               "nonfinite_steps")}}
+    ok = (stats["requests"] == requests
+          and all(len(b.generated[r]) == MAX_NEW for r in prompts)
+          and not stats["nonfinite_steps"] and not any(launches.values()))
+    del b, params
+    if not ok:
+        raise AssertionError(f"{arch} serving failed its gates: {out}")
+    return out
+
+
+def family_train_case(arch, dev="cuda", argv=()):
+    """Phase 16 (c): ``launch.train.main --arch`` at full width and depth,
+    FAMILY_TRAIN_STEPS steps of 1 x TRAIN_SEQ tokens (the first warm-up);
+    ``argv`` is appended (the CPU test's ``--smoke``, ``--seq``). The arch
+    has no MoE layer, so no kernel of the port may launch."""
+    _free(dev)
+    reset_launches()
+    run = train_mod.main(["--arch", arch, "--seq", str(TRAIN_SEQ),
+                          "--global-batch", str(TRAIN_BATCH),
+                          "--steps", str(FAMILY_TRAIN_STEPS),
+                          "--device", str(dev), *argv])
+    launches = read_launches()
+    log = run.metrics_log
+    step_ms = [m["step_ms"] for m in log]
+    seq = TRAIN_SEQ if "--seq" not in argv else int(
+        argv[list(argv).index("--seq") + 1])
+    out = {"arch": arch, "params": get_config(arch).param_count(),
+           "seq": seq, "losses": [m["loss"] for m in log],
+           "grad_norms": [m["grad_norm"] for m in log], "step_ms": step_ms,
+           "step_ms_median_after_warmup": statistics.median(step_ms[1:]),
+           "tokens_per_s": TRAIN_BATCH * seq
+           / (statistics.median(step_ms[1:]) / 1e3),
+           "launches": launches, "max_memory_allocated_bytes": _peak(dev)}
+    del run
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        raise AssertionError(f"{arch}: non-finite training metrics: {out}")
+    if any(launches.values()):
+        raise AssertionError(f"{arch} has no MoE layer, yet its training "
+                             f"launched a kernel: {out}")
+    return out
+
+
+def dbrx_case(dev="cuda", cfg=None, prompt_len=PROMPT_LEN):
+    """Phase 16 (d): dbrx-132b (or ``cfg``) at full width cut to
+    DBRX_LAYERS layers, bf16: one ``prompt_len``-token prefill through the
+    kernels against the plain expert FFN, then DBRX_REQUESTS requests
+    served. Returns the line and the serving launches."""
+    cfg = dataclasses.replace(cfg or get_config(DBRX), n_layers=DBRX_LAYERS)
+    _free(dev)
+    params = M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    prompts = {i: rng.integers(0, cfg.vocab, prompt_len)
+               for i in range(DBRX_REQUESTS)}
+    toks = torch.as_tensor(prompts[0][None, :], device=dev)
+    max_len = prompt_len + MAX_NEW + 1
+    with torch.inference_mode():
+        lk, _ = M.prefill(cfg, params, {"tokens": toks}, max_len)
+        lp, _ = M.prefill(cfg, params, {"tokens": toks}, max_len,
+                          moe_impl=plain_moe_impl(cfg))
+    lk, lp = lk.float(), lp.float()
+    err, scale = float((lk - lp).abs().max()), float(lp.abs().max())
+    finite = bool(torch.isfinite(lk).all() and torch.isfinite(lp).all())
+    _free(dev)
+    reset_launches()
+    with torch.inference_mode():
+        b, stats = serve_mod.serve(cfg, params, prompts, n_slots=SLOTS,
+                                   max_new=MAX_NEW, device=dev)
+    launches = read_launches()
+    want = cfg.n_layers * (stats["prefills"] + stats["decode_steps"])
+    out = {"arch": DBRX, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "params": cfg.param_count(),
+           "full_depth_params": get_config(DBRX).param_count(),
+           "logit_max_abs_err": err, "logit_max_abs": scale,
+           "logit_tol": LOGIT_TOL, "top1_agree": bool(
+               lk.argmax() == lp.argmax()),
+           "launches": launches, "expected_launches": want,
+           "max_memory_allocated_bytes": _peak(dev),
+           **{k: stats[k] for k in (
+               "requests", "tokens", "prefills", "decode_steps",
+               "prefill_ms_median", "decode_step_ms_median", "tokens_per_s",
+               "nonfinite_steps")}}
+    ok = (finite and err <= LOGIT_TOL * scale
+          and stats["requests"] == DBRX_REQUESTS
+          and all(len(b.generated[r]) == MAX_NEW for r in prompts)
+          and not stats["nonfinite_steps"]
+          and launches == dict({k: 0 for k in COUNTERS}, gmm_swiglu=want,
+                               gmm=want))
+    del b, params
+    if not ok:
+        raise AssertionError(f"dbrx-132b failed its gates: {out}")
+    return out, launches
+
+
+def dbrx_train_case(dev="cuda", cfg=None, seq=TRAIN_SEQ):
+    """Phase 16 (e): dbrx-132b's (or ``cfg``'s) training step at full width
+    cut to DBRX_LAYERS layers, bf16, on one 1 x ``seq`` batch: the loss
+    and every grad (``steps.value_and_grad``, the step without its AdamW
+    update) through the kernels, with each launch count equal to
+    TRAIN_LAUNCHES x the layers and every backward on the tensor cores,
+    and through the plain expert FFN, held to each other as phase 5 holds
+    granite's (LOSS_TOL, GNORM_TOL). The update launches no kernel, and
+    its fp32 moments and masters (12 bytes a parameter, on top of the
+    bf16 weights and grads) would not fit one card even at 2 layers.
+    Returns the line and the launches."""
+    cfg = dataclasses.replace(cfg or get_config(DBRX), n_layers=DBRX_LAYERS)
+    _free(dev)
+    params = adamw.cast_params(M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        cfg.compute_dtype)
+    stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                        global_batch=TRAIN_BATCH))
+    batch = stream.batch(0, dev)
+
+    def loss_and_norms(moe_impl=None):
+        loss, grads = steps_mod.value_and_grad(cfg, params, batch,
+                                               moe_impl=moe_impl)
+        norms = [float(g.float().norm()) for g in adamw.tree_leaves(grads)]
+        return float(loss), norms
+
+    reset_launches()
+    t = time.perf_counter()
+    lk, nk = loss_and_norms()
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+    step_s = time.perf_counter() - t
+    launches, bwd_tc = read_launches(), bwd_mod.launches_tc
+    peak = _peak(dev)
+    lp, np_ = loss_and_norms(plain_train_impl(cfg))
+    want = {k: cfg.n_layers * n for k, n in TRAIN_LAUNCHES.items()}
+    gaps = [abs(a - b) / max(b, 1e-30) for a, b in zip(nk, np_)]
+    out = {"arch": DBRX, "n_layers": cfg.n_layers, "dtype": cfg.dtype,
+           "tokens": TRAIN_BATCH * seq,
+           "capacity": capacity(TRAIN_BATCH * seq, cfg.moe),
+           "loss_kernels": lk, "loss_plain": lp,
+           "loss_rel_gap": abs(lk - lp) / abs(lp), "loss_tol": LOSS_TOL,
+           "grad_leaves": len(gaps), "grad_norm_rel_gap_max": max(gaps),
+           "grad_norm_tol": GNORM_TOL, "value_and_grad_s": step_s,
+           "launches": launches, "expected_launches": want,
+           "gmm_swiglu_bwd_tensor_core_launches": bwd_tc,
+           "max_memory_allocated_bytes": peak}
+    del params, batch
+    ok = (math.isfinite(lk) and math.isfinite(lp)
+          and all(math.isfinite(n) for n in nk + np_)
+          and out["loss_rel_gap"] <= LOSS_TOL and max(gaps) <= GNORM_TOL
+          and launches == want and bwd_tc == want["gmm_swiglu_bwd"])
+    if not ok:
+        raise AssertionError(f"dbrx-132b's training step failed its "
+                             f"gates: {out}")
+    return out, launches
+
+
+def run_families():
+    """Phase 16. Returns the phase's line and the launches of paths
+    families (dbrx's serving) and families_train (dbrx's training step);
+    the other families launch no kernel."""
+    t = time.perf_counter()
+    consistency = []
+    for arch, (n_layers, prompt, steps) in FAMILY_CONSISTENCY.items():
+        _free()
+        consistency.append(family_consistency_case(arch, n_layers, prompt,
+                                                   steps))
+    serving = [family_serve_case(arch) for arch in FAMILY_FULL]
+    training = [family_train_case(arch) for arch in FAMILY_FULL]
+    dbrx_out, launches = dbrx_case()
+    dbrx_train, train_launches = dbrx_train_case()
+    _free()
+    return ({"phase": "families", "consistency": consistency,
+             "serving": serving, "training": training, "dbrx": dbrx_out,
+             "dbrx_train": dbrx_train, "seconds": time.perf_counter() - t},
+            {"families": launches, "families_train": train_launches})
+
+
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
     """The ``kernels`` line's entry of a swiglu_add mode: timed at the
     paper's largest size in bf16 (M = 32768), with every size beside it."""
@@ -2229,6 +2586,9 @@ def main() -> int:
     ft_out, ft_launches = run_ft(cfg)
     emit(ft_out)
     path_launches.update(ft_launches)
+    families_out, families_launches = run_families()
+    emit(families_out)
+    path_launches.update(families_launches)
 
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2260,11 +2620,14 @@ def main() -> int:
             "train_shape": {k: t[k] for k in (
                 "C", "K", "N", *timing, "eager_ms", "host_us", "gemm_only_ms",
                 "fp32_out_ms", "body") if k in t}})
-        kernels[-1]["ep_shapes"] = [
-            {k: x[k] for k in ("shape", "E", "C", "K", "N", *timing,
-                               "gemm_only_ms") if k in x}
-            for x in rows if x["kernel"] == name
-            and x.get("shape", "").startswith(("ep_", "paper_"))]
+        for key, tags in (("ep_shapes", ("ep_", "paper_")),
+                          ("dbrx_shapes", ("dbrx_",))):
+            kernels[-1][key] = [
+                {k: x[k] for k in ("shape", "E", "C", "K", "N", *timing,
+                                   "gemm_only_ms", "fp32_out_ms")
+                 if k in x}
+                for x in rows if x["kernel"] == name
+                and x.get("shape", "").startswith(tags)]
         if name == "gmm":          # the dropless tiles' calls, fp32, E = 1
             kernels[-1]["fp32_tiled_body"] = {
                 "source": "src/repro_torch/kernels/csrc/gmm_fp32.cuh",

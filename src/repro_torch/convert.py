@@ -3,12 +3,16 @@
 ``params_from_numpy`` takes the JAX params tree with its leaves as numpy
 arrays (``jax.tree.map(np.asarray, params)``, so this module needs no JAX) and
 returns the port's params: the stacked ``[L, ...]`` block leaves become one
-dict per layer.
+dict per layer. A hybrid tree keeps its shape: ``super``, a tuple over the
+pattern's positions of stacked ``[n_super, ...]`` trees, becomes a tuple of
+per-super-block lists of dicts; ``tail``, already one dict per layer, stays a
+list of dicts.
 
 The JAX package keeps fp32 masters and casts them to the compute dtype at
 every use (``model.py:149``, ``moe.py:50``). The port stores the matrices in
-the compute dtype once, which gives the same values at every use. The router
-and the norm scales stay fp32, as the JAX code reads them in fp32.
+the compute dtype once, which gives the same values at every use. The router,
+the norm scales, ssm's ``A_log`` and ``dt_bias`` and rglru's gates and Λ stay
+fp32, as the JAX code reads them in fp32.
 
 Training casts every float leaf to the compute dtype (``adamw.cast_params``
 in the JAX launcher): ``train_params_from_numpy`` does the same, and
@@ -29,7 +33,11 @@ import torch
 from .checkpoint import ckpt as CK
 from .device import resolve_device
 
-_FP32_LEAVES = ("router",)
+_FP32_LEAVES = ("router", "A_log", "dt_bias", "gate_a", "gate_a_b",
+                "gate_x", "gate_x_b", "lam")
+# The layer trees: stacked over layers (``blocks``), per pattern position
+# stacked over super-blocks (``super``), or unstacked (``tail``).
+_LAYERS = ("blocks", "super", "tail")
 
 
 def _keeps_fp32(name: str) -> bool:
@@ -49,10 +57,18 @@ def _convert(tree, dtype_of, device, index=None):
 
 def _unstack(np_params: dict, cfg, dtype_of, device) -> dict:
     dev = resolve_device(device)
-    top = {k: v for k, v in np_params.items() if k != "blocks"}
+    top = {k: v for k, v in np_params.items() if k not in _LAYERS}
     params = _convert(top, dtype_of, dev)
-    params["blocks"] = [_convert(np_params["blocks"], dtype_of, dev, i)
-                        for i in range(cfg.n_layers)]
+    if "blocks" in np_params:
+        params["blocks"] = [_convert(np_params["blocks"], dtype_of, dev, i)
+                            for i in range(cfg.n_layers)]
+    if "super" in np_params:
+        n_super = cfg.n_layers // len(cfg.hybrid_pattern)
+        params["super"] = tuple(
+            [_convert(pos, dtype_of, dev, g) for g in range(n_super)]
+            for pos in np_params["super"])
+        params["tail"] = [_convert(t, dtype_of, dev)
+                          for t in np_params["tail"]]
     return params
 
 
@@ -83,16 +99,27 @@ def opt_state_from_numpy(np_state: dict, cfg, device) -> dict:
     return out
 
 
-def _to_jax(tree: dict, stack) -> dict:
-    """The JAX package's tree of a port params-like ``tree``: the list of
-    per-layer ``blocks`` dicts becomes one dict of ``stack(parts)``
-    leaves."""
+def _to_jax(tree: dict, stack, leaf=lambda t: t) -> dict:
+    """The JAX package's tree of a port params-like ``tree``: each list of
+    per-layer dicts that JAX stacks (``blocks``, each position of
+    ``super``) becomes one dict of ``stack(parts)`` leaves; every other
+    tensor becomes ``leaf(tensor)``."""
     def blocks(parts: list):
         if isinstance(parts[0], dict):
             return {k: blocks([p[k] for p in parts]) for k in parts[0]}
         return stack(parts)
-    out = {k: v for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = blocks(tree["blocks"])
+
+    def each(t):
+        if isinstance(t, dict):
+            return {k: each(v) for k, v in t.items()}
+        return leaf(t)
+
+    out = {k: each(v) for k, v in tree.items() if k not in _LAYERS}
+    if "blocks" in tree:
+        out["blocks"] = blocks(tree["blocks"])
+    if "super" in tree:
+        out["super"] = tuple(blocks(pos) for pos in tree["super"])
+        out["tail"] = [each(t) for t in tree["tail"]]
     return out
 
 
@@ -102,10 +129,9 @@ def _host_stack(parts: list) -> torch.Tensor:
 
 def train_params_to_jax(params: dict) -> dict:
     """The port's params → the JAX package's tree: the per-layer block dicts
-    stacked into ``[L, ...]`` leaves, every leaf a host tensor in its own
-    dtype."""
-    return {k: v.detach().cpu() if isinstance(v, torch.Tensor) else v
-            for k, v in _to_jax(params, _host_stack).items()}
+    stacked into ``[L, ...]`` leaves (a hybrid's ``super`` positions into
+    ``[n_super, ...]``), every leaf a host tensor in its own dtype."""
+    return _to_jax(params, _host_stack, lambda t: t.detach().cpu())
 
 
 def opt_state_to_jax(state: dict) -> dict:

@@ -1,24 +1,27 @@
 """Where a serving decode step's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve [--online-refit]
+    PYTHONPATH=src python -m repro_torch.launch.profile_serve \
+        --arch recurrentgemma-2b
 
-Serves granite-moe-3b-a800m at full width and depth with the shapes of
-``chip_smoke.py``: every one of 8 slots holds a prefilled 128-token request.
-It times ``WARMUP`` decode steps on the host clock, unprofiled, then traces
-``STEPS`` decode steps with ``torch.profiler`` and prints one JSON line: the
-unprofiled and the profiled host ms per step, the device's busy ms per step
-(the sum of kernel times; the port runs on one stream, so kernels do not
-overlap), the host-only ms (the unprofiled step less the busy time) and the
-idle share of the unprofiled step, the kernel launches per step, the device
-ms per step of the port's own CUDA kernels by namespace
-(``profile_train.OWN``), and the kernels with the most device time.
+Serves ``--arch`` (default granite-moe-3b-a800m) at full width and depth
+with the shapes of ``chip_smoke.py``: every one of 8 slots holds a prefilled
+128-token request. It times ``WARMUP`` decode steps on the host clock,
+unprofiled, then traces ``STEPS`` decode steps with ``torch.profiler`` and
+prints one JSON line: the unprofiled and the profiled host ms per step, the
+device's busy ms per step (the sum of kernel times; the port runs on one
+stream, so kernels do not overlap), the host-only ms (the unprofiled step
+less the busy time) and the idle share of the unprofiled step, the kernel
+launches per step, the device ms per step of the port's own CUDA kernels by
+namespace (``profile_train.OWN``), and the kernels with the most device
+time.
 
 ``--online-refit`` serves the MoE layers as ``serve --online-refit`` does:
 the dropless fragment at ep = 4 under an ``OnlineTuner`` seeded with the
-ladder fitted on the decode population. The line then also gives, per
-decode step over the unprofiled steps, ``gmm`` launches by body (the fp32
-small-row and tiled bodies), SSC hits and misses (a miss is a compile),
-and the tuner's refits and swaps. Needs a CUDA device.
+ladder fitted on the decode population (MoE archs only). The line then also
+gives, per decode step over the unprofiled steps, ``gmm`` launches by body
+(the fp32 small-row and tiled bodies), SSC hits and misses (a miss is a
+compile), and the tuner's refits and swaps. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -61,12 +64,15 @@ def _counters(online) -> dict:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=ARCH)
     ap.add_argument("--online-refit", action="store_true",
                     help="serve the MoE layers through the online-tuned "
                          "dropless fragment")
     args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.online_refit and cfg.family != "moe":
+        ap.error(f"--online-refit needs a MoE arch, not {args.arch!r}")
     dev = resolve_device("cuda")
-    cfg = get_config(ARCH)
     params = M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                            device=dev)
     online = None

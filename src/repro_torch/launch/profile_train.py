@@ -3,25 +3,27 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train [--dropless]
     PYTHONPATH=src python -m repro_torch.launch.profile_train --mesh 1x4 \
         --ep-mode hyperparallel
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --arch mamba2-1.3b
 
-Trains granite-moe-3b-a800m at full width and depth with the shapes of
-``chip_smoke.py``'s training phase: batches of 1 x 4096 tokens from
-``SyntheticStream``, bf16, per-layer remat, AdamW. It runs ``WARMUP`` steps,
-times ``STEPS`` more on the host clock, unprofiled, then traces ``STEPS``
-steps with ``torch.profiler`` and prints one JSON line: the unprofiled and
-the profiled host ms per step, the device's busy ms per step (the sum of
-kernel times; the port runs on one stream, so kernels do not overlap), the
-idle share of the unprofiled step, the kernel launches per step, the device
-ms per step of the port's own CUDA kernels by namespace (``OWN``: the
-tensor-core body of ``gmm_swiglu`` and ``gmm``, their FMA body, ``gmm``'s
-fp32 tiled and small-row bodies, the tensor-core and FMA bodies of
-``gmm_swiglu_bwd``, ``swiglu_add``) against all
-other kernels, each of the port's own kernels by name, and the ``TOP``
-kernels with the most device time. ``--dropless`` trains the MoE through
-the dropless tile taskflow (``launch.dropless``, its default config), as
-``launch.train --dropless`` does. ``--mesh DxM`` runs the MoE
-expert-parallel over the mesh's model axis of virtual ranks (``--ep-mode``,
-capacity factor 4.0), as ``launch.train --mesh`` does. Needs a CUDA device.
+Trains ``--arch`` (default granite-moe-3b-a800m) at full width and depth
+with the shapes of ``chip_smoke.py``'s training phase: batches of 1 x 4096
+tokens from ``SyntheticStream``, bf16, per-layer remat, AdamW. It runs
+``WARMUP`` steps, times ``STEPS`` more on the host clock, unprofiled, then
+traces ``STEPS`` steps with ``torch.profiler`` and prints one JSON line: the
+unprofiled and the profiled host ms per step, the device's busy ms per step
+(the sum of kernel times; the port runs on one stream, so kernels do not
+overlap), the idle share of the unprofiled step, the kernel launches per
+step, the device ms per step of the port's own CUDA kernels by namespace
+(``OWN``: the tensor-core body of ``gmm_swiglu`` and ``gmm``, their FMA
+body, ``gmm``'s fp32 tiled and small-row bodies, the tensor-core and FMA
+bodies of ``gmm_swiglu_bwd``, ``swiglu_add``) against all other kernels,
+each of the port's own kernels by name, and the ``TOP`` kernels with the
+most device time. ``--dropless`` trains the MoE through the dropless tile
+taskflow (``launch.dropless``, its default config), as ``launch.train
+--dropless`` does. ``--mesh DxM`` runs the MoE expert-parallel over the
+mesh's model axis of virtual ranks (``--ep-mode``, capacity factor 4.0), as
+``launch.train --mesh`` does; both need a MoE arch. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ def _device_us(evt) -> float:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=ARCH)
     ap.add_argument("--dropless", action="store_true",
                     help="the MoE through the dropless tile taskflow")
     ap.add_argument("--mesh", default=None, metavar="DxM",
@@ -71,8 +74,10 @@ def main(argv=None):
     ap.add_argument("--ep-mode", default="hyperparallel",
                     choices=["hyperparallel", "baseline"])
     args = ap.parse_args(argv)
+    cfg = get_config(args.arch)
+    if (args.dropless or args.mesh) and cfg.family != "moe":
+        ap.error(f"--dropless and --mesh need a MoE arch, not {args.arch!r}")
     dev = resolve_device("cuda")
-    cfg = get_config(ARCH)
     mesh = ep = None
     if args.mesh:
         mesh = make_mesh(mesh_dims(args.mesh), dev)

@@ -180,11 +180,22 @@ class ContinuousBatcher:
             self.nonfinite_steps += 1
 
     def _scatter_slot(self, slot: int, cache1):
-        """Write a batch-1 prefill cache (scalar ``len``) into ``slot``."""
-        for c, c1 in zip(self.cache, cache1):
-            c["k"][slot] = c1["k"][0]
-            c["v"][slot] = c1["v"][0]
-            c["len"][slot] = c1["len"]
+        """Write a batch-1 prefill cache into ``slot``: every leaf (keys and
+        values, full or ring; conv, ssm and recurrent states) row 0 into
+        row ``slot``, and the scalar ``len`` into the per-slot lengths."""
+        def scatter(c, c1):
+            if isinstance(c, dict):
+                for k in c:
+                    if k == "len":
+                        c[k][slot] = c1[k]
+                    else:
+                        scatter(c[k], c1[k])
+            elif isinstance(c, (list, tuple)):
+                for a, b in zip(c, c1):
+                    scatter(a, b)
+            else:
+                c[slot] = c1[0]
+        scatter(self.cache, cache1)
 
     def _predict_step_us(self, n_active: int) -> float:
         """Predicted decode-step µs at ``n_active`` busy slots."""

@@ -6,6 +6,13 @@ On the card (the default), granite-moe-3b-a800m at full width and depth on
         --global-batch 1 --steps 4
 On the CPU, at the smoke size:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
+``--arch`` takes every arch of ``repro_torch.configs.ARCHS``: the dense
+(llama3_2-3b, qwen2-1_5b, olmo-1b, gemma-2b), ssm (mamba2-1_3b) and hybrid
+(recurrentgemma-2b) families as well as the MoE ones. For an arch without
+MoE layers ``--dropless`` is ignored and ``--sched`` is a usage error, as in
+the JAX launcher:
+    PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
+        --smoke --device cpu --steps 3
 ``--dropless`` trains the MoE through each batch's compiled tile taskflow
 (``launch.dropless``; ``--dropless-ep``, ``--dropless-bucket`` and
 ``--sched`` as in the JAX launcher):
@@ -150,6 +157,8 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
             ap.error(str(e))
     elif args.mode or args.ep_mode:
         ap.error("--mode and --ep-mode need --mesh")
+    from ..configs import get_config, get_smoke_config
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     kw = {}
     if args.sched is not None:
         # Validate eagerly: an unknown pass name fails fast, and a --sched
@@ -161,8 +170,13 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
         if not args.dropless:
             ap.error("--sched only applies to the dropless scheduling path; "
                      "add --dropless")
+        if cfg.family != "moe":
+            ap.error(f"--sched requires a MoE arch (got {args.arch!r}: "
+                     f"family={cfg.family!r})")
     dropless = None
-    if args.dropless:
+    # As in the JAX launcher, --dropless is ignored for an arch without
+    # MoE layers.
+    if args.dropless and cfg.family == "moe":
         try:
             bucket = BucketSpec.parse(args.dropless_bucket)
         except ValueError as e:
@@ -174,9 +188,7 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
         if kw:
             print(f"dropless schedule pipeline: {dropless.pipeline!r}")
 
-    from ..configs import get_config, get_smoke_config
     dev = resolve_device(args.device)
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     oc = adamw.OptConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),
                          total_steps=args.steps)
     mesh = None

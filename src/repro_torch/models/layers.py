@@ -8,8 +8,8 @@ Plain functions over explicit parameter dicts, as in the JAX package:
 * attention over a prompt is computed blockwise over KV (online softmax), so
   the full ``S×S`` score matrix never materializes.
 
-Only what the serving slice runs is here; the sliding-window, ring-buffer and
-flash-decode attention branches raise until their slice.
+Sliding-window layers keep a ring-buffer cache of W slots (``attention``),
+as the JAX functions do.
 """
 
 from __future__ import annotations
@@ -157,12 +157,13 @@ def blockwise_attention(q, k, v, *, causal: bool, q_offset,
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, *,
+                     sliding_window: int = 0,
                      scale: Optional[float] = None):
     """Single-token attention against a KV cache.
 
     q: [B, 1, H, hd]; caches: [B, S, K, hd]; ``cache_len`` a scalar or [B]
-    tensor of valid positions. Query head h reads kv head h // (H/K). The
-    JAX function's ``sliding_window`` arrives with the window caches.
+    tensor of valid positions. Query head h reads kv head h // (H/K).
+    ``sliding_window`` masks keys older than the window.
     """
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
@@ -175,6 +176,8 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
     if lens.dim() == 0:                                       # uniform batch
         lens = lens.expand(B)
     mask = pos[None, :] < lens[:, None]                       # [B, S]
+    if sliding_window:
+        mask &= pos[None, :] >= lens[:, None] - sliding_window
     s = torch.where(mask[:, None, None, None, :], s, -1e30)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype), v_cache)
@@ -253,23 +256,24 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
 
     new_cache = None
     if cache is not None:
-        if sliding_window:
-            raise NotImplementedError(
-                "sliding-window and ring-buffer caches come with the port's "
-                "slice of the other model families")
         kc, vc, lens = cache["k"], cache["v"], cache["len"]
         W = kc.shape[1]
+        # A window cache no larger than the window is a ring buffer: token
+        # p lives in slot p % W.
+        ring = bool(sliding_window) and W <= sliding_window
         res = None
-        if S == 1 and flash_decode is not None and lens.dim() == 0:
+        if (S == 1 and flash_decode is not None and lens.dim() == 0
+                and not sliding_window):
             res = flash_decode(q, kc, vc, k, v, lens)
         if res is not None:
             o, kc, vc = res
             new_cache = {"k": kc, "v": vc, "len": lens + 1}
         elif S == 1:
-            # Decode: write this token's K/V at each slot's length. As with
-            # the JAX dynamic_update_slice, the index is clamped to the
-            # cache (slots that decode while idle run past max_len).
-            idx = torch.clamp(lens, max=W - 1)
+            # Decode: write this token's K/V at each slot's length, wrapped
+            # on a ring. Elsewhere, as with the JAX dynamic_update_slice,
+            # the index is clamped to the cache (slots that decode while
+            # idle run past max_len).
+            idx = lens % W if ring else torch.clamp(lens, max=W - 1)
             if lens.dim() == 0:
                 kc[:, idx] = k[:, 0]
                 vc[:, idx] = v[:, 0]
@@ -278,17 +282,28 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
                 kc[rows, idx] = k[:, 0]
                 vc[rows, idx] = v[:, 0]
             new_cache = {"k": kc, "v": vc, "len": lens + 1}
-            o = decode_attention(q, kc, vc, lens + 1)
+            if ring:
+                # Slot i holds the newest token at a position ≡ i (mod W),
+                # so every written slot is inside the window: only slots
+                # not yet written are masked (the JAX package's
+                # _ring_decode_attention).
+                o = decode_attention(q, kc, vc, torch.clamp(lens + 1, max=W))
+            else:
+                o = decode_attention(q, kc, vc, lens + 1,
+                                     sliding_window=sliding_window)
         else:
-            # Prefill into an empty cache.
+            # Prefill into an empty cache. A cache smaller than the prompt
+            # keeps the last W keys at their ring slots: element j of the
+            # last-W slice holds position S-W+j, slot (j + S) % W.
             if W < S:
-                raise NotImplementedError(
-                    f"prompt of {S} tokens exceeds the {W}-slot cache; "
-                    f"ring-buffer caches come with a later slice")
-            kc[:, :S] = k
-            vc[:, :S] = v
+                kc.copy_(torch.roll(k[:, -W:], S % W, dims=1))
+                vc.copy_(torch.roll(v[:, -W:], S % W, dims=1))
+            else:
+                kc[:, :S] = k
+                vc[:, :S] = v
             new_cache = {"k": kc, "v": vc, "len": lens + S}
             o = blockwise_attention(q, k, v, causal=causal, q_offset=0,
+                                    sliding_window=sliding_window,
                                     block=block)
     else:
         o = blockwise_attention(q, k, v, causal=causal, q_offset=0,
@@ -299,8 +314,22 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
 
 
 # ---------------------------------------------------------------------------
-# GLU activations
+# MLP (SwiGLU / GeGLU fused-gate, or plain GELU)
 # ---------------------------------------------------------------------------
+
+
+def init_mlp(gen: torch.Generator, d_model, d_ff, act, dtype=torch.float32):
+    """Weights drawn in fp32 from ``gen`` on its device, kept in ``dtype``:
+    ``w_in`` [d, 2F] for a gated activation ([d, F] for gelu), ``w_down``
+    [F, d]."""
+    cols = 2 * d_ff if act in ("swiglu", "geglu") else d_ff
+
+    def normal(shape, std):
+        w = torch.randn(shape, generator=gen, device=gen.device) * std
+        return w.to(dtype)
+
+    return {"w_in": normal((d_model, cols), d_model ** -0.5),
+            "w_down": normal((d_ff, d_model), d_ff ** -0.5)}
 
 
 def glu_act(h, act: str):
@@ -311,3 +340,15 @@ def glu_act(h, act: str):
     if act == "geglu":
         return F.gelu(a, approximate="tanh") * b
     raise ValueError(act)
+
+
+def mlp(p, x, act: str):
+    """The dense FFN: x·w_in → GLU (or tanh-approximated GELU) → ·w_down,
+    plain ``torch.matmul`` in x's dtype."""
+    dt = x.dtype
+    h = x @ p["w_in"].to(dt)
+    if act in ("swiglu", "geglu"):
+        h = glu_act(h, act)
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return h @ p["w_down"].to(dt)

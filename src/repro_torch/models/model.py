@@ -2,15 +2,21 @@
 counterpart of ``repro.models.model``.
 
 ``ModelConfig`` keeps every field of the JAX dataclass, so configs compare
-field by field. The port runs the ``moe`` family (``attn_moe`` blocks); the
-other families raise until their slice. Parameters are plain dicts with one
-dict per layer in ``params["blocks"]`` (the JAX tree stacks them as
-``[L, ...]`` for ``scan``; here a Python loop runs the layers).
+field by field. The port runs the dense, moe, ssm and hybrid families; audio
+and vlm raise until their slice. Parameters are plain dicts, one dict per
+layer: ``params["blocks"]`` is a list of them (the JAX tree stacks them as
+``[L, ...]`` for ``scan``; here a Python loop runs the layers). A hybrid
+stack mirrors the JAX layout: ``params["super"]`` is a tuple over the
+pattern's positions, each a list of the super-blocks' layer dicts, and
+``params["tail"]`` the list of the layers past the last whole super-block;
+its cache takes the same ``{"super", "tail"}`` shape.
 
 The MoE block defaults to ``moe_grouped`` with ``gmm_fn=ops.moe_expert_ffn``,
 the JAX package's kernel-backed configuration: on the card every MoE block
 launches the ``gmm_swiglu`` and ``gmm`` kernels. ``loss_fn`` takes the
 trainable variant, whose backward launches ``gmm_swiglu_bwd`` and ``gmm``.
+The dense MLP, the SSD scan and the RG-LRU scan are plain PyTorch, as they
+are plain JAX in the reference.
 """
 
 from __future__ import annotations
@@ -27,13 +33,12 @@ from ..device import resolve_device
 from ..kernels import ops
 from . import layers as L
 from .moe import MoEConfig, init_moe, moe_grouped
+from .rglru import init_rglru, rglru_block
+from .ssm import SSMConfig, init_ssm, ssm_forward
 
 _FAMILY_SLICE = {
-    "dense": "the dense-family slice",
     "audio": "the audio/vlm slice",
     "vlm": "the audio/vlm slice",
-    "ssm": "the ssm/hybrid slice",
-    "hybrid": "the ssm/hybrid slice",
 }
 
 
@@ -57,7 +62,7 @@ class ModelConfig:
     embed_scale: bool = False     # gemma-style sqrt(d) embedding scaling
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
-    ssm: Optional[object] = None  # SSM config; the ssm family is not ported
+    ssm: Optional[SSMConfig] = None
     hybrid_pattern: tuple = ()    # e.g. ("rglru", "rglru", "local_attn")
     lru_width: int = 0
     feat_in: int = 0              # audio frontend feature width (stub)
@@ -101,21 +106,64 @@ class ModelConfig:
         raise ValueError(self.family)
 
     def param_count(self) -> int:
-        """Analytic parameter count of the ported (moe) family."""
-        _require_moe(self)
-        d, V, m = self.d_model, self.padded_vocab, self.moe
-        n = V * d if self.tie_embeddings else 2 * V * d
-        per_layer = (d * (self.n_heads + 2 * self.n_kv_heads) * self.hd
-                     + self.n_heads * self.hd * d
-                     + d * m.e_total + m.e_total * 3 * d * m.d_expert)
-        return n + self.n_layers * per_layer
+        """Analytic parameter count (for 6ND roofline bookkeeping)."""
+        _require_ported(self)
+        d, f, V = self.d_model, self.d_ff, self.padded_vocab
+        n = V * d  # embed
+        if not self.tie_embeddings:
+            n += d * V
+        glu = 3 if self.act in ("swiglu", "geglu") else 2
+        for t in self.layer_types():
+            if t in ("attn", "attn_moe", "local_attn"):
+                n += d * (self.n_heads + 2 * self.n_kv_heads) * self.hd
+                n += self.n_heads * self.hd * d
+            if t in ("attn", "local_attn", "rglru"):
+                n += glu * d * f
+            if t == "attn_moe":
+                m = self.moe
+                n += d * m.e_total + m.e_total * 3 * d * m.d_expert
+            if t == "ssm":
+                s = self.ssm
+                d_in = s.expand * d
+                H = s.n_heads(d)
+                n += d * (2 * d_in + 2 * s.d_state + H) + d_in * d
+            if t == "rglru":
+                w = self.lru_width or d
+                n += 2 * d * w + 2 * w * w + w * d
+        return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top-k of experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        m = self.moe
+        full = self.param_count()
+        expert_p = self.n_layers * m.e_total * 3 * self.d_model * m.d_expert
+        active_e = self.n_layers * m.top_k * 3 * self.d_model * m.d_expert
+        return full - expert_p + active_e
 
 
-def _require_moe(cfg: ModelConfig) -> None:
-    if cfg.family != "moe":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family in _FAMILY_SLICE:
         raise NotImplementedError(
             f"the {cfg.family!r} family is not ported yet; it comes with "
-            f"{_FAMILY_SLICE.get(cfg.family, 'a later slice')}")
+            f"{_FAMILY_SLICE[cfg.family]}")
+
+
+def _hybrid_split(cfg: ModelConfig) -> tuple[int, int]:
+    """(pattern length, whole super-blocks) of a hybrid stack."""
+    pat = len(cfg.hybrid_pattern)
+    return pat, cfg.n_layers // pat
+
+
+def _hybrid_tree(cfg: ModelConfig, layers: list) -> dict:
+    """Per-layer entries (params or caches) in the JAX hybrid layout:
+    ``super``, a tuple over the pattern's positions of the super-blocks'
+    entries, and ``tail``, the layers after the last whole super-block."""
+    pat, n_super = _hybrid_split(cfg)
+    return {"super": tuple([layers[g * pat + pos] for g in range(n_super)]
+                           for pos in range(pat)),
+            "tail": layers[n_super * pat:]}
 
 
 # ---------------------------------------------------------------------------
@@ -123,15 +171,52 @@ def _require_moe(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _norm_leaves(cfg: ModelConfig, names, dev) -> dict:
+    """The norm scales (and layernorm biases) ``names``, fp32. rmsnorm
+    scales by 1 + w, so its w starts at 0, as in the reference; layernorm
+    scales by w, which starts at 1 here. The reference starts it at 0 too,
+    which zeroes every layernorm's output (ROADMAP §3)."""
+    p = {}
+    if cfg.norm == "nonparam_ln":
+        return p
+    for name in names:
+        p[name] = (torch.ones if cfg.norm == "layernorm" else torch.zeros)(
+            cfg.d_model, device=dev)
+        if cfg.norm == "layernorm":
+            p[name + "_b"] = torch.zeros(cfg.d_model, device=dev)
+    return p
+
+
+def _init_block(cfg: ModelConfig, btype: str, gen: torch.Generator) -> dict:
+    dt, d = cfg.compute_dtype, cfg.d_model
+    p: dict = {}
+    if btype in ("attn", "attn_moe", "local_attn"):
+        p["attn"] = L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
+                                     cfg.hd, cfg.qkv_bias, dt)
+    if btype in ("attn", "local_attn"):
+        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.act, dt)
+    if btype == "attn_moe":
+        p["moe"] = init_moe(gen, d, cfg.moe, dt)
+    if btype == "ssm":
+        p["ssm"] = init_ssm(gen, d, cfg.ssm, dt)
+    if btype == "rglru":
+        p["rglru"] = init_rglru(gen, d, cfg.lru_width or d, 4, dt)
+        p["mlp"] = L.init_mlp(gen, d, cfg.d_ff, cfg.act, dt)
+    p.update(_norm_leaves(cfg, ("ln1", "ln2"), gen.device))
+    return p
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 *, device="cuda") -> dict:
     """Random parameters on ``device`` from ``generator`` (default: seed 0).
 
-    Matrices are stored in the config's compute dtype and the norm scales and
-    router in fp32. The JAX package keeps fp32 masters and casts them at each
-    use; casting once here gives the same values at every use.
+    Matrices are stored in the config's compute dtype; the norm scales, the
+    router and the leaves the reference reads in fp32 (ssm's ``A_log`` and
+    ``dt_bias``; rglru's gates and Λ) in fp32. The JAX package keeps
+    fp32 masters and casts them at each use; casting once here gives the
+    same values at every use.
     """
-    _require_moe(cfg)
+    _require_ported(cfg)
     dev = resolve_device(device)
     gen = generator if generator is not None else \
         torch.Generator(device=dev).manual_seed(0)
@@ -146,17 +231,12 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     params: dict = {"embed": normal(V, d, std=d ** -0.5)}
     if not cfg.tie_embeddings:
         params["unembed"] = normal(d, V, std=d ** -0.5)
-    params["ln_f"] = torch.zeros(d, device=dev)
-    blocks = []
-    for _ in range(cfg.n_layers):
-        blocks.append({
-            "attn": L.init_attention(gen, d, cfg.n_heads, cfg.n_kv_heads,
-                                     cfg.hd, cfg.qkv_bias, dt),
-            "moe": init_moe(gen, d, cfg.moe, dt),
-            "ln1": torch.zeros(d, device=dev),
-            "ln2": torch.zeros(d, device=dev),
-        })
-    params["blocks"] = blocks
+    params.update(_norm_leaves(cfg, ("ln_f",), dev))
+    blocks = [_init_block(cfg, t, gen) for t in cfg.layer_types()]
+    if cfg.family == "hybrid":
+        params.update(_hybrid_tree(cfg, blocks))
+    else:
+        params["blocks"] = blocks
     return params
 
 
@@ -176,14 +256,23 @@ def train_moe_impl(cfg: ModelConfig) -> Callable:
                    gmm_fn=partial(ops.moe_expert_ffn, trainable=True))
 
 
-def _attn_half(cfg: ModelConfig, p, x, cache=None, flash_decode=None):
+def _window(cfg: ModelConfig, btype: str) -> int:
+    """The reference's rule: a ``local_attn`` block takes the window; any
+    other attention block does too, unless the family is hybrid."""
+    if btype == "local_attn" or cfg.family != "hybrid":
+        return cfg.sliding_window
+    return 0
+
+
+def _attn_half(cfg: ModelConfig, p, x, cache=None, flash_decode=None,
+               btype: str = "attn_moe"):
     """ln1 → attention → residual: (x, new_cache)."""
     a, new_cache = L.attention(
         p["attn"], L.apply_norm(cfg.norm, x, p, "ln1"),
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta, causal=cfg.causal,
-        sliding_window=cfg.sliding_window, block=cfg.attn_block, cache=cache,
-        flash_decode=flash_decode)
+        sliding_window=_window(cfg, btype), block=cfg.attn_block,
+        cache=cache, flash_decode=flash_decode)
     return x + a, new_cache
 
 
@@ -194,14 +283,28 @@ def _moe_half(cfg: ModelConfig, p, x, moe_impl: Optional[Callable] = None):
     return x + impl(p["moe"], h, cfg.moe)
 
 
+def _mlp_half(cfg: ModelConfig, p, x):
+    """ln2 → MLP → residual."""
+    return x + L.mlp(p["mlp"], L.apply_norm(cfg.norm, x, p, "ln2"), cfg.act)
+
+
 def block_apply(cfg: ModelConfig, btype: str, p, x, cache=None,
                 moe_impl: Optional[Callable] = None, flash_decode=None):
     """One residual block. Returns (x, new_cache)."""
-    if btype != "attn_moe":
-        raise NotImplementedError(
-            f"{btype!r} blocks are not ported yet; the port runs attn_moe")
-    x, new_cache = _attn_half(cfg, p, x, cache, flash_decode)
-    return _moe_half(cfg, p, x, moe_impl), new_cache
+    if btype in ("attn", "attn_moe", "local_attn"):
+        x, new_cache = _attn_half(cfg, p, x, cache, flash_decode, btype)
+        if btype == "attn_moe":
+            return _moe_half(cfg, p, x, moe_impl), new_cache
+        return _mlp_half(cfg, p, x), new_cache
+    if btype == "ssm":
+        y, new_cache = ssm_forward(
+            p["ssm"], L.apply_norm(cfg.norm, x, p, "ln1"), cfg.ssm, cache)
+        return x + y, new_cache
+    if btype == "rglru":
+        y, new_cache = rglru_block(
+            p["rglru"], L.apply_norm(cfg.norm, x, p, "ln1"), cache)
+        return _mlp_half(cfg, p, x + y), new_cache
+    raise ValueError(btype)
 
 
 # ---------------------------------------------------------------------------
@@ -210,31 +313,78 @@ def block_apply(cfg: ModelConfig, btype: str, p, x, cache=None,
 
 
 def embed_inputs(cfg: ModelConfig, params, batch):
-    _require_moe(cfg)
+    _require_ported(cfg)
     x = params["embed"].to(cfg.compute_dtype)[batch["tokens"]]
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
 
 
+def _run_hybrid(cfg: ModelConfig, params, x, caches=None, moe_impl=None,
+                flash_decode=None):
+    """The hybrid stack: each super-block runs the pattern's blocks in
+    order, then the tail's layers run one by one. With ``cfg.remat`` and
+    autograd recording, each super-block runs under one non-reentrant
+    ``checkpoint`` and the tail unchecked, as JAX checkpoints its scan body
+    and not the unrolled tail."""
+    pat, n_super = _hybrid_split(cfg)
+    types = cfg.layer_types()
+    remat = caches is None and cfg.remat and torch.is_grad_enabled()
+
+    def super_block(h, g, cs=None):
+        new = []
+        for pos in range(pat):
+            h, nc = block_apply(cfg, cfg.hybrid_pattern[pos],
+                                params["super"][pos][g], h,
+                                None if cs is None else cs[pos], moe_impl,
+                                flash_decode)
+            new.append(nc)
+        return h, new
+
+    new_sup = [[] for _ in range(pat)]
+    for g in range(n_super):
+        if remat:
+            x = checkpoint(lambda h, g=g: super_block(h, g)[0], x,
+                           use_reentrant=False)
+            continue
+        cs = (None if caches is None
+              else [caches["super"][pos][g] for pos in range(pat)])
+        x, new = super_block(x, g, cs)
+        for pos in range(pat):
+            new_sup[pos].append(new[pos])
+    new_tail = []
+    for i, bp in enumerate(params["tail"]):
+        x, nc = block_apply(cfg, types[n_super * pat + i], bp, x,
+                            None if caches is None else caches["tail"][i],
+                            moe_impl, flash_decode)
+        new_tail.append(nc)
+    if caches is None:
+        return x, None
+    return x, {"super": tuple(new_sup), "tail": new_tail}
+
+
 def _run_stack(cfg: ModelConfig, params, x, caches=None, moe_impl=None,
                flash_decode=None):
-    """Apply all layers in a Python loop. caches: list of per-layer dicts or
-    None.
+    """Apply all layers in a Python loop. caches: list of per-layer dicts (a
+    hybrid stack: ``{"super", "tail"}``) or None.
 
     With ``cfg.remat`` and autograd recording, layers run under non-reentrant
     ``torch.utils.checkpoint`` (JAX: ``jax.checkpoint`` around the scan
     body). Policy "full" checkpoints the whole block, so the backward
     recomputes it. Policy "save_moe", and any ``moe_impl`` whose own
     backward recomputes what it needs (``moe_impl.self_remat``, the
-    dropless fragment), checkpoint only the attention half: the MoE half
-    runs once, outside the checkpoint, as JAX's remat keeps the MoE output
-    (``save_moe``) or never re-runs the custom-vjp fragment's callback.
+    dropless fragment), checkpoint only the attention half of a MoE block:
+    the MoE half runs once, outside the checkpoint, as JAX's remat keeps the
+    MoE output (``save_moe``) or never re-runs the custom-vjp fragment's
+    callback.
     """
+    if cfg.family == "hybrid":
+        return _run_hybrid(cfg, params, x, caches, moe_impl, flash_decode)
     btype = cfg.layer_types()[0]
     if caches is None and cfg.remat and torch.is_grad_enabled():
-        split = (cfg.remat_policy == "save_moe"
-                 or getattr(moe_impl, "self_remat", False))
+        split = btype == "attn_moe" and (
+            cfg.remat_policy == "save_moe"
+            or getattr(moe_impl, "self_remat", False))
         for bp in params["blocks"]:
             if split:
                 x = checkpoint(lambda h, bp=bp: _attn_half(cfg, bp, h)[0],
@@ -326,32 +476,57 @@ def loss_fn(cfg: ModelConfig, params, batch, moe_impl=None,
 # ---------------------------------------------------------------------------
 
 
+def _block_cache(cfg: ModelConfig, btype: str, B: int, max_len: int,
+                 per_slot_len: bool, dev) -> dict:
+    dt = cfg.compute_dtype
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
+    zlen = zeros(*((B,) if per_slot_len else ()), dtype=torch.int32)
+    if btype in ("attn", "attn_moe", "local_attn"):
+        W = max_len
+        if btype == "local_attn":
+            W = min(max_len, cfg.sliding_window or max_len)
+        shp = (B, W, cfg.n_kv_heads, cfg.hd)
+        return {"k": zeros(*shp), "v": zeros(*shp), "len": zlen}
+    if btype == "ssm":
+        s = cfg.ssm
+        d_in = s.expand * cfg.d_model
+        return {"conv": zeros(B, s.conv_width - 1, d_in + 2 * s.d_state),
+                "ssm": zeros(B, s.n_heads(cfg.d_model), s.d_state,
+                             s.head_dim)}
+    if btype == "rglru":
+        w = cfg.lru_width or cfg.d_model
+        return {"conv": zeros(B, 3, w),
+                "h": zeros(B, w, dtype=torch.float32)}
+    raise ValueError(btype)
+
+
 def init_cache(cfg: ModelConfig, B: int, max_len: int,
                per_slot_len: bool = False, *, device="cuda"):
-    """One ``{"k", "v", "len"}`` dict per layer; ``len`` is a scalar, or a
-    [B] vector with ``per_slot_len`` (continuous batching)."""
-    _require_moe(cfg)
+    """One cache dict per layer: ``{"k", "v", "len"}`` for attention (a
+    ``local_attn`` layer keeps a ring of min(max_len, window) slots),
+    ``{"conv", "ssm"}`` for ssm, ``{"conv", "h"}`` for rglru. ``len`` is a
+    scalar, or a [B] vector with ``per_slot_len`` (continuous batching). A
+    hybrid stack's cache is ``{"super": tuple over pattern positions of
+    per-super-block lists, "tail": list}``."""
+    _require_ported(cfg)
     dev = resolve_device(device)
-    shp = (B, max_len, cfg.n_kv_heads, cfg.hd)
-    caches = []
-    for _ in range(cfg.n_layers):
-        zlen = torch.zeros((B,) if per_slot_len else (), dtype=torch.int32,
-                           device=dev)
-        caches.append({
-            "k": torch.zeros(shp, dtype=cfg.compute_dtype, device=dev),
-            "v": torch.zeros(shp, dtype=cfg.compute_dtype, device=dev),
-            "len": zlen})
-    return caches
+    caches = [_block_cache(cfg, t, B, max_len, per_slot_len, dev)
+              for t in cfg.layer_types()]
+    return _hybrid_tree(cfg, caches) if cfg.family == "hybrid" else caches
 
 
 def decode_step(cfg: ModelConfig, params, token, cache, moe_impl=None,
                 flash_decode=None):
     """token: [B, 1] → (logits [B, 1, Vp], new_cache).
 
-    The keys and values are written into ``cache`` in place (see
-    ``layers.attention``); the returned cache holds the new lengths.
-    ``flash_decode``: the sharded one-token attention of
-    ``parallel.flash_decode`` (scalar lengths only).
+    Attention keys and values are written into ``cache`` in place (see
+    ``layers.attention``); the returned cache holds the new lengths and the
+    new recurrent states. ``flash_decode``: the sharded one-token attention
+    of ``parallel.flash_decode`` (scalar lengths, full-attention layers
+    only).
     """
     x = embed_inputs(cfg, params, {"tokens": token})
     x, new_cache = _run_stack(cfg, params, x, cache, moe_impl, flash_decode)

@@ -80,6 +80,26 @@ def router_topk(p_router, x, mc: MoEConfig):
     return top_p, top_i
 
 
+def load_balance_loss(p_router, x, mc: MoEConfig):
+    """Switch-style auxiliary load-balancing loss + router z-loss.
+
+    aux = E · Σ_e f_e · P_e (f: the fraction of tokens whose top-1 is e,
+    P: the mean router prob), least at uniform routing; z keeps the router
+    logits bounded. Padding experts are masked out. x: [T, d] → (aux, z),
+    fp32 scalars."""
+    logits = x.float() @ p_router.float()
+    if mc.n_padding_experts:
+        pad = torch.arange(mc.e_total, device=x.device) >= mc.n_experts
+        logits = torch.where(pad[None, :], -1e30, logits)
+    probs = torch.softmax(logits, dim=-1)
+    top1 = torch.argmax(probs, dim=-1)
+    f = torch.mean(F.one_hot(top1, mc.e_total).float(), dim=0)
+    P = torch.mean(probs, dim=0)
+    aux = mc.n_experts * torch.sum(f * P)
+    z = torch.mean(torch.square(torch.logsumexp(logits, dim=-1)))
+    return aux, z
+
+
 def capacity(tokens: int, mc: MoEConfig, ep: int = 1) -> int:
     """Per-expert capacity, rounded up to a multiple of ``ep``."""
     c = int(math.ceil(tokens * mc.top_k / mc.e_total * mc.capacity_factor))

@@ -17,7 +17,9 @@ per-layer leaf is decayed, the norm scales (``[L, d]``) too. The port keeps
 one tensor per layer (``params["blocks"]`` is a list), so it decays each leaf
 whose JAX counterpart has ``ndim >= 2`` (:func:`decay_flags`): every matrix,
 and every per-layer leaf of at least one dimension. A top-level 1-d leaf,
-such as the final norm scale, is not decayed.
+such as the final norm scale, is not decayed. A hybrid stack follows its
+JAX layout: a 1-d leaf of a ``super`` layer (stacked over the super-blocks
+there) is decayed, the same leaf of a ``tail`` layer (unstacked) is not.
 """
 
 from __future__ import annotations
@@ -117,9 +119,10 @@ def clip_by_global_norm(grads, max_norm: float):
 def decay_flags(params) -> list:
     """Per leaf of ``params``, in :func:`tree_leaves` order: whether AdamW
     decays it, i.e. whether its JAX counterpart has ``ndim >= 2``. Leaves
-    under ``params["blocks"]`` count one more dimension, the layer axis the
-    JAX tree stacks them on."""
-    return [t.dim() + (k == "blocks") >= 2
+    under ``params["blocks"]`` and ``params["super"]`` count one more
+    dimension, the layer axis the JAX tree stacks them on; those under
+    ``params["tail"]`` are unstacked in JAX too."""
+    return [t.dim() + (k in ("blocks", "super")) >= 2
             for k in sorted(params) for t in tree_leaves(params[k])]
 
 

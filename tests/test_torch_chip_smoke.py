@@ -1,7 +1,7 @@
 """Helpers of ``chip_smoke.py`` that run without a card: the precision
 control of the trainable expert FFN's end-to-end check, the reader of the
 compiler's register and spill report, the dropless tiles' body check,
-phase 9's SSC lookups check and the cases of phases 10-12."""
+phase 9's SSC lookups check and the cases of phases 10-12, 14, 15 and 16."""
 
 import sys
 from pathlib import Path
@@ -289,3 +289,68 @@ def test_ft_cases_on_the_cpu(tmp_path):
     cells, _ = chip_smoke.ft_harness_case(str(tmp_path / "h"), dev="cpu")
     assert len(cells) == 6 and all(all(c["checks"].values()) for c in cells)
     assert not torch.are_deterministic_algorithms_enabled()
+
+
+def test_families_phase_runs_on_the_cpu(monkeypatch):
+    """Phase 16's cases at the smoke configs on the CPU, where the kernels
+    run their plain versions: (a) prefill and teacher-forced decode against
+    the forward within FAMILY_TOL for a dense, the ssm and the hybrid arch
+    (recurrentgemma's 20-token prompt wraps its 16-slot ring), (b) serving
+    and (c) training through the entry points, (d) dbrx's kernel path
+    against the plain FFN. The launch counters count only on the card, so
+    (d) fails its launch gate here; with the counts its formula gives
+    (2 layers x (8 prefills + 31 decode steps)) every other gate holds."""
+    from repro_torch.configs import get_smoke_config
+    for arch, n, prompt, steps in (("llama3_2-3b", 2, 12, 3),
+                                   ("mamba2-1_3b", 2, 16, 8),
+                                   ("recurrentgemma-2b", 5, 20, 3)):
+        out = chip_smoke.family_consistency_case(
+            arch, n, prompt, steps, dev="cpu", cfg=get_smoke_config(arch))
+        assert max(out["prefill_max_abs_err"],
+                   out["decode_max_abs_err"]) <= out["limit"]
+    assert (out["ring_slots"], out["ring_tokens"]) == (16, 23)
+    srv = chip_smoke.family_serve_case(
+        "recurrentgemma-2b", dev="cpu",
+        cfg=get_smoke_config("recurrentgemma-2b"), requests=3, prompt_len=20)
+    assert srv["tokens"] == 3 * chip_smoke.MAX_NEW
+    assert srv["max_memory_allocated_bytes"] is None
+    tr = chip_smoke.family_train_case("mamba2-1_3b", dev="cpu",
+                                      argv=("--smoke", "--seq", "16"))
+    assert len(tr["losses"]) == chip_smoke.FAMILY_TRAIN_STEPS
+    assert not any(tr["launches"].values())
+    dbrx_cfg = get_smoke_config("dbrx-132b")
+    with pytest.raises(AssertionError, match="dbrx-132b failed"):
+        chip_smoke.dbrx_case(dev="cpu", cfg=dbrx_cfg, prompt_len=16)
+    counts = dict({k: 0 for k in chip_smoke.COUNTERS}, gmm_swiglu=78, gmm=78)
+    monkeypatch.setattr(chip_smoke, "read_launches", lambda: dict(counts))
+    out, launches = chip_smoke.dbrx_case(dev="cpu", cfg=dbrx_cfg,
+                                         prompt_len=16)
+    assert launches == counts and out["expected_launches"] == 78
+    assert out["logit_max_abs_err"] <= chip_smoke.LOGIT_TOL * out[
+        "logit_max_abs"]
+    assert chip_smoke.dbrx_capacities() == {"dbrx_decode8": 3,
+                                            "dbrx_prefill": 40,
+                                            "dbrx_train": 1280}
+
+
+def test_dbrx_training_step_case_runs_on_the_cpu(monkeypatch):
+    """Phase 16 (e) at dbrx's smoke config on the CPU: the loss and grad
+    norms through the kernels' wrappers (their plain versions here) match
+    the plain FFN's within phase 5's limits. The launch counters count
+    only on the card, so the case fails its launch gate here; with the
+    counts its formula gives (2 layers x TRAIN_LAUNCHES, the backward's
+    on the tensor cores) every other gate holds."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import gmm_swiglu_bwd as bwd_mod
+    cfg = get_smoke_config("dbrx-132b")
+    with pytest.raises(AssertionError, match="training step failed"):
+        chip_smoke.dbrx_train_case(dev="cpu", cfg=cfg, seq=32)
+    want = {k: 2 * n for k, n in chip_smoke.TRAIN_LAUNCHES.items()}
+    monkeypatch.setattr(chip_smoke, "reset_launches", lambda: None)
+    monkeypatch.setattr(chip_smoke, "read_launches", lambda: dict(want))
+    monkeypatch.setattr(bwd_mod, "launches_tc", want["gmm_swiglu_bwd"])
+    out, launches = chip_smoke.dbrx_train_case(dev="cpu", cfg=cfg, seq=32)
+    assert launches == want == out["expected_launches"]
+    assert out["loss_rel_gap"] <= chip_smoke.LOSS_TOL
+    assert out["grad_norm_rel_gap_max"] <= chip_smoke.GNORM_TOL
+    assert out["grad_leaves"] > 10 and out["tokens"] == 32

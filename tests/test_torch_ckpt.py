@@ -231,12 +231,12 @@ def _npz_equal(dir_a, dir_b, manifest):
                 assert a.tobytes() == b.tobytes(), k
 
 
-def _state(dtype):
+def _state(dtype, arch=ARCH):
     """The smoke config's training state, made once in numpy: JAX's
     ``init_params`` (seed 0), moments and masters from a seeded numpy
     generator, step 7; as the JAX tree and as the port's."""
-    jcfg = dataclasses.replace(jget_smoke(ARCH), dtype=dtype)
-    tcfg = dataclasses.replace(tget_smoke(ARCH), dtype=dtype)
+    jcfg = dataclasses.replace(jget_smoke(arch), dtype=dtype)
+    tcfg = dataclasses.replace(tget_smoke(arch), dtype=dtype)
     np_params = jax.tree.map(
         np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0)))
     rng = np.random.default_rng(1)
@@ -288,8 +288,8 @@ def _bits(a):
 def _zeros_like(tree):
     if isinstance(tree, dict):
         return {k: _zeros_like(v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_zeros_like(v) for v in tree]
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_zeros_like(v) for v in tree)
     return 0 if isinstance(tree, int) else torch.zeros_like(tree)
 
 
@@ -345,6 +345,42 @@ def test_to_jax_inverts_from_numpy():
     st = opt_state_to_jax(tstate)
     assert st["step"] == 7
     assert st["m"]["blocks"]["moe"]["w_in"].shape[0] == tcfg.n_layers
+
+
+@pytest.mark.parametrize("arch, n_leaves", [("qwen2-1_5b", 4 * 13 + 1),
+                                            ("recurrentgemma-2b",
+                                             4 * 66 + 1)])
+def test_dense_and_hybrid_checkpoints_cross_packages(tmp_path, arch,
+                                                     n_leaves):
+    """A dense (qwen2: biases, tied embeddings) and the hybrid
+    (recurrentgemma: the ``super`` tuple's index keys, the unstacked
+    ``tail``) training checkpoint, bf16: the port writes JAX's manifest and
+    npz bits, and each package restores the other's directory bit for
+    bit."""
+    tcfg, jtree, (tparams, tstate) = _state("bfloat16", arch)
+    JCK.save(str(tmp_path / "jax"), 3, jtree)
+    CK.save(str(tmp_path / "port"), 3, jax_train_tree(tparams, tstate))
+    dj, dp = (JCK.latest_step_dir(str(tmp_path / k)) for k in ("jax",
+                                                             "port"))
+    mj, mp = _manifest(dj), _manifest(dp)
+    assert mp == mj and len(mp["leaves"]) == n_leaves
+    _npz_equal(dj, dp, mp)
+    if tcfg.family == "hybrid":
+        assert "0/super/2/attn/wq" in mp["leaves"]
+        assert "0/tail/1/rglru/lam" in mp["leaves"]
+        assert mp["leaves"]["0/super/0/rglru/lam"]["shape"][0] == 1
+
+    got, _ = JCK.restore(dp, jtree)
+    for a, b in zip(jax.tree.leaves(jtree), jax.tree.leaves(got)):
+        assert a.dtype == b.dtype and _bits(a) == _bits(b)
+    params, state = _zeros_like(tparams), _zeros_like(tstate)
+    restore_jax_train(dj, params, state)
+    for a, b in zip(tree_leaves((tparams, tstate)),
+                    tree_leaves((params, state))):
+        if isinstance(a, int):
+            assert a == b
+        else:
+            assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -61,12 +61,17 @@ assert not bad, bad
     "repro_torch.launch.mesh", "repro_torch.launch.bench_ep_modes",
     "repro_torch.configs.deepseek_moe_paper",
     "repro_torch.checkpoint.ckpt", "repro_torch.ft.runner",
-    "repro_torch.ft.harness", "repro_torch.launch.train"])
+    "repro_torch.ft.harness", "repro_torch.launch.train",
+    "repro_torch.models.ssm", "repro_torch.models.rglru",
+    "repro_torch.configs.llama3_2_3b", "repro_torch.configs.qwen2_1_5b",
+    "repro_torch.configs.olmo_1b", "repro_torch.configs.gemma_2b",
+    "repro_torch.configs.dbrx_132b", "repro_torch.configs.mamba2_1_3b",
+    "repro_torch.configs.recurrentgemma_2b"])
 def test_fusion_and_elastic_modules_import_alone(module):
     """Each module of the fusion/elastic slice, of the online serving
-    slice, of EP and of checkpointing, imported on its own in a fresh
-    interpreter, pulls in neither JAX, the JAX package, msgpack nor
-    ml_dtypes."""
+    slice, of EP, of checkpointing and of the model families, imported on
+    its own in a fresh interpreter, pulls in neither JAX, the JAX package,
+    msgpack nor ml_dtypes."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", _ALONE, module],
                           cwd=str(REPO), env=env, capture_output=True,
@@ -203,16 +208,26 @@ def test_ep_entry_points_raise_without_cuda_unless_asked_for_cpu(tmp_path):
 
 
 def test_unported_families_raise():
+    """The audio and vlm families and their archs raise until their slice;
+    the dense, ssm and hybrid archs are ported."""
     import dataclasses
 
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import init_cache, init_params
     from repro_torch.configs import get_smoke_config, get_config
-    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
-                              family="ssm")
-    with pytest.raises(NotImplementedError, match="ssm"):
-        init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("qwen2-1.5b")
+    for family in ("audio", "vlm"):
+        cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                                  family=family)
+        for fn in (lambda: init_params(cfg, device="cpu"),
+                   lambda: init_cache(cfg, 1, 8, device="cpu"),
+                   cfg.param_count):
+            with pytest.raises(NotImplementedError, match="audio/vlm slice"):
+                fn()
+    for arch in ("hubert-xlarge", "internvl2-26b"):
+        for get in (get_config, get_smoke_config):
+            with pytest.raises(NotImplementedError, match="not ported"):
+                get(arch)
+    for arch in ("qwen2-1.5b", "mamba2-1.3b", "recurrentgemma-2b"):
+        assert get_config(arch).param_count() > 0
 
 
 def test_init_params_is_seeded_and_typed():

@@ -208,15 +208,142 @@ def test_attention_prefill_then_per_slot_decode_matches():
             _close(tc[n], jc[n])
 
 
+def _caches(B, W, lens=0):
+    lens = np.asarray(lens, np.int32)
+    return ({"k": jnp.zeros((B, W, 2, 8)), "v": jnp.zeros((B, W, 2, 8)),
+             "len": jnp.asarray(lens)},
+            {"k": torch.zeros(B, W, 2, 8), "v": torch.zeros(B, W, 2, 8),
+             "len": torch.from_numpy(lens)})
+
+
+def _same_cache(tc, jc):
+    for n in ("k", "v", "len"):
+        _close(tc[n], jc[n])
+
+
 def test_attention_rejects_window_caches():
-    _, tp = _attn_params(32, 4, 2, 8)
-    cache = {"k": torch.zeros(1, 4, 2, 8), "v": torch.zeros(1, 4, 2, 8),
-             "len": torch.zeros((), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError):
-        TL.attention(tp, torch.zeros(1, 1, 32), cache=cache,
-                     sliding_window=2, **KW)
-    with pytest.raises(NotImplementedError):
-        TL.attention(tp, torch.zeros(1, 6, 32), cache=cache, **KW)
+    """Window caches, which the port once rejected, now follow JAX: a
+    6-token prompt into a 4-slot ring (the last 4 keys rolled to their
+    slots), then decode steps that wrap the ring, scalar length."""
+    jp, tp = _attn_params(32, 4, 2, 8)
+    jc, tc = _caches(1, 4)
+    x = _rand((1, 6, 32), 20)
+    jo, jc = JL.attention(jp, jnp.asarray(x), cache=jc, sliding_window=4,
+                          block=4, **KW)
+    to, tc = TL.attention(tp, torch.from_numpy(x), cache=tc,
+                          sliding_window=4, block=4, **KW)
+    _close(to, jo)
+    _same_cache(tc, jc)
+    for step in range(5):
+        xt = _rand((1, 1, 32), 21 + step)
+        jo, jc = JL.attention(jp, jnp.asarray(xt), cache=jc,
+                              sliding_window=4, **KW)
+        to, tc = TL.attention(tp, torch.from_numpy(xt), cache=tc,
+                              sliding_window=4, **KW)
+        _close(to, jo)
+        _same_cache(tc, jc)
+
+
+@pytest.mark.parametrize("S", [4, 6, 9])
+def test_ring_prefill_then_decode_matches(S):
+    """A W = 6 ring under window 6: prompts shorter than, equal to and
+    longer than the ring, then 7 scalar-length decode steps past it."""
+    jp, tp = _attn_params(32, 4, 2, 8)
+    jc, tc = _caches(2, 6)
+    x = _rand((2, S, 32), 30 + S)
+    jo, jc = JL.attention(jp, jnp.asarray(x), cache=jc, sliding_window=6,
+                          block=4, **KW)
+    to, tc = TL.attention(tp, torch.from_numpy(x), cache=tc,
+                          sliding_window=6, block=4, **KW)
+    _close(to, jo)
+    _same_cache(tc, jc)
+    for step in range(7):
+        xt = _rand((2, 1, 32), 40 + step)
+        jo, jc = JL.attention(jp, jnp.asarray(xt), cache=jc,
+                              sliding_window=6, **KW)
+        to, tc = TL.attention(tp, torch.from_numpy(xt), cache=tc,
+                              sliding_window=6, **KW)
+        _close(to, jo)
+        _same_cache(tc, jc)
+
+
+def test_ring_decode_wraps_per_slot_lengths():
+    """Continuous batching on a W = 6 ring: per-slot lengths 2, 6 and 11
+    (the last slot has wrapped; an idle slot runs on unclamped)."""
+    jp, tp = _attn_params(32, 4, 2, 8)
+    rng = np.random.default_rng(50)
+    jc, tc = _caches(3, 6, [2, 6, 11])
+    kv = rng.standard_normal((2, 3, 6, 2, 8)).astype(np.float32)
+    jc = dict(jc, k=jnp.asarray(kv[0]), v=jnp.asarray(kv[1]))
+    tc = dict(tc, k=torch.from_numpy(kv[0].copy()),
+              v=torch.from_numpy(kv[1].copy()))
+    for step in range(8):
+        xt = _rand((3, 1, 32), 51 + step)
+        jo, jc = JL.attention(jp, jnp.asarray(xt), cache=jc,
+                              sliding_window=6, **KW)
+        to, tc = TL.attention(tp, torch.from_numpy(xt), cache=tc,
+                              sliding_window=6, **KW)
+        _close(to, jo)
+        _same_cache(tc, jc)
+
+
+def test_window_over_a_full_cache_matches():
+    """A cache longer than the window (a dense layer with a window) is no
+    ring: writes are clamped as before and decode masks keys older than the
+    window."""
+    jp, tp = _attn_params(32, 4, 2, 8)
+    jc, tc = _caches(2, 12)
+    x = _rand((2, 7, 32), 60)
+    jo, jc = JL.attention(jp, jnp.asarray(x), cache=jc, sliding_window=3,
+                          block=4, **KW)
+    to, tc = TL.attention(tp, torch.from_numpy(x), cache=tc,
+                          sliding_window=3, block=4, **KW)
+    _close(to, jo)
+    jc = dict(jc, len=jnp.asarray(np.array([7, 11], np.int32)))
+    tc = dict(tc, len=torch.tensor([7, 11], dtype=torch.int32))
+    for step in range(3):
+        xt = _rand((2, 1, 32), 61 + step)
+        jo, jc = JL.attention(jp, jnp.asarray(xt), cache=jc,
+                              sliding_window=3, **KW)
+        to, tc = TL.attention(tp, torch.from_numpy(xt), cache=tc,
+                              sliding_window=3, **KW)
+        _close(to, jo)
+        _same_cache(tc, jc)
+
+
+@pytest.mark.parametrize("lens", [9, [3, 12, 7]])
+def test_decode_attention_with_a_window_matches(lens):
+    B, S, H, K, hd = 3, 12, 6, 2, 8
+    q = _rand((B, 1, H, hd), 70)
+    kc, vc = _rand((B, S, K, hd), 71), _rand((B, S, K, hd), 72)
+    ln = np.asarray(lens, np.int32)
+    want = JL.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                               jnp.asarray(vc), jnp.asarray(ln),
+                               sliding_window=4)
+    got = TL.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                              torch.from_numpy(vc), torch.from_numpy(ln),
+                              sliding_window=4)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("act", ["swiglu", "geglu", "gelu"])
+def test_mlp_matches(act):
+    """fp32 against JAX; bf16 against the port's own fp32 output (two
+    bf16-rounded products and an activation: 2e-2, some 10 units of bf16's
+    roundoff 2^-9), never against JAX's bf16."""
+    jp = JL.init_mlp(jax.random.PRNGKey(3), 32, 48, act)
+    tp = {n: torch.from_numpy(np.array(a)) for n, a in jp.items()}
+    x = _rand((2, 5, 32), 80)
+    full = TL.mlp(tp, torch.from_numpy(x), act)
+    _close(full, JL.mlp(jp, jnp.asarray(x), act))
+    t = TL.init_mlp(torch.Generator().manual_seed(0), 32, 48, act,
+                    torch.bfloat16)
+    assert {n: (tuple(v.shape), v.dtype) for n, v in t.items()} == {
+        n: (tuple(a.shape), torch.bfloat16) for n, a in jp.items()}
+    xb = torch.from_numpy(x).bfloat16()
+    got = TL.mlp({n: v.bfloat16() for n, v in tp.items()}, xb, act)
+    assert got.dtype == torch.bfloat16
+    _close(got, full.numpy(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("act", ["swiglu", "geglu"])

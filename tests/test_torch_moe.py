@@ -9,6 +9,7 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_margin import decided  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
 from repro.models import moe as jmoe  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
@@ -33,6 +34,15 @@ def _x(shape, seed=0):
         shape, dtype=np.float32)
 
 
+def _decided(x, router, mc):
+    """The rows whose expert choices can be compared exactly: the port's
+    fp32 logits pick and order their top k by at least MARGIN of the row's
+    range (``tests/_torch_margin.py``). Elsewhere only the probs, which do
+    not jump at a tie, are compared."""
+    return decided((x.float() @ router.float())[:, :mc.n_experts],
+                   mc.top_k)
+
+
 def test_config_fields_match():
     import dataclasses
     assert dataclasses.asdict(TMC) == dataclasses.asdict(JMC)
@@ -49,10 +59,12 @@ def test_capacity_matches(tokens):
 
 def test_router_topk_matches():
     jp, tp = _params()
-    x = _x((40, D))   # random logits: no ties between the top choices
+    x = _x((40, D))   # random logits: a near-tie row compares probs only
     jprob, jidx = jmoe.router_topk(jp["router"], jnp.asarray(x), JMC)
     tprob, tidx = tmoe.router_topk(tp["router"], torch.from_numpy(x), TMC)
-    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    ok = _decided(torch.from_numpy(x), tp["router"], TMC).numpy()
+    assert ok.sum() >= 30, ok.sum()
+    np.testing.assert_array_equal(tidx.numpy()[ok], np.asarray(jidx)[ok])
     np.testing.assert_allclose(tprob.numpy(), np.asarray(jprob),
                                rtol=1e-5, atol=1e-5)
     assert int(tidx.max()) < TMC.n_experts      # padding never chosen
@@ -69,7 +81,10 @@ def test_router_topk_bf16_router_matches_jax():
     tprob, tidx = tmoe.router_topk(torch.from_numpy(router).bfloat16(),
                                    torch.from_numpy(x).bfloat16(), TMC)
     assert tprob.dtype == torch.float32
-    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    ok = _decided(torch.from_numpy(x).bfloat16(),
+                  torch.from_numpy(router).bfloat16(), TMC).numpy()
+    assert ok.sum() >= 30, ok.sum()
+    np.testing.assert_array_equal(tidx.numpy()[ok], np.asarray(jidx)[ok])
     np.testing.assert_allclose(tprob.numpy(), np.asarray(jprob),
                                rtol=1e-5, atol=1e-5)
 

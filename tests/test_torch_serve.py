@@ -12,6 +12,8 @@ torch = pytest.importorskip("torch")
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from _torch_margin import assert_decided  # noqa: E402
+from _torch_margin import check_decisions, watch_batcher  # noqa: E402
 from repro.configs import get_config as jget_config  # noqa: E402
 from repro.configs import get_smoke_config as jget_smoke  # noqa: E402
 from repro.kernels import ops as jops  # noqa: E402
@@ -109,7 +111,14 @@ def _drive(b, prompts, max_new):
 def test_continuous_batcher_greedy_tokens_identical(slice_setup):
     """6 prompts through 2 slots, with refill: the JAX batcher on the
     kernel-backed MoE (Pallas kernels, interpret mode) and the port's give
-    the same greedy tokens."""
+    the same greedy tokens. The port serves first; the JAX batcher is fed
+    the port's tokens (``watch_batcher``), so both decide on the same
+    inputs at every one of the 30 decisions, refilled requests included.
+    Every decision's logits agree within 1e-4; its token is compared
+    exactly where the port's top-1/top-2 gap is at least MARGIN of the
+    logits' range (up to the first near-tie, the JAX batcher's own run).
+    At least 25 decisions, and every token of a refilled request, must be
+    compared exactly."""
     jcfg, tcfg, jp, tp = slice_setup
     rng = np.random.default_rng(2)
     prompts = {i: rng.integers(0, jcfg.vocab, 10) for i in range(6)}
@@ -123,9 +132,13 @@ def test_continuous_batcher_greedy_tokens_identical(slice_setup):
                                    gmm_fn=kernel_ffn))
     tb = tserve.ContinuousBatcher(tcfg, tp, n_slots=2,
                                   max_len=10 + max_new + 1, device="cpu")
-    want = _drive(jb, prompts, max_new)
-    got = _drive(tb, prompts, max_new)
-    assert got == want
+    with watch_batcher(tb) as port_logs:
+        got = _drive(tb, prompts, max_new)
+    with watch_batcher(jb, forced=got) as jax_logs:
+        assert _drive(jb, prompts, max_new) == got
+    exact = check_decisions(port_logs, jax_logs, got, tol=1e-4)
+    assert sum(exact.values()) >= 25, exact
+    assert any(exact[rid] == max_new for rid in prompts if rid >= 2), exact
     assert tb.n_prefills == 6 and tb.n_decode_steps >= 3 * (max_new - 1)
 
 
@@ -148,3 +161,52 @@ def test_serve_main_on_cpu():
     assert stats["requests"] == 5 and stats["tokens"] == 15
     assert stats["nonfinite_steps"] == 0
     assert all(len(v) == 3 for v in b.generated.values())
+
+
+def _isolated_generate(cfg, params, prompt, max_new):
+    """Greedy tokens of one request served alone (batch 1, scalar len),
+    and each decision's logits."""
+    toks = torch.as_tensor(np.asarray(prompt)[None, :])
+    lg, cache = TM.prefill(cfg, params, {"tokens": toks},
+                           max_len=len(prompt) + max_new + 1)
+    out, rows = [int(torch.argmax(lg[0]))], [lg[0]]
+    for _ in range(max_new - 1):
+        lg, cache = TM.decode_step(cfg, params,
+                                   torch.tensor([[out[-1]]]), cache)
+        out.append(int(torch.argmax(lg[0, -1])))
+        rows.append(lg[0, -1])
+    return out, rows
+
+
+@pytest.mark.parametrize("arch, prompt_len", [("mamba2-1_3b", 16),
+                                              ("recurrentgemma-2b", 20)])
+def test_batcher_on_ssm_and_hybrid_equals_isolated_and_jax(arch,
+                                                           prompt_len):
+    """Twin of ``tests/test_serving.py``'s check on the ssm and hybrid
+    smoke configs, fp32: 5 prompts through 2 slots give each request the
+    tokens it gets served alone, and the JAX batcher's tokens. mamba2's
+    prompts are two 8-token SSD chunks; recurrentgemma's pass its 16-token
+    window, so its ring wraps at prefill and again in decode. Every cache
+    leaf (conv, ssm, h, ring k/v, per-slot len) goes through
+    ``_scatter_slot``. Tokens are compared exactly only after every
+    decision of the port's fp32 run is shown to have a top-1/top-2 gap of
+    at least MARGIN of the logits' range."""
+    jcfg = dataclasses.replace(jget_smoke(arch), dtype="float32")
+    tcfg = dataclasses.replace(tget_smoke(arch), dtype="float32")
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    rng = np.random.default_rng(3)
+    prompts = {i: rng.integers(0, jcfg.vocab, prompt_len) for i in range(5)}
+    max_new = 6
+    tb = tserve.ContinuousBatcher(tcfg, tp, n_slots=2,
+                                  max_len=prompt_len + max_new + 1,
+                                  device="cpu")
+    got = _drive(tb, prompts, max_new)
+    with torch.no_grad():
+        alone = {rid: _isolated_generate(tcfg, tp, prompt, max_new)
+                 for rid, prompt in prompts.items()}
+    assert_decided([r for _, rows in alone.values() for r in rows])
+    for rid in prompts:
+        assert got[rid] == alone[rid][0], rid
+    jb = JBatcher(jcfg, jp, n_slots=2, max_len=prompt_len + max_new + 1)
+    assert got == _drive(jb, prompts, max_new)

@@ -7,8 +7,10 @@ populations and the ``resolve_decode_sched`` reports are equal exactly (the
 µs are the Ascend A3 cost model's predictions); the admit/defer/shed verdict
 sequence and the shed list equal JAX's ``ContinuousBatcher``'s; greedy
 tokens through ``OnlineMoE`` equal JAX's and a forced swap does not change
-them. Every ``OnlineMoE`` gets its own ``SSCCache``; a module fixture
-asserts that both packages' process-wide caches are left as they were.
+them, where the port's logits decide them by the margin of
+``tests/_torch_margin.py`` (the logits everywhere within 1e-4). Every
+``OnlineMoE`` gets its own ``SSCCache``; a module fixture asserts that
+both packages' process-wide caches are left as they were.
 """
 
 import dataclasses
@@ -27,6 +29,7 @@ if str(REPO) not in sys.path:
     sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
+from _torch_margin import check_decisions, watch_batcher  # noqa: E402
 import repro.core.autoselect as jsel  # noqa: E402
 import repro.launch.dropless as jdl  # noqa: E402
 import repro.launch.online as jon  # noqa: E402
@@ -154,10 +157,12 @@ def test_admission_verdicts_and_shed_equal_jax(smoke):
     assert {v for _, v in stats2["verdicts"]} == {"admit", "defer"}
 
 
-def _serve_online(m, cfg, params, prompts, max_new, swap_at, cache):
+def _serve_online(m, cfg, params, prompts, max_new, swap_at, cache,
+                  forced=None):
     """Serve through ``OnlineMoE`` (ep = 2, ``geometric:8``, refits off)
     with the reference test's loop, a forced swap after ``swap_at``
-    decode steps; returns the greedy tokens and the tuner."""
+    decode steps, fed ``forced`` tokens where given (``watch_batcher``);
+    returns the greedy tokens, the tuner and each decision's logits."""
     dl = jdl if m is jsv else tdl
     on = jon if m is jsv else ton
     tuner = on.OnlineTuner(initial="geometric:8",
@@ -171,7 +176,7 @@ def _serve_online(m, cfg, params, prompts, max_new, swap_at, cache):
                             max_len=12 + max_new + 1, moe_impl=om.impl,
                             **kw)
     pending, finished, steps = list(prompts), [], 0
-    with torch.no_grad():
+    with torch.no_grad(), watch_batcher(b, forced) as logs:
         while pending or b.active.any() or b.instant_done:
             while pending and b.admit(pending[0], prompts[pending[0]],
                                       max_new):
@@ -182,23 +187,35 @@ def _serve_online(m, cfg, params, prompts, max_new, swap_at, cache):
                 om.swap_to("linear:4")
             assert steps < 200
     assert sorted(finished) == sorted(prompts)
-    return b.generated, tuner
+    return b.generated, tuner, logs
 
 
 def test_online_greedy_tokens_equal_jax_and_survive_a_forced_swap(smoke):
+    """The port serves first, without a swap; its tokens are fed to the
+    other three runs (JAX's, and both packages' with the swap), so all
+    four decide on the same inputs at each of the 16 decisions, the two
+    refilled requests' included. Each run's logits are held to the port's
+    within 1e-4, and its tokens equal the port's exactly where the port's
+    top-1/top-2 gap is at least MARGIN of the logits' range. At least 13
+    decisions, and every token of a refilled request, must be compared
+    exactly."""
     jcfg, tcfg, jp, tp = smoke
     prompts = _prompts(jcfg, 4, 12, seed=1)
-    got = {}
+    tokens, _, ref = _serve_online(tsv, tcfg, tp, prompts, 4, None,
+                                   TCache(max_entries=64))
+    tuners = {}
     for m, cfg, params, Cache in ((jsv, jcfg, jp, JCache),
                                   (tsv, tcfg, tp, TCache)):
-        for swap_at in (None, 2):
-            got[m, swap_at] = _serve_online(m, cfg, params, prompts, 4,
-                                            swap_at, Cache(max_entries=64))
-    assert got[tsv, None][0] == got[jsv, None][0]
-    assert got[tsv, 2][0] == got[tsv, None][0]
-    assert got[jsv, 2][0] == got[jsv, None][0]
-    assert got[tsv, 2][1].swaps == got[jsv, 2][1].swaps
-    assert got[tsv, 2][1].swaps[-1]["forced"]
+        for swap_at in (None, 2) if m is jsv else (2,):
+            got, tuners[m, swap_at], logs = _serve_online(
+                m, cfg, params, prompts, 4, swap_at, Cache(max_entries=64),
+                forced=tokens)
+            assert got == tokens
+            exact = check_decisions(ref, logs, tokens, tol=1e-4)
+            assert sum(exact.values()) >= 13, (m.__name__, swap_at, exact)
+            assert any(exact[rid] == 4 for rid in (2, 3)), exact
+    assert tuners[tsv, 2].swaps == tuners[jsv, 2].swaps
+    assert tuners[tsv, 2].swaps[-1]["forced"]
 
 
 def test_serve_main_with_every_scheduling_option_on_the_cpu(monkeypatch,

@@ -513,7 +513,8 @@ def test_make_steps_ep_serving_with_flash_decoding_matches_jax(
     """``prefill_step`` through EP, then two ``decode_step`` calls with
     flash decoding over the 1x4 mesh (every rank routing the whole
     decode batch): logits within 1e-4 of JAX's, and equal to the dense
-    decode of a step without a mesh."""
+    decode of a step without a mesh. Each step is fed the token JAX's
+    greedy decision picked, not the port's."""
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import model as TM
     from repro_torch.parallel.ep import EPConfig, make_moe_ep
@@ -532,7 +533,9 @@ def test_make_steps_ep_serving_with_flash_decoding_matches_jax(
         np.testing.assert_allclose(logits.numpy(),
                                    jax_ep_steps[f"{mode}/prefill"],
                                    rtol=1e-4, atol=1e-4)
-        nxt = logits.argmax(-1)[:, None]
+        # Fed JAX's tokens, so no greedy decision is compared exactly.
+        nxt = torch.from_numpy(jax_ep_steps[f"{mode}/prefill"]
+                               .argmax(-1))[:, None]
         dense = [{k: v.clone() for k, v in c.items()} for c in cache]
         for i in range(2):
             before = mesh.comm.stats.counts["all-reduce"]
@@ -545,7 +548,8 @@ def test_make_steps_ep_serving_with_flash_decoding_matches_jax(
             ld, dense = TM.decode_step(tcfg, tp, nxt, dense,
                                        moe_impl=plain_ep)
             torch.testing.assert_close(lg, ld, rtol=1e-5, atol=1e-5)
-            nxt = lg[:, -1].argmax(-1)[:, None]
+            nxt = torch.from_numpy(jax_ep_steps[f"{mode}/decode{i}"]
+                                   [:, -1].argmax(-1))[:, None]
 
 
 
@@ -568,3 +572,77 @@ def test_sharded_batch_matches_jax(jax_ep_steps):
     with pytest.raises(ValueError, match="data groups"):
         tpipe.SyntheticStream(tpipe.DataConfig(128, 16, 5)).sharded_batch(
             0, mesh, "cpu")
+
+
+@pytest.mark.parametrize("arch", ["llama3_2-3b", "recurrentgemma-2b"])
+def test_one_adamw_step_on_a_dense_and_the_hybrid_stack_matches_jax(arch):
+    """One train step, fp32, from the same params and AdamW state (weight
+    decay 0.1, lr 1e-2 from the first step), in two halves.
+
+    The grads: the loss within 1e-5 and every grad leaf within 1e-5 of
+    JAX's largest value of the leaf (1e-4 for recurrentgemma, whose
+    log-depth scan sums in another order than ``associative_scan``).
+
+    The update: both packages' ``apply_updates`` from the same grads, JAX's.
+    Adam's first step moves an entry by lr·g/(|g| + eps), so a grad near
+    zero that differs by fp32 noise would move it by any part of lr; from
+    the same grads both run the same fp32 ops, and differ only in the
+    order of the global norm's sum (a relative 1e-7 in the clip scale,
+    which moves lr·g/(|g| + eps) by at most that part of lr) and in the
+    rounding of each op. So params and masters agree within 1e-5 of each
+    leaf's largest value. Decay moves an entry by lr·0.1·|w|: a norm scale
+    (here started at 1) by 1e-3, rglru's Λ (about -4 to -9) by 4e-3 to
+    9e-3, far outside the tolerance. In the hybrid stack JAX stacks the
+    pattern's layers over super-blocks and keeps the tail unstacked, so a
+    1-d leaf (``ln1``, ``lam``, ``gate_a_b``, ...) is decayed in a
+    super-block and not in the tail."""
+    from repro_torch.configs import get_smoke_config as smoke_cfg
+    jcfg = dataclasses.replace(jget_smoke(arch), dtype="float32")
+    tcfg = dataclasses.replace(smoke_cfg(arch), dtype="float32")
+    tol = 1e-4 if tcfg.family == "hybrid" else 1e-5
+
+    def ones_for_norms(path, a):
+        name = str(getattr(path[-1], "key", ""))
+        return jnp.ones_like(a) if name.startswith("ln") else a
+
+    jp = jax.tree_util.tree_map_with_path(ones_for_norms,
+                                          JM.init_params(jcfg, KEY))
+    oc = dict(lr=1e-2, warmup_steps=1, total_steps=100, weight_decay=0.1)
+    joc = jadamw.OptConfig(**oc)
+    js = jadamw.init_opt_state(jp)
+    tp = train_params_from_numpy(_np(jp), tcfg, "cpu")
+    ts = opt_state_from_numpy(_np(js), tcfg, "cpu")
+    b = jpipe.SyntheticStream(jpipe.DataConfig(jcfg.vocab, 20, 2)) \
+        .global_batch_np(0)
+    loss, jg = jax.jit(jax.value_and_grad(
+        lambda p, batch: JM.loss_fn(jcfg, p, batch)))(
+            jp, {k: jnp.asarray(v) for k, v in b.items()})
+    tloss, tg = St.value_and_grad(
+        tcfg, tp, {k: torch.as_tensor(v, dtype=torch.long)
+                   for k, v in b.items()})
+    assert float(tloss) == pytest.approx(float(loss), rel=1e-5)
+    jg_t = train_params_from_numpy(_np(jg), tcfg, "cpu")
+    for a, c in zip(tadamw.tree_leaves(tg), tadamw.tree_leaves(jg_t)):
+        assert float((a - c).abs().max()) <= tol * float(c.abs().max())
+
+    jp, js, _ = jax.jit(lambda p, g, s: jadamw.apply_updates(p, g, s, joc))(
+        jp, jg, js)
+    with torch.no_grad():
+        tadamw.apply_updates(tp, jg_t, ts, tadamw.OptConfig(**oc))
+    for got, want in ((tp, jp), (ts["master"], js["master"])):
+        g = tadamw.tree_leaves(got)
+        w = tadamw.tree_leaves(train_params_from_numpy(_np(want), tcfg,
+                                                       "cpu"))
+        assert len(g) == len(w)
+        for a, c in zip(g, w):
+            err = float((a.detach() - c).abs().max())
+            assert err <= 1e-5 * float(c.abs().max()), err
+    if tcfg.family == "hybrid":
+        flags = tadamw.decay_flags(tp)
+        sup = tadamw.decay_flags({"super": tp["super"]})
+        tail = tadamw.decay_flags({"tail": tp["tail"]})
+        assert all(sup)
+        assert not all(tail) and any(tail)
+        assert tadamw.decay_flags({"tail": tp["tail"]}) == [
+            t.dim() >= 2 for t in tadamw.tree_leaves(tp["tail"])]
+        assert len(flags) == len(tadamw.tree_leaves(tp))
