@@ -214,6 +214,31 @@ Phases, each printing one JSON line:
    the plain expert FFN: loss within LOSS_TOL, every grad leaf's norm
    within GNORM_TOL, as phase 5.
 
+17. audio_vlm — the audio and vlm families and the dry run: (a) at full
+   width cut to AV_LAYERS layers in fp32, internvl2-26b's prefill over its
+   256 patches + 128 tokens and VLM_STEPS teacher-forced decode steps
+   within FAMILY_TOL x max|logit| of the forward on the same patches (the
+   logits without patches must differ by more), and hubert-xlarge's
+   encoder on the card within AUDIO_TOL x max|logit| of the same forward
+   on the CPU, a change to its last frame moving its first frame's logits;
+   (b) at full depth in bf16, internvl2-26b serving phase 4's traffic on
+   tokens alone through ``launch.serve.serve``, then ``prefill_step`` on
+   PATCH_BATCH x (256 patches + 128 tokens), and hubert-xlarge's
+   ``prefill_step`` (its encoder forward) on 1 x 32,768 frames (prefill_32k
+   with its batch of 32 cut to 1): medians, tokens/s, peak memory, no
+   kernel launch (path ``audio_vlm``); (c) FAMILY_TRAIN_STEPS training
+   steps (bf16, fp32 AdamW) of hubert-xlarge at full depth on 1 x 4,096
+   frames and of internvl2-26b cut to VLM_TRAIN_LAYERS layers on 1 x 4,096
+   tokens with its patches: finite losses and grad norms, no kernel launch
+   (path ``audio_vlm_train``); (d) ``launch.dryrun`` over all 31 arch x
+   shape cells on the meta device in DRYRUN_WORKERS processes, beside (b)'s
+   hubert prefill, which keeps the card busy: 0 failures, every train and
+   prefill cell's FLOPs at least ``model_flops`` less the products no step
+   makes (``dryrun.lookup_flops``), and each run of (b) and (c) counted at
+   its own batch and depth, its share of the roofline (max(t_compute,
+   t_memory) over its measured time) at most SHARE_MAX, its counted peak
+   beside ``torch.cuda.max_memory_allocated()``.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
 CUDA device nothing is printed to stdout.
@@ -232,6 +257,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from functools import partial
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -251,6 +277,7 @@ from repro_torch.kernels import gmm as gmm_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu as swiglu_mod  # noqa: E402
 from repro_torch.kernels import gmm_swiglu_bwd as bwd_mod  # noqa: E402
 from repro_torch.kernels import swiglu_add as swa_mod  # noqa: E402
+from repro_torch.kernels import work  # noqa: E402
 from repro_torch.kernels.ref import (gmm_ref, gmm_swiglu_bwd_ref,  # noqa
                                      gmm_swiglu_ref, moe_ffn_ref)
 from repro_torch.core import elastic  # noqa: E402
@@ -259,11 +286,14 @@ from repro_torch.core import fusion as fu  # noqa: E402
 from repro_torch.core.buckets import fit_ladder  # noqa: E402
 from repro_torch.core.ssc import SSCCache  # noqa: E402
 from repro_torch.configs import deepseek_moe_paper  # noqa: E402
+from repro_torch.configs.shapes import (SHAPES, ShapeSpec,  # noqa: E402
+                                        skip_reason)
 from repro_torch.launch import bench_dropless as dropless_bench  # noqa
 from repro_torch.launch import bench_ep_modes as ep_bench  # noqa: E402
 from repro_torch.launch import bench_fused_dropless as fused_bench  # noqa
 from repro_torch.launch import bench_swiglu_add as bench_mod  # noqa: E402
 from repro_torch.launch import dropless as dropless_mod  # noqa: E402
+from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
@@ -279,8 +309,6 @@ from repro_torch.parallel.flash_decode import make_flash_decode  # noqa
 
 ARCH = "granite-moe-3b-a800m"
 SLOTS, REQUESTS, PROMPT_LEN, MAX_NEW = 8, 16, 128, 32
-HBM_BYTES_PER_S = 3.35e12                       # H100 SXM data sheet
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # Kernel vs plain version on the card. fp32: the two sum up to 1536
 # products in different orders; bf16: the tolerance of the JAX kernel tests.
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -389,6 +417,29 @@ FAMILY_TRAIN_STEPS = 3
 # parameters do not fit one card; 2 layers are ~15 GB), serving
 # DBRX_REQUESTS requests; (e) the same layers' training step.
 DBRX, DBRX_LAYERS, DBRX_REQUESTS = "dbrx-132b", 2, 8
+# The audio and vlm families (phase 17). (a) fp32 at full width cut to
+# AV_LAYERS layers: internvl2's prefill over its 256 patches + PROMPT_LEN
+# tokens and VLM_STEPS teacher-forced decode steps within FAMILY_TOL x
+# max|logit| of the forward with the same patches; hubert's encoder over
+# AUDIO_FRAMES frames on the card within AUDIO_TOL x max|logit| of the
+# same forward on the CPU.
+AUDIO, VLM = "hubert-xlarge", "internvl2-26b"
+AV_LAYERS, VLM_STEPS, AUDIO_FRAMES, AUDIO_TOL = 2, 4, 512, 1e-4
+# (b) serving at full depth, bf16: internvl2 on phase 4's traffic, then
+# prefill_step on PATCH_BATCH sequences of 256 patches + PROMPT_LEN tokens;
+# hubert's prefill_step at prefill_32k's frames with its batch of 32 cut to
+# 1. (c) training, bf16 with fp32 AdamW, FAMILY_TRAIN_STEPS steps of
+# 1 x TRAIN_SEQ: hubert at full depth, internvl2 cut from 48 layers to
+# VLM_TRAIN_LAYERS (its 19.86 B parameters take 12 bytes each of AdamW
+# state). Each timed step call is repeated AV_REPEATS times after a warm-up.
+PATCH_BATCH, VLM_TRAIN_LAYERS, AV_REPEATS = 8, 4, 3
+# (d) the dry run over every arch x shape cell on the meta device, in
+# DRYRUN_WORKERS processes (host work: it runs beside hubert's prefill,
+# which keeps the card busy for seconds a call), and at each run's own
+# batch and depth: the share of the roofline a run reached,
+# max(t_compute, t_memory) / its measured time, may not exceed SHARE_MAX
+# (a count below the work done).
+DRYRUN_WORKERS, SHARE_MAX = 6, 1.05
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -540,30 +591,19 @@ def ptxas_report(log: str) -> list:
     return out
 
 
-def _bound(nbytes, n_ops, dtype):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, n_ops / PEAK_OPS[dtype]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
-
-
 def bound(E, C, K, N, two, dtype):
     """Least time (ms) for the call and what sets it: each input read once,
     the output written once, over HBM; 2 ops per multiply-add over the
-    dtype's peak."""
-    item = torch.finfo(dtype).bits // 8
-    w_cols = 2 * N if two else N
-    nbytes = (E * C * K + E * K * w_cols + E * C * N) * item
-    return _bound(nbytes, 2 * E * C * K * w_cols, dtype)
+    dtype's peak (``kernels.work``, the formulas the dry run counts)."""
+    return work.bound_ms(*work.gmm_work(E, C, K, N, dtype, two), dtype)
 
 
 def bwd_bound(E, C, K, F, dtype):
     """gmm_swiglu_bwd: x, w_in and dout read once, the fp32 dx and dw
     written once; the recompute of g and u, dx and dW are three products of
     2·E·C·K·2F operations."""
-    item = torch.finfo(dtype).bits // 8
-    nbytes = ((E * C * K + E * K * 2 * F + E * C * F) * item
-              + (E * C * K + E * K * 2 * F) * 4)
-    return _bound(nbytes, 3 * 2 * E * C * K * 2 * F, dtype)
+    return work.bound_ms(*work.gmm_swiglu_bwd_work(E, C, K, F, dtype),
+                         dtype)
 
 
 def kernel_case(name, E, C, K, N, dtype, gen, timed, layouts=(0, 0),
@@ -2490,6 +2530,347 @@ def run_families():
             {"families": launches, "families_train": train_launches})
 
 
+def vlm_consistency_case(dev="cuda", cfg=None, prompt=PROMPT_LEN,
+                         steps=VLM_STEPS):
+    """Phase 17 (a): internvl2-26b (or ``cfg``) at full width cut to
+    AV_LAYERS layers, fp32: the prefill over its patches + ``prompt``
+    tokens and ``steps`` teacher-forced decode steps against the forward
+    on the same patches and tokens; the logits without the patches must
+    differ."""
+    cfg = dataclasses.replace(cfg or get_config(VLM), n_layers=AV_LAYERS,
+                              dtype="float32")
+    params = M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    rng = np.random.default_rng(0)
+    S = prompt + steps
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, S)), device=dev)
+    patches = torch.as_tensor(rng.standard_normal(
+        (1, cfg.n_patches, cfg.d_model), dtype=np.float32), device=dev)
+    with torch.inference_mode():
+        full = M.forward(cfg, params, {"tokens": toks, "patches": patches})[0]
+        bare = M.forward(cfg, params, {"tokens": toks})[0]
+        last, cache = M.prefill(
+            cfg, params, {"tokens": toks[:, :prompt], "patches": patches},
+            max_len=cfg.n_patches + S)
+        errs = [float((last[0] - full[prompt - 1]).abs().max())]
+        for t in range(prompt, S):
+            lg, cache = M.decode_step(cfg, params, toks[:, t:t + 1], cache)
+            errs.append(float((lg[0, 0] - full[t]).abs().max()))
+    scale = float(full[prompt - 1:].abs().max())
+    moved = float((full - bare).abs().max())
+    out = {"arch": VLM, "n_layers": cfg.n_layers, "dtype": "float32",
+           "patches": cfg.n_patches, "prompt": prompt, "decode_steps": steps,
+           "prefill_max_abs_err": errs[0],
+           "decode_max_abs_err": max(errs[1:]), "logit_max_abs": scale,
+           "tol": FAMILY_TOL, "limit": FAMILY_TOL * scale,
+           "cache_len": int(cache[0]["len"]),
+           "patches_move_logits_by": moved}
+    finite = bool(torch.isfinite(full).all())
+    del params, cache, full, bare
+    if (not finite or max(errs) > FAMILY_TOL * scale
+            or moved <= FAMILY_TOL * scale
+            or out["cache_len"] != cfg.n_patches + S):
+        raise AssertionError(f"{VLM}: prefill and decode with patches "
+                             f"disagree with the forward: {out}")
+    return out
+
+
+def audio_consistency_case(dev="cuda", cfg=None, frames=AUDIO_FRAMES):
+    """Phase 17 (a): hubert-xlarge (or ``cfg``) at full width cut to
+    AV_LAYERS layers, fp32: the encoder forward on ``dev`` against the same
+    forward on the CPU (the same params, drawn on the CPU); then, on
+    ``dev``, a change to the last frame moves the first frame's logits (no
+    causal mask)."""
+    cfg = dataclasses.replace(cfg or get_config(AUDIO), n_layers=AV_LAYERS,
+                              dtype="float32")
+    host = M.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    params = adamw.tree_map(lambda t: t.to(dev), host)
+    feats = torch.as_tensor(np.random.default_rng(0).standard_normal(
+        (1, frames, cfg.feat_in), dtype=np.float32))
+    moved_feats = feats.clone()
+    moved_feats[:, -1] += 1.0
+    with torch.inference_mode():
+        want = M.forward(cfg, host, {"features": feats})[0]
+        got = M.forward(cfg, params, {"features": feats.to(dev)})[0].cpu()
+        moved = M.forward(cfg, params,
+                          {"features": moved_feats.to(dev)})[0].cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    first = float((moved[0] - got[0]).abs().max())
+    out = {"arch": AUDIO, "n_layers": cfg.n_layers, "dtype": "float32",
+           "frames": frames, "max_abs_err_vs_cpu": err,
+           "logit_max_abs": scale, "tol": AUDIO_TOL,
+           "limit": AUDIO_TOL * scale,
+           "first_frame_moved_by": first}
+    del host, params
+    if (not bool(torch.isfinite(got).all()) or err > AUDIO_TOL * scale
+            or first <= AUDIO_TOL * scale):
+        raise AssertionError(f"{AUDIO}: the encoder on the card failed its "
+                             f"gates: {out}")
+    return out
+
+
+def _timed(fn, dev, repeats=AV_REPEATS):
+    """``fn()`` once to warm up, then ``repeats`` times: the last result
+    and the host ms of each timed call, each ending in a synchronize."""
+    out = fn()
+    ms = []
+    for _ in range(repeats):
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return out, ms
+
+
+def av_batch(cfg, batch, seq, dev, seed=0, labels=False):
+    """``batch`` x ``seq`` inputs of the arch, as the dry run counts them
+    (``configs.shapes.input_specs``): features (audio), or tokens and the
+    patches (vlm); with ``labels``, the training batch's labels too."""
+    rng = np.random.default_rng(seed)
+    dt = cfg.compute_dtype
+
+    def normal(*shape):
+        return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32),
+                               device=dev).to(dt)
+
+    out = {}
+    if labels:
+        out["labels"] = torch.as_tensor(
+            rng.integers(0, cfg.vocab, (batch, seq)), device=dev)
+    if cfg.family == "audio":
+        out["features"] = normal(batch, seq, cfg.feat_in)
+    else:
+        out["tokens"] = torch.as_tensor(
+            rng.integers(0, cfg.vocab, (batch, seq)), device=dev)
+        out["patches"] = normal(batch, cfg.n_patches, cfg.d_model)
+    return out
+
+
+def prefill_step_case(arch, dev="cuda", cfg=None, batch=1, seq=None):
+    """Phase 17 (b): ``arch``'s (or ``cfg``'s) ``prefill_step`` at full
+    depth, bf16, on ``batch`` sequences: hubert's encoder forward over
+    ``seq`` frames (default prefill_32k's 32,768, its batch of 32 cut to
+    1), or internvl2's prefill over its 256 patches + ``seq`` tokens."""
+    cfg = cfg or get_config(arch)
+    seq = seq or SHAPES["prefill_32k"].seq_len
+    _free(dev)
+    params = M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    inputs = av_batch(cfg, batch, seq, dev)
+    audio = cfg.family == "audio"
+    max_len = seq + (0 if audio else cfg.n_patches)
+    fns = steps_mod.make_steps(cfg, make_test_mesh(1, 1, device=dev))
+    reset_launches()
+    with torch.inference_mode():
+        (logits, cache), ms = _timed(
+            lambda: fns.prefill_step(params, inputs, max_len), dev)
+    launches = read_launches()
+    med = statistics.median(ms)
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "params": cfg.param_count(), "batch": batch, "seq": seq,
+           "patches": 0 if audio else cfg.n_patches, "ms": ms,
+           "ms_median": med, "tokens_per_s": batch * seq / (med / 1e3),
+           "launches": launches, "max_memory_allocated_bytes": _peak(dev)}
+    want = (batch, seq, cfg.padded_vocab) if audio else (batch,
+                                                         cfg.padded_vocab)
+    ok = (bool(torch.isfinite(logits).all())
+          and tuple(logits.shape) == want and not any(launches.values())
+          and (cache is None if audio else int(cache[0]["len"]) == max_len))
+    del params, inputs, logits, cache
+    if not ok:
+        raise AssertionError(f"{arch}'s prefill step failed its gates: "
+                             f"{out}")
+    return out
+
+
+def av_train_case(arch, dev="cuda", cfg=None, seq=TRAIN_SEQ,
+                  steps=FAMILY_TRAIN_STEPS):
+    """Phase 17 (c): ``steps`` training steps of ``arch`` (or ``cfg``),
+    bf16 with fp32 AdamW, through ``launch.steps.make_train_step`` on
+    1 x ``seq`` batches (the first step is warm-up). Finite losses and grad
+    norms; no kernel launch (no MoE layer)."""
+    cfg = cfg or get_config(arch)
+    _free(dev)
+    params = adamw.cast_params(M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        cfg.compute_dtype)
+    state = adamw.init_opt_state(params)
+    step = steps_mod.make_train_step(cfg, adamw.OptConfig(
+        lr=1e-3, warmup_steps=2, total_steps=steps))
+    reset_launches()
+    log = []
+    for i in range(steps):
+        batch = av_batch(cfg, 1, seq, dev, seed=i, labels=True)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        if torch.device(dev).type == "cuda":
+            torch.cuda.synchronize()
+        log.append((1e3 * (time.perf_counter() - t), loss, gnorm))
+    launches = read_launches()
+    step_ms = [x[0] for x in log]
+    med = statistics.median(step_ms[1:])
+    out = {"arch": arch, "n_layers": cfg.n_layers,
+           "full_depth_layers": get_config(arch).n_layers,
+           "params": cfg.param_count(), "seq": seq,
+           "losses": [x[1] for x in log], "grad_norms": [x[2] for x in log],
+           "step_ms": step_ms, "step_ms_median_after_warmup": med,
+           "tokens_per_s": seq / (med / 1e3), "launches": launches,
+           "max_memory_allocated_bytes": _peak(dev)}
+    del params, state, step
+    if not all(math.isfinite(x) for x in out["losses"] + out["grad_norms"]):
+        raise AssertionError(f"{arch}: non-finite training metrics: {out}")
+    if any(launches.values()):
+        raise AssertionError(f"{arch} has no MoE layer, yet its training "
+                             f"launched a kernel: {out}")
+    return out
+
+
+def run_cells(vlm_cfg=None, audio_cfg=None, vlm_train_cfg=None,
+              prompt_len=PROMPT_LEN, patch_batch=PATCH_BATCH,
+              frames=None, seq=TRAIN_SEQ):
+    """Phase 17 (d)'s counts of the runs of (b) and (c), each at the run's
+    own batch and depth: {label: (cfg, ShapeSpec)}. The serving decode
+    step counts the 8 slots' cache (scalar lengths; the batcher's are per
+    slot); its prefills, one request of tokens alone, are not counted."""
+    vlm_cfg = vlm_cfg or get_config(VLM)
+    audio_cfg = audio_cfg or get_config(AUDIO)
+    vlm_train_cfg = vlm_train_cfg or dataclasses.replace(
+        vlm_cfg, n_layers=VLM_TRAIN_LAYERS)
+    frames = frames or SHAPES["prefill_32k"].seq_len
+    return {
+        "vlm_decode_step": (vlm_cfg, ShapeSpec(
+            "serve_decode", prompt_len + MAX_NEW + 1, SLOTS, "decode")),
+        "vlm_patch_prefill": (vlm_cfg, ShapeSpec(
+            "patch_prefill", prompt_len, patch_batch, "prefill")),
+        "audio_prefill": (audio_cfg, ShapeSpec("prefill_32k", frames, 1,
+                                               "prefill")),
+        "audio_train": (audio_cfg, ShapeSpec("train_4k", seq, 1, "train")),
+        "vlm_train": (vlm_train_cfg, ShapeSpec("train_4k", seq, 1,
+                                               "train"))}
+
+
+def dryrun_grid(archs=None, shapes=None):
+    """Every (cfg, shape) cell of the grid that ``skip_reason`` keeps."""
+    archs = archs or dryrun_mod.DRYRUN_ARCHS
+    return [(get_config(a), s) for a in archs for s in (shapes or SHAPES)
+            if skip_reason(get_config(a), s) is None]
+
+
+def dryrun_check(grid, runs, results, measured, seconds,
+                 workers=DRYRUN_WORKERS):
+    """Phase 17 (d)'s line from ``dryrun.count_all``'s ``results`` of
+    ``grid`` + ``runs`` (``run_cells``) and each run's ``measured`` (ms,
+    peak device bytes). Gates: 0 failures; every train and prefill cell's
+    FLOPs at least ``model_flops`` less the products no step makes
+    (``lookup_flops``); each run's share of the roofline, max(t_compute,
+    t_memory) / its measured time, at most SHARE_MAX. The counted peak
+    (arguments + live bytes) is printed beside the card's, not gated."""
+    cells, failures, low = [], [], []
+    for (cfg, s), (row, fail) in zip(grid, results):
+        if fail is not None:
+            failures.append(fail)
+            continue
+        floor = row["model_flops"] - dryrun_mod.lookup_flops(cfg, s)
+        cells.append(dict({k: row[k] for k in (
+            "arch", "shape", "t_compute_s", "t_memory_s", "bottleneck",
+            "model_flops", "flops_per_dev", "bytes_per_dev",
+            "roofline_frac", "hbm_args_gb", "hbm_temp_gb", "count_s")},
+            flops_floor=floor))
+        if SHAPES[s].kind != "decode" and row["flops_per_dev"] < floor:
+            low.append((row["arch"], s))
+    shares = []
+    for (label, (cfg, sp)), (row, fail) in zip(runs.items(),
+                                               results[len(grid):]):
+        if fail is not None:
+            failures.append(fail)
+            continue
+        ms, peak = measured[label]
+        shares.append({
+            "run": label, "arch": cfg.name, "n_layers": cfg.n_layers,
+            "batch": sp.global_batch, "seq": sp.seq_len, "kind": sp.kind,
+            "t_compute_ms": 1e3 * row["t_compute_s"],
+            "t_memory_ms": 1e3 * row["t_memory_s"],
+            "bottleneck": row["bottleneck"], "measured_ms": ms,
+            "roofline_share": max(row["t_compute_s"], row["t_memory_s"])
+            / (ms / 1e3),
+            "counted_peak_bytes": (row["hbm_args_gb"] + row["hbm_temp_gb"])
+            * 2**30, "max_memory_allocated_bytes": peak,
+            "kernels": row["kernels"], "count_s": row["count_s"]})
+    out = {"cells": cells, "failures": failures, "flops_below_floor": low,
+           "runs": shares, "workers": workers, "seconds": seconds,
+           "cell_count_s_sum": sum(c["count_s"] for c in cells)}
+    if failures or low or any(s["roofline_share"] > SHARE_MAX
+                              for s in shares):
+        raise AssertionError(f"the dry run failed its gates: {json.dumps(
+            {k: out[k] for k in ('failures', 'flops_below_floor', 'runs')})}")
+    return out
+
+
+def run_measurements(serving, patch_prefill, audio_prefill,
+                     training) -> dict:
+    """Each run of ``run_cells``: (its measured ms, its peak device bytes)
+    from the lines of (b) and (c)."""
+    out = {"vlm_decode_step": (serving["decode_step_ms_median"],
+                               serving["max_memory_allocated_bytes"])}
+    for label, run in (("vlm_patch_prefill", patch_prefill),
+                       ("audio_prefill", audio_prefill)):
+        out[label] = (run["ms_median"], run["max_memory_allocated_bytes"])
+    for label, tr in zip(("audio_train", "vlm_train"), training):
+        out[label] = (tr["step_ms_median_after_warmup"],
+                      tr["max_memory_allocated_bytes"])
+    return out
+
+
+def _sum_launches(*outs) -> dict:
+    return {k: sum(o["launches"][k] for o in outs) for k in COUNTERS}
+
+
+def run_audio_vlm():
+    """Phase 17. Returns the phase's line and the launches of paths
+    audio_vlm (internvl2's serving and patch prefill, hubert's prefill) and
+    audio_vlm_train, gated at 0 in each case: these families run no GMM
+    kernel. The dry run's processes start once the host-bound runs are
+    done, beside hubert's device-bound prefill."""
+    t = time.perf_counter()
+    _free()
+    consistency = [vlm_consistency_case()]
+    _free()
+    consistency.append(audio_consistency_case())
+    serving = family_serve_case(VLM)
+    patch_prefill = prefill_step_case(VLM, batch=PATCH_BATCH,
+                                      seq=PROMPT_LEN)
+    runs = run_cells()
+    training = [av_train_case(AUDIO),
+                av_train_case(VLM, cfg=runs["vlm_train"][0])]
+    _free()
+    grid = dryrun_grid()
+    with ThreadPoolExecutor(1) as ex:
+        t_dry = time.perf_counter()
+        fut = ex.submit(dryrun_mod.count_all, grid + list(runs.values()),
+                        DRYRUN_WORKERS)
+        audio_prefill = prefill_step_case(AUDIO)
+        results = fut.result()
+        dry_s = time.perf_counter() - t_dry
+    _free()
+    dry = dryrun_check(grid, runs, results, run_measurements(
+        serving, patch_prefill, audio_prefill, training), dry_s)
+    return ({"phase": "audio_vlm", "consistency": consistency,
+             "serving": serving, "prefill_steps": [patch_prefill,
+                                                   audio_prefill],
+             "training": training, "dryrun": dry,
+             "seconds": time.perf_counter() - t},
+            {"audio_vlm": _sum_launches(serving, patch_prefill,
+                                        audio_prefill),
+             "audio_vlm_train": _sum_launches(*training)})
+
+
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
     """The ``kernels`` line's entry of a swiglu_add mode: timed at the
     paper's largest size in bf16 (M = 32768), with every size beside it."""
@@ -2589,6 +2970,9 @@ def main() -> int:
     families_out, families_launches = run_families()
     emit(families_out)
     path_launches.update(families_launches)
+    av_out, av_launches = run_audio_vlm()
+    emit(av_out)
+    path_launches.update(av_launches)
 
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,8 +1,8 @@
 """Architecture config registry: ``get_config(arch_id)`` / ``ARCHS``.
 
-The port's own copy of ``repro.configs``. Only the architectures whose model
-family the port runs are listed; the audio and vlm archs arrive with their
-slice and raise ``NotImplementedError`` until then.
+The port's own copy of ``repro.configs``: the reference's ten
+architectures, then the paper's §5.2 module. An arch it does not know
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,15 +18,11 @@ ARCHS = [
     "qwen2-1_5b",
     "gemma-2b",
     "recurrentgemma-2b",
+    "hubert-xlarge",
     "mamba2-1_3b",
+    "internvl2-26b",
     "deepseek-moe-paper",      # the paper's §5.2 module (EP benchmark)
 ]
-
-# The reference's archs of families the port does not run yet.
-_LATER = {
-    "hubert-xlarge": "the audio/vlm slice",
-    "internvl2-26b": "the audio/vlm slice",
-}
 
 _ALIASES = {
     "llama3.2-3b": "llama3_2-3b",
@@ -41,9 +37,6 @@ def canonical(arch: str) -> str:
 
 def _module(arch: str):
     name = canonical(arch)
-    if name in _LATER:
-        raise NotImplementedError(
-            f"{arch!r} is not ported yet; it comes with {_LATER[name]}")
     if name not in ARCHS:
         raise NotImplementedError(
             f"{arch!r} is not ported; the port serves {ARCHS}")

@@ -10,8 +10,10 @@
 * ``Topology`` — the two-level EP cluster the compiler and simulator
   price links on.
 
-The reference's TPU roofline constants are not copied: the port's
-benchmarks bound kernels by the H100's own rates.
+* ``NvidiaH100`` (``H100``) — the card the port runs on: the peak rates
+  that every bound and roofline of the port divides by (``chip_smoke.py``,
+  ``parallel/roofline.py``, the kernel benchmarks). It stands where the
+  reference keeps its ``TPUv5e`` roofline constants, which are not copied.
 """
 
 from __future__ import annotations
@@ -117,3 +119,31 @@ class Topology:
         """Hashable identity for schedule-cache keys (``core/ssc.py``)."""
         return (self.ranks_per_node, self.intra_gbps, self.inter_gbps,
                 self.intra_hop_us, self.inter_hop_us)
+
+
+@dataclasses.dataclass(frozen=True)
+class NvidiaH100:
+    """Peak rates of one NVIDIA H100 SXM (NVIDIA's data sheet: dense, no
+    sparsity, at the full 700 W power limit; a card set lower runs slower
+    under load)."""
+
+    peak_flops_bf16: float = 989e12       # FLOP/s on the tensor cores
+    peak_flops_fp32: float = 67e12        # FLOP/s outside the tensor cores
+    hbm_bytes_per_s: float = 3.35e12
+    hbm_bytes: int = 80 * 10**9
+    # One direction of the card's NVLink. Carried, not used: the port's
+    # cells run on one card and have no collective term.
+    nvlink_bytes_per_s: float = 450e9
+
+    def peak_flops(self, dtype) -> float:
+        """The peak of a compute dtype (``torch.bfloat16``/``float32`` or
+        its name)."""
+        name = str(dtype).removeprefix("torch.")
+        if name == "bfloat16":
+            return self.peak_flops_bf16
+        if name == "float32":
+            return self.peak_flops_fp32
+        raise ValueError(f"no peak rate for {dtype!r}")
+
+
+H100 = NvidiaH100()

@@ -4,7 +4,10 @@ Counterpart of ``repro.kernels.gmm.gmm``: ``[E, C, K] × [E, K, N] → [E, C, N]
 with fp32 sums and the output in x's dtype. The CUDA kernel masks ragged
 C, N and K itself, so there is no block choice (``_pick_block``) and no VMEM
 budget here. On a CPU tensor the plain version ``ref.gmm_ref`` runs; on a
-CUDA tensor the kernel launches or the call raises.
+CUDA tensor the kernel launches or the call raises. On a meta tensor
+nothing runs: the call reports the kernel's work (``work.gmm_work``) to
+the dry run's counter and returns an empty output of the kernel's shape and
+dtype.
 
 Each operand is contiguous or the transpose of a contiguous tensor in its
 last two dims (``operand_layout``); the kernel reads either in place.
@@ -29,7 +32,7 @@ import functools
 
 import torch
 
-from . import build
+from . import build, work
 from .ref import gmm_ref
 
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -157,10 +160,14 @@ def gmm(x, w):
     layouts = operand_layout(x, "x"), operand_layout(w, "w")
     if x.device.type == "cpu":
         return gmm_ref(x, w)
-    if x.device.type != "cuda":
-        raise ValueError(f"gmm runs on cuda or cpu tensors, not {x.device}")
-    E, C, _ = x.shape
+    E, C, K = x.shape
     N = w.shape[-1]
+    if x.device.type == "meta":      # the kernel's work, counted; no launch
+        work.record("gmm", *work.gmm_work(E, C, K, N, x.dtype))
+        return torch.empty((E, C, N), dtype=x.dtype, device=x.device)
+    if x.device.type != "cuda":
+        raise ValueError(
+            f"gmm runs on cuda, cpu or meta tensors, not {x.device}")
     out = torch.empty((E, C, N), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out

@@ -4,14 +4,16 @@ Counterpart of ``repro.kernels.gmm_swiglu.gmm_swiglu``:
 ``x [E, C, K] × w_in [E, K, 2F] (gate ‖ up) → silu(x·Wg) ⊙ (x·Wu) [E, C, F]``,
 two fp32 accumulators and SwiGLU before the single store. On a CPU tensor the
 plain version ``ref.gmm_swiglu_ref`` runs; on a CUDA tensor the kernel
-launches or the call raises.
+launches or the call raises; on a meta tensor the call reports the
+kernel's work to the dry run's counter (``work.record``) and returns an
+empty output.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, work
 from .gmm import check_operands, tensor_core_body
 from .ref import gmm_swiglu_ref
 
@@ -34,11 +36,15 @@ def gmm_swiglu(x, w_in):
                          "w_in")
     if x.device.type == "cpu":
         return gmm_swiglu_ref(x, w_in)
+    E, C, K = x.shape
+    F = two_f // 2
+    if x.device.type == "meta":      # the kernel's work, counted; no launch
+        work.record("gmm_swiglu",
+                    *work.gmm_work(E, C, K, F, x.dtype, two=True))
+        return torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if x.device.type != "cuda":
         raise ValueError(
-            f"gmm_swiglu runs on cuda or cpu tensors, not {x.device}")
-    E, C, _ = x.shape
-    F = two_f // 2
+            f"gmm_swiglu runs on cuda, cpu or meta tensors, not {x.device}")
     out = torch.empty((E, C, F), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out

@@ -13,7 +13,9 @@ the gate and up products instead of keeping the ``[E, C, 2F]`` intermediate.
   backward through ``gmm_swiglu_bwd`` with grads in the primal dtype.
 
 On a CPU tensor the plain version ``ref.gmm_swiglu_bwd_ref`` runs; on a
-CUDA tensor the kernel launches or the call raises. bf16 calls that tensor
+CUDA tensor the kernel launches or the call raises; on a meta tensor the
+call reports the kernel's work to the dry run's counter (``work.record``)
+and returns empty outputs. bf16 calls that tensor
 maps can describe run the tensor-core body; fp32 calls and the rest run the
 FMA body (``tensor_core_body``). Each body has its launch count.
 """
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from . import build
+from . import build, work
 from .gmm import check_operands
 from .gmm_swiglu import gmm_swiglu
 from .ref import gmm_swiglu_bwd_ref
@@ -66,9 +68,14 @@ def gmm_swiglu_bwd(x, w4, dout, out_dtype=torch.float32):
     if x.device.type == "cpu":
         dx, dw4 = gmm_swiglu_bwd_ref(x, w4, dout)
         return dx.to(out_dtype), dw4.to(out_dtype)
+    if x.device.type == "meta":      # the kernel's work, counted; no launch
+        work.record("gmm_swiglu_bwd", *work.gmm_swiglu_bwd_work(
+            E, C, K, F, x.dtype, out_dtype))
+        return (torch.empty((E, C, K), dtype=out_dtype, device=x.device),
+                torch.empty((E, K, 2, F), dtype=out_dtype, device=x.device))
     if x.device.type != "cuda":
-        raise ValueError(
-            f"gmm_swiglu_bwd runs on cuda or cpu tensors, not {x.device}")
+        raise ValueError(f"gmm_swiglu_bwd runs on cuda, cpu or meta "
+                         f"tensors, not {x.device}")
     if not (x.is_contiguous() and w4.is_contiguous()
             and dout.is_contiguous()):
         raise ValueError("the CUDA kernel takes contiguous x, w4 and dout")

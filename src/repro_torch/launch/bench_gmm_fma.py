@@ -59,6 +59,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import build
 from repro_torch.kernels import gmm as gmm_mod
 from repro_torch.kernels import gmm_swiglu as swiglu_mod
+from repro_torch.kernels import work
 from repro_torch.kernels.ref import gmm_ref, gmm_swiglu_ref
 from repro_torch.models.moe import capacity
 
@@ -67,8 +68,6 @@ TOKENS = 4096
 ROWS = (8, 9, 17, 127, 683, 1001)    # 683: an expert's mean share
 GRAD_ROWS = 683
 TOL = 1e-4                      # fp32, |got - want| <= TOL·(1 + |want|)
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM data sheet
-PEAK_FP32_OPS = 67e12
 
 
 def cases(cfg, rows):
@@ -91,13 +90,10 @@ def cases(cfg, rows):
 
 
 def bound(E, C, K, N, swiglu):
-    """Least ms for the call, and whether bytes or operations set it."""
-    w_cols = 2 * N if swiglu else N
-    nbytes = 4 * (E * C * K + E * K * w_cols + E * C * N)
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = 2 * E * C * K * w_cols / PEAK_FP32_OPS
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    """Least ms for the fp32 call, and whether bytes or operations set it
+    (``kernels.work``)."""
+    f32 = torch.float32
+    return work.bound_ms(*work.gmm_work(E, C, K, N, f32, swiglu), f32)
 
 
 def cuda_ms(fn, iters: int = 20, reps: int = 3) -> float:

@@ -27,6 +27,7 @@ import argparse
 import torch
 
 from ..core.hardware import AscendA3
+from ..core.hardware import H100
 from ..core.odg import ODG, OperatorNode, ScheduleConfig, SplitSpec, VECTOR
 from ..core.scheduler import compile_schedule
 from ..core.simulator import simulate_baseline, simulate_unified
@@ -38,8 +39,6 @@ PAPER = {32768: (723.29, 588.38, 0.0520, 0.2544)}  # serial_us, int_us, hits
 SIM_SIZES = (8192, 16384, 32768)
 WIDTH = 2048                       # F of y [M, F], h [M, 2F]: the paper's
 ITERS, WARMUP = 20, 3              # timed calls after warm-up calls
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-FP32_OPS_PER_S = 67e12             # fp32 outside the tensor cores
 # fp32 operations per output element: exp, add and reciprocal of the
 # sigmoid, the two products, the add of y.
 OPS_PER_ELEM = 6
@@ -107,8 +106,8 @@ def bound(M: int, F: int, dtype, mode: str) -> tuple[float, str]:
     3.35 TB/s, against the fp32 operations at 67 TFLOP/s."""
     item = torch.finfo(dtype).bits // 8
     elems = M * F * (6 if mode == "serial" else 4)
-    t_bytes = elems * item / HBM_BYTES_PER_S
-    t_ops = OPS_PER_ELEM * M * F / FP32_OPS_PER_S
+    t_bytes = elems * item / H100.hbm_bytes_per_s
+    t_ops = OPS_PER_ELEM * M * F / H100.peak_flops_fp32
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
 

@@ -5,6 +5,8 @@
         --ep-mode hyperparallel
     PYTHONPATH=src python -m repro_torch.launch.profile_train \
         --arch mamba2-1.3b
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \
+        --arch internvl2-26b --n-layers 4
 
 Trains ``--arch`` (default granite-moe-3b-a800m) at full width and depth
 with the shapes of ``chip_smoke.py``'s training phase: batches of 1 x 4096
@@ -23,12 +25,17 @@ most device time. ``--dropless`` trains the MoE through the dropless tile
 taskflow (``launch.dropless``, its default config), as ``launch.train
 --dropless`` does. ``--mesh DxM`` runs the MoE expert-parallel over the
 mesh's model axis of virtual ranks (``--ep-mode``, capacity factor 4.0), as
-``launch.train --mesh`` does; both need a MoE arch. Needs a CUDA device.
+``launch.train --mesh`` does; both need a MoE arch. ``--n-layers N`` cuts
+the depth: internvl2-26b's 48 layers with fp32 AdamW state (12 bytes a
+parameter) do not fit one card, 4 do. Batches are tokens, as the training
+launcher's; the audio encoder, which trains on features, is refused. Needs
+a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -73,10 +80,17 @@ def main(argv=None):
                     help="the MoE expert-parallel over DxM virtual ranks")
     ap.add_argument("--ep-mode", default="hyperparallel",
                     choices=["hyperparallel", "baseline"])
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the arch to this many layers")
     args = ap.parse_args(argv)
     cfg = get_config(args.arch)
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     if (args.dropless or args.mesh) and cfg.family != "moe":
         ap.error(f"--dropless and --mesh need a MoE arch, not {args.arch!r}")
+    if cfg.family == "audio":
+        ap.error(f"{args.arch!r} trains on features; the profile feeds "
+                 f"token batches")
     dev = resolve_device("cuda")
     mesh = ep = None
     if args.mesh:
@@ -124,7 +138,8 @@ def main(argv=None):
     step_ms = 1e3 * plain_wall / STEPS
     busy_ms = busy_us / 1e3 / STEPS
     out = {
-        "arch": cfg.name, "batch": BATCH, "seq": SEQ, "steps": STEPS,
+        "arch": cfg.name, "n_layers": cfg.n_layers, "batch": BATCH,
+        "seq": SEQ, "steps": STEPS,
         "moe": ("dropless" if args.dropless else
                 f"EP {args.ep_mode} over {args.mesh}" if args.mesh
                 else "fixed capacity"),

@@ -37,6 +37,7 @@ from ..core.autoselect import predict_plan_us, select
 from ..core.buckets import fit_ladder
 from ..core.odg import ScheduleConfig, build_moe_ffn_forward
 from ..core.passes import Pipeline, pipeline_arg
+from ..configs.shapes import NO_DECODE
 from ..core.scheduler import compile_schedule
 from ..core.simulator import simulate_unified
 from ..device import resolve_device
@@ -134,6 +135,13 @@ def make_online_moe(cfg, ep: int, decode_counts, cache=None) -> OnlineMoE:
                                     pipeline=("ratr",)), tuner, cache=cache)
 
 
+def require_decode(cfg) -> None:
+    """Serving decodes: an audio encoder has no decode step
+    (``configs.shapes.skip_reason``), so it is refused."""
+    if cfg.family == "audio":
+        raise ValueError(f"{cfg.name!r} cannot be served: {NO_DECODE}")
+
+
 class ContinuousBatcher:
     """Fixed-slot continuous batching over a batched KV cache.
 
@@ -151,6 +159,7 @@ class ContinuousBatcher:
     def __init__(self, cfg, params, n_slots: int, max_len: int, *,
                  moe_impl=None, admission=None, decode_counts=None,
                  cost=None, device="cuda"):
+        require_decode(cfg)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.params = params
@@ -384,6 +393,7 @@ def main(argv=None):
     dev = resolve_device(args.device)
     from ..configs import get_config, get_smoke_config
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    require_decode(cfg)
     report = {"sched": (resolve_decode_sched(cfg, args.sched, args.slots)
                         if args.sched else None)}
 

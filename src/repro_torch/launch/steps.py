@@ -60,6 +60,8 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
                     dropless=None, grad_transform=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with ``loss``, ``grad_norm`` and ``lr`` in ``metrics``.
+    ``batch`` holds ``tokens`` and ``labels`` (a vlm's may add
+    ``patches``; an audio encoder's is ``features`` and ``labels``).
 
     ``params`` and ``opt_state`` are updated in place (``adamw``).
     ``dropless``: a :class:`repro_torch.launch.dropless.DroplessConfig`
@@ -119,7 +121,8 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
     """The train, prefill and decode steps over ``mesh``.
 
     EP (``ep``) is the MoE of all three; ``dropless`` replaces it in
-    training only, as in the reference. The decode step uses flash
+    training only, as in the reference. An audio encoder's prefill step is
+    its forward, ``(logits, None)``. The decode step uses flash
     decoding when the mesh's model axis is larger than 1 and the config
     has heads.
     """
@@ -138,6 +141,8 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
         fd_impl = make_flash_decode(mesh, "model")
 
     def prefill_step(params, batch, max_len: int):
+        if cfg.family == "audio":          # an encoder: no cache to fill
+            return M.forward(cfg, params, batch, moe_impl=moe_impl), None
         return M.prefill(cfg, params, batch, max_len, moe_impl=moe_impl)
 
     def decode_step(params, token, cache):

@@ -6,9 +6,13 @@ On the card (the default), granite-moe-3b-a800m at full width and depth on
         --global-batch 1 --steps 4
 On the CPU, at the smoke size:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
-``--arch`` takes every arch of ``repro_torch.configs.ARCHS``: the dense
-(llama3_2-3b, qwen2-1_5b, olmo-1b, gemma-2b), ssm (mamba2-1_3b) and hybrid
-(recurrentgemma-2b) families as well as the MoE ones. For an arch without
+``--arch`` takes every arch of ``repro_torch.configs.ARCHS`` but the audio
+encoder: the dense (llama3_2-3b, qwen2-1_5b, olmo-1b, gemma-2b), ssm
+(mamba2-1_3b), hybrid (recurrentgemma-2b) and vlm (internvl2-26b, trained
+on tokens alone, as the reference's launcher trains it) families as well as
+the MoE ones. hubert-xlarge raises ``ValueError``: the launcher feeds token
+batches, and it trains on ``features`` through
+``launch.steps.make_train_step``. For an arch without
 MoE layers ``--dropless`` is ignored and ``--sched`` is a usage error, as in
 the JAX launcher:
     PYTHONPATH=src python -m repro_torch.launch.train --arch mamba2-1.3b \
@@ -159,6 +163,11 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
         ap.error("--mode and --ep-mode need --mesh")
     from ..configs import get_config, get_smoke_config
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{cfg.name!r} trains on features, and this launcher feeds "
+            f"token batches (as the reference's does): train it through "
+            f"launch.steps.make_train_step on a features batch")
     kw = {}
     if args.sched is not None:
         # Validate eagerly: an unknown pass name fails fast, and a --sched

@@ -4,7 +4,9 @@ Plain functions over explicit parameter dicts, as in the JAX package:
 
 * activations ``[batch, seq, d_model]``; attention heads ``[B, S, H, hd]``;
 * parameters come from ``init_*`` functions, which draw from an explicit
-  ``torch.Generator`` and create tensors on that generator's device;
+  ``torch.Generator`` and create tensors on that generator's device
+  (``randn``; on the meta device, ``MetaDraws`` stands in for the
+  generator and nothing is drawn);
 * attention over a prompt is computed blockwise over KV (online softmax), so
   the full ``S×S`` score matrix never materializes.
 
@@ -20,6 +22,23 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
+
+
+class MetaDraws:
+    """The ``gen`` of the ``init_*`` functions on the meta device, where no
+    ``torch.Generator`` can be made: its tensors have shapes and dtypes and
+    no values (``launch/dryrun.py`` counts a step's work on them)."""
+
+    device = torch.device("meta")
+
+
+def randn(gen, shape):
+    """Standard normal draws of ``shape`` from ``gen`` on its device; an
+    empty tensor for ``MetaDraws``."""
+    if isinstance(gen, MetaDraws):
+        return torch.empty(shape, device=gen.device)
+    return torch.randn(shape, generator=gen, device=gen.device)
+
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -195,8 +214,7 @@ def init_attention(gen: torch.Generator, d_model, n_heads, n_kv_heads,
     std = d_model ** -0.5
 
     def normal(*shape):
-        w = torch.randn(shape, generator=gen, device=gen.device) * std
-        return w.to(dtype)
+        return (randn(gen, shape) * std).to(dtype)
 
     p = {
         "wq": normal(d_model, n_heads * head_dim),
@@ -275,8 +293,11 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
             # idle run past max_len).
             idx = lens % W if ring else torch.clamp(lens, max=W - 1)
             if lens.dim() == 0:
-                kc[:, idx] = k[:, 0]
-                vc[:, idx] = v[:, 0]
+                # A one-element index: a 0-d one would read the length on
+                # the host, which the meta device (the dry run) cannot.
+                at = idx.reshape(1).long()
+                kc.index_copy_(1, at, k)
+                vc.index_copy_(1, at, v)
             else:
                 rows = torch.arange(B, device=x.device)
                 kc[rows, idx] = k[:, 0]
@@ -325,8 +346,7 @@ def init_mlp(gen: torch.Generator, d_model, d_ff, act, dtype=torch.float32):
     cols = 2 * d_ff if act in ("swiglu", "geglu") else d_ff
 
     def normal(shape, std):
-        w = torch.randn(shape, generator=gen, device=gen.device) * std
-        return w.to(dtype)
+        return (randn(gen, shape) * std).to(dtype)
 
     return {"w_in": normal((d_model, cols), d_model ** -0.5),
             "w_down": normal((d_ff, d_model), d_ff ** -0.5)}

@@ -2,8 +2,10 @@
 counterpart of ``repro.models.model``.
 
 ``ModelConfig`` keeps every field of the JAX dataclass, so configs compare
-field by field. The port runs the dense, moe, ssm and hybrid families; audio
-and vlm raise until their slice. Parameters are plain dicts, one dict per
+field by field. The port runs all six families: dense, moe, ssm, hybrid,
+audio (an encoder over ``features`` frames through ``feat_proj``, no
+decode) and vlm (precomputed ``patches`` embeddings before the tokens; the
+logits cover the token region only). Parameters are plain dicts, one dict per
 layer: ``params["blocks"]`` is a list of them (the JAX tree stacks them as
 ``[L, ...]`` for ``scan``; here a Python loop runs the layers). A hybrid
 stack mirrors the JAX layout: ``params["super"]`` is a tuple over the
@@ -35,12 +37,6 @@ from . import layers as L
 from .moe import MoEConfig, init_moe, moe_grouped
 from .rglru import init_rglru, rglru_block
 from .ssm import SSMConfig, init_ssm, ssm_forward
-
-_FAMILY_SLICE = {
-    "audio": "the audio/vlm slice",
-    "vlm": "the audio/vlm slice",
-}
-
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
@@ -107,7 +103,6 @@ class ModelConfig:
 
     def param_count(self) -> int:
         """Analytic parameter count (for 6ND roofline bookkeeping)."""
-        _require_ported(self)
         d, f, V = self.d_model, self.d_ff, self.padded_vocab
         n = V * d  # embed
         if not self.tie_embeddings:
@@ -141,13 +136,6 @@ class ModelConfig:
         expert_p = self.n_layers * m.e_total * 3 * self.d_model * m.d_expert
         active_e = self.n_layers * m.top_k * 3 * self.d_model * m.d_expert
         return full - expert_p + active_e
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family in _FAMILY_SLICE:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet; it comes with "
-            f"{_FAMILY_SLICE[cfg.family]}")
 
 
 def _hybrid_split(cfg: ModelConfig) -> tuple[int, int]:
@@ -214,21 +202,30 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     router and the leaves the reference reads in fp32 (ssm's ``A_log`` and
     ``dt_bias``; rglru's gates and Λ) in fp32. The JAX package keeps
     fp32 masters and casts them at each use; casting once here gives the
-    same values at every use.
+    same values at every use. On ``device="meta"`` the leaves have their
+    shapes and dtypes and no values (``layers.MetaDraws``): a generator
+    cannot live there.
     """
-    _require_ported(cfg)
     dev = resolve_device(device)
-    gen = generator if generator is not None else \
-        torch.Generator(device=dev).manual_seed(0)
+    if dev.type == "meta":
+        if generator is not None:
+            raise ValueError("the meta device draws nothing: pass no "
+                             "generator")
+        gen = L.MetaDraws()
+    else:
+        gen = generator if generator is not None else \
+            torch.Generator(device=dev).manual_seed(0)
     if gen.device.type != dev.type:
         raise ValueError(f"generator on {gen.device}, params on {dev}")
     dt = cfg.compute_dtype
     V, d = cfg.padded_vocab, cfg.d_model
 
     def normal(*shape, std):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dt)
+        return (L.randn(gen, shape) * std).to(dt)
 
     params: dict = {"embed": normal(V, d, std=d ** -0.5)}
+    if cfg.family == "audio":
+        params["feat_proj"] = normal(cfg.feat_in, d, std=cfg.feat_in ** -0.5)
     if not cfg.tie_embeddings:
         params["unembed"] = normal(d, V, std=d ** -0.5)
     params.update(_norm_leaves(cfg, ("ln_f",), dev))
@@ -313,8 +310,17 @@ def block_apply(cfg: ModelConfig, btype: str, p, x, cache=None,
 
 
 def embed_inputs(cfg: ModelConfig, params, batch):
-    _require_ported(cfg)
-    x = params["embed"].to(cfg.compute_dtype)[batch["tokens"]]
+    """The stack's input: ``features`` [B, S, feat_in] through ``feat_proj``
+    (audio), else the token embeddings, with a vlm batch's ``patches``
+    [B, P, d] before them."""
+    dt = cfg.compute_dtype
+    if cfg.family == "audio":
+        x = torch.einsum("bsf,fd->bsd", batch["features"].to(dt),
+                         params["feat_proj"].to(dt))
+    else:
+        x = params["embed"].to(dt)[batch["tokens"]]
+        if cfg.family == "vlm" and "patches" in batch:
+            x = torch.cat([batch["patches"].to(dt), x], dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
     return x
@@ -415,16 +421,20 @@ def _final(cfg: ModelConfig, params, x):
 
 
 def forward(cfg: ModelConfig, params, batch, moe_impl=None):
-    """Full forward → logits [B, S, Vp]."""
+    """Full forward → logits [B, S, Vp] (vlm: the token region only)."""
     x = final_hidden(cfg, params, batch, moe_impl)
     return x @ _unembedding(cfg, params).to(x.dtype)
 
 
 def final_hidden(cfg: ModelConfig, params, batch, moe_impl=None):
-    """Forward to the final (pre-unembedding) hidden states."""
+    """Forward to the final (pre-unembedding) hidden states; a vlm batch's
+    patch region is cut off."""
     x = embed_inputs(cfg, params, batch)
     x, _ = _run_stack(cfg, params, x, None, moe_impl)
-    return L.apply_norm(cfg.norm, x, params, "ln_f")
+    x = L.apply_norm(cfg.norm, x, params, "ln_f")
+    if cfg.family == "vlm" and "patches" in batch:
+        x = x[:, batch["patches"].shape[1]:]
+    return x
 
 
 def _ce_chunk(cfg: ModelConfig, x, labels, unembed):
@@ -443,7 +453,7 @@ def _ce_chunk(cfg: ModelConfig, x, labels, unembed):
 
 def loss_fn(cfg: ModelConfig, params, batch, moe_impl=None,
             ce_chunk: int = 512):
-    """Next-token cross entropy, fp32, vocab-pad masked.
+    """Next-token (or frame-label) cross entropy, fp32, vocab-pad masked.
 
     The MoE defaults to :func:`train_moe_impl`. The unembedding and
     logsumexp run in sequence chunks, each under ``checkpoint`` while
@@ -510,8 +520,8 @@ def init_cache(cfg: ModelConfig, B: int, max_len: int,
     ``{"conv", "ssm"}`` for ssm, ``{"conv", "h"}`` for rglru. ``len`` is a
     scalar, or a [B] vector with ``per_slot_len`` (continuous batching). A
     hybrid stack's cache is ``{"super": tuple over pattern positions of
-    per-super-block lists, "tail": list}``."""
-    _require_ported(cfg)
+    per-super-block lists, "tail": list}``. On ``device="meta"`` it is the
+    reference's ``cache_specs``: shapes and dtypes, no memory."""
     dev = resolve_device(device)
     caches = [_block_cache(cfg, t, B, max_len, per_slot_len, dev)
               for t in cfg.layer_types()]
@@ -537,7 +547,9 @@ def decode_step(cfg: ModelConfig, params, token, cache, moe_impl=None,
 def prefill(cfg: ModelConfig, params, batch, max_len: int, moe_impl=None):
     """Run the prompt through the stack, filling a new cache.
 
-    Returns (last-token logits [B, Vp], cache).
+    A vlm batch's ``patches`` go before the tokens and take the first
+    cache slots, so ``max_len`` counts them. Returns (last-token logits
+    [B, Vp], cache). An audio encoder has no cache: call ``forward``.
     """
     tokens = batch["tokens"]
     B, _ = tokens.shape

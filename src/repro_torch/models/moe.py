@@ -28,7 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .layers import glu_act
+from .layers import glu_act, randn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +53,7 @@ def init_moe(gen: torch.Generator, d_model: int, mc: MoEConfig,
     std = d_model ** -0.5
 
     def normal(shape, scale):
-        return torch.randn(shape, generator=gen, device=gen.device) * scale
+        return randn(gen, shape) * scale
 
     return {
         "router": normal((d_model, E), std),

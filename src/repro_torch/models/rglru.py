@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .layers import randn
+
 C_RGLRU = 8.0
 
 
@@ -31,7 +33,7 @@ def init_rglru(gen: torch.Generator, d_model: int, lru_width: int,
     w = lru_width
 
     def normal(shape, std):
-        return torch.randn(shape, generator=gen, device=dev) * std
+        return randn(gen, shape) * std
 
     return {
         "in_x": normal((d_model, w), d_model ** -0.5).to(dtype),

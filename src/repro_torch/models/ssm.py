@@ -23,6 +23,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from .layers import randn
+
 
 @dataclasses.dataclass(frozen=True)
 class SSMConfig:
@@ -46,7 +48,7 @@ def init_ssm(gen: torch.Generator, d_model: int, sc: SSMConfig,
     dev = gen.device
 
     def normal(shape, std):
-        return (torch.randn(shape, generator=gen, device=dev) * std).to(dtype)
+        return (randn(gen, shape) * std).to(dtype)
 
     zxbcdt = d_in + d_in + N + N + H      # in_proj: [z, x, B, C, dt] fused
     return {

@@ -1,7 +1,7 @@
 """Helpers of ``chip_smoke.py`` that run without a card: the precision
 control of the trainable expert FFN's end-to-end check, the reader of the
 compiler's register and spill report, the dropless tiles' body check,
-phase 9's SSC lookups check and the cases of phases 10-12, 14, 15 and 16."""
+phase 9's SSC lookups check and the cases of phases 10-12 and 14-17."""
 
 import sys
 from pathlib import Path
@@ -354,3 +354,55 @@ def test_dbrx_training_step_case_runs_on_the_cpu(monkeypatch):
     assert out["loss_rel_gap"] <= chip_smoke.LOSS_TOL
     assert out["grad_norm_rel_gap_max"] <= chip_smoke.GNORM_TOL
     assert out["grad_leaves"] > 10 and out["tokens"] == 32
+
+
+def test_audio_vlm_phase_runs_on_the_cpu():
+    """Phase 17's cases at the smoke configs on the CPU, where no kernel
+    runs: (a) internvl2's prefill with patches and teacher-forced decode
+    against the forward, the patches moving the logits; hubert's encoder
+    (here the CPU against itself) and its non-causal mask; (b) serving on
+    tokens with the patch prefill, hubert's prefill step; (c) both
+    trainings; (d) the dry run's check over one grid cell and these runs
+    at their own sizes (its shares read CPU times here: no device
+    number)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun
+    vlm = get_smoke_config("internvl2-26b")
+    audio = get_smoke_config("hubert-xlarge")
+    out = chip_smoke.vlm_consistency_case(dev="cpu", cfg=vlm, prompt=12,
+                                          steps=3)
+    assert out["cache_len"] == vlm.n_patches + 15
+    assert max(out["prefill_max_abs_err"],
+               out["decode_max_abs_err"]) <= out["limit"]
+    out = chip_smoke.audio_consistency_case(dev="cpu", cfg=audio, frames=32)
+    assert out["max_abs_err_vs_cpu"] == 0.0
+    assert out["first_frame_moved_by"] > out["limit"]
+    srv = chip_smoke.family_serve_case("internvl2-26b", dev="cpu", cfg=vlm,
+                                       requests=3, prompt_len=12)
+    assert srv["tokens"] == 3 * chip_smoke.MAX_NEW
+    patch = chip_smoke.prefill_step_case("internvl2-26b", dev="cpu", cfg=vlm,
+                                         batch=2, seq=12)
+    assert patch["patches"] == vlm.n_patches
+    pre = chip_smoke.prefill_step_case("hubert-xlarge", dev="cpu", cfg=audio,
+                                       seq=64)
+    assert pre["seq"] == 64 and len(pre["ms"]) == chip_smoke.AV_REPEATS
+    training = [chip_smoke.av_train_case("hubert-xlarge", dev="cpu",
+                                         cfg=audio, seq=32),
+                chip_smoke.av_train_case("internvl2-26b", dev="cpu",
+                                         cfg=vlm, seq=32)]
+    assert [len(t["losses"]) for t in training] == [
+        chip_smoke.FAMILY_TRAIN_STEPS] * 2
+    assert not any(chip_smoke._sum_launches(*training).values())
+    runs = chip_smoke.run_cells(vlm_cfg=vlm, audio_cfg=audio,
+                                vlm_train_cfg=vlm, prompt_len=12,
+                                patch_batch=2, frames=64, seq=32)
+    grid = chip_smoke.dryrun_grid(["olmo-1b"], ["decode_32k"])
+    results = dryrun.count_all(grid + list(runs.values()))
+    dry = chip_smoke.dryrun_check(
+        grid, runs, results,
+        chip_smoke.run_measurements(srv, patch, pre, training), 0.0,
+        workers=1)
+    assert len(dry["cells"]) == 1 and not dry["failures"]
+    assert [r["run"] for r in dry["runs"]] == list(runs)
+    assert dry["runs"][0]["kind"] == "decode"
+    assert dry["runs"][-1]["n_layers"] == vlm.n_layers

@@ -349,14 +349,15 @@ def test_to_jax_inverts_from_numpy():
 
 @pytest.mark.parametrize("arch, n_leaves", [("qwen2-1_5b", 4 * 13 + 1),
                                             ("recurrentgemma-2b",
-                                             4 * 66 + 1)])
+                                             4 * 66 + 1),
+                                            ("hubert-xlarge", 4 * 15 + 1)])
 def test_dense_and_hybrid_checkpoints_cross_packages(tmp_path, arch,
                                                      n_leaves):
-    """A dense (qwen2: biases, tied embeddings) and the hybrid
+    """A dense (qwen2: biases, tied embeddings), the hybrid
     (recurrentgemma: the ``super`` tuple's index keys, the unstacked
-    ``tail``) training checkpoint, bf16: the port writes JAX's manifest and
-    npz bits, and each package restores the other's directory bit for
-    bit."""
+    ``tail``) and the audio (hubert: its ``feat_proj``) training
+    checkpoint, bf16: the port writes JAX's manifest and npz bits, and
+    each package restores the other's directory bit for bit."""
     tcfg, jtree, (tparams, tstate) = _state("bfloat16", arch)
     JCK.save(str(tmp_path / "jax"), 3, jtree)
     CK.save(str(tmp_path / "port"), 3, jax_train_tree(tparams, tstate))
@@ -369,6 +370,9 @@ def test_dense_and_hybrid_checkpoints_cross_packages(tmp_path, arch,
         assert "0/super/2/attn/wq" in mp["leaves"]
         assert "0/tail/1/rglru/lam" in mp["leaves"]
         assert mp["leaves"]["0/super/0/rglru/lam"]["shape"][0] == 1
+    if tcfg.family == "audio":
+        assert mp["leaves"]["0/feat_proj"]["shape"] == [tcfg.feat_in,
+                                                        tcfg.d_model]
 
     got, _ = JCK.restore(dp, jtree)
     for a, b in zip(jax.tree.leaves(jtree), jax.tree.leaves(got)):

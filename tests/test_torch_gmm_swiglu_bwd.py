@@ -192,8 +192,14 @@ def test_bwd_wrapper_rejects_bad_operands():
         bwd_mod.gmm_swiglu_bwd(x, w4, torch.zeros(2, 3, 5))      # F
     with pytest.raises(TypeError):
         bwd_mod.gmm_swiglu_bwd(x, w4, dout.bfloat16())
-    with pytest.raises(ValueError, match="cuda or cpu"):
-        bwd_mod.gmm_swiglu_bwd(x.to("meta"), w4.to("meta"), dout.to("meta"))
+    # Meta: no plain-version fallback; nothing runs, and the outputs have
+    # the kernel's shapes in out_dtype (the dry run counts its work).
+    dx, dw4 = bwd_mod.gmm_swiglu_bwd(x.to("meta"), w4.to("meta"),
+                                     dout.to("meta"),
+                                     out_dtype=torch.bfloat16)
+    assert dx.is_meta and tuple(dx.shape) == (2, 3, 8)
+    assert tuple(dw4.shape) == (2, 8, 2, 4)
+    assert dx.dtype == dw4.dtype == torch.bfloat16
 
 
 _CTYPE = {"void*": ctypes.c_void_p, "int": ctypes.c_int}

@@ -66,12 +66,17 @@ assert not bad, bad
     "repro_torch.configs.llama3_2_3b", "repro_torch.configs.qwen2_1_5b",
     "repro_torch.configs.olmo_1b", "repro_torch.configs.gemma_2b",
     "repro_torch.configs.dbrx_132b", "repro_torch.configs.mamba2_1_3b",
-    "repro_torch.configs.recurrentgemma_2b"])
+    "repro_torch.configs.recurrentgemma_2b",
+    "repro_torch.configs.hubert_xlarge", "repro_torch.configs.internvl2_26b",
+    "repro_torch.configs.shapes", "repro_torch.parallel.roofline",
+    "repro_torch.launch.dryrun", "repro_torch.launch.bench_roofline",
+    "repro_torch.kernels.work"])
 def test_fusion_and_elastic_modules_import_alone(module):
     """Each module of the fusion/elastic slice, of the online serving
-    slice, of EP, of checkpointing and of the model families, imported on
-    its own in a fresh interpreter, pulls in neither JAX, the JAX package,
-    msgpack nor ml_dtypes."""
+    slice, of EP, of checkpointing, of the model families and of the
+    shapes, roofline and dry run, imported on its own in a fresh
+    interpreter, pulls in neither JAX, the JAX package, msgpack nor
+    ml_dtypes."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     proc = subprocess.run([sys.executable, "-c", _ALONE, module],
                           cwd=str(REPO), env=env, capture_output=True,
@@ -208,26 +213,28 @@ def test_ep_entry_points_raise_without_cuda_unless_asked_for_cpu(tmp_path):
 
 
 def test_unported_families_raise():
-    """The audio and vlm families and their archs raise until their slice;
-    the dense, ssm and hybrid archs are ported."""
+    """Every arch of the reference is ported, the audio and vlm ones too;
+    an arch or a family the port does not know raises."""
     import dataclasses
 
     from repro_torch.models.model import init_cache, init_params
     from repro_torch.configs import get_smoke_config, get_config
-    for family in ("audio", "vlm"):
-        cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
-                                  family=family)
-        for fn in (lambda: init_params(cfg, device="cpu"),
-                   lambda: init_cache(cfg, 1, 8, device="cpu"),
-                   cfg.param_count):
-            with pytest.raises(NotImplementedError, match="audio/vlm slice"):
-                fn()
-    for arch in ("hubert-xlarge", "internvl2-26b"):
-        for get in (get_config, get_smoke_config):
-            with pytest.raises(NotImplementedError, match="not ported"):
-                get(arch)
-    for arch in ("qwen2-1.5b", "mamba2-1.3b", "recurrentgemma-2b"):
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-3b-a800m"),
+                              family="diffusion")
+    for fn in (lambda: init_params(cfg, device="cpu"),
+               lambda: init_cache(cfg, 1, 8, device="cpu"),
+               cfg.param_count):
+        with pytest.raises(ValueError, match="diffusion"):
+            fn()
+    for get in (get_config, get_smoke_config):
+        with pytest.raises(NotImplementedError, match="not ported"):
+            get("gpt-unknown-7b")
+    for arch in ("qwen2-1.5b", "mamba2-1.3b", "recurrentgemma-2b",
+                 "hubert-xlarge", "internvl2-26b"):
         assert get_config(arch).param_count() > 0
+        smoke = get_smoke_config(arch)
+        assert init_params(smoke, device="cpu") and init_cache(
+            smoke, 1, 8, device="cpu")
 
 
 def test_init_params_is_seeded_and_typed():
