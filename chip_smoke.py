@@ -239,6 +239,40 @@ Phases, each printing one JSON line:
    t_memory) over its measured time) at most SHARE_MAX, its counted peak
    beside ``torch.cuda.max_memory_allocated()``.
 
+18. tools — the one-card tools: ``launch.hillclimb``, the examples. (b)
+   On the card, each hill-climb variant's real step
+   (``hillclimb.variant_steps``, mesh TOOLS_MESH of virtual ranks): first
+   llama3.2-3b's decode at full depth on a DECODE_BATCH x 32,768-slot
+   cache of random keys and values (decode_32k, batch cut from 128), one
+   warm-up and DECODE_STEPS teacher-forced steps, ``baseline`` (flash
+   decoding over the ranks) and ``flashdecode_off`` (the dense one-token
+   attention), and the two paths in fp32 at PARITY_LAYERS layers within
+   FAMILY_TOL x max|logit| of each other (their bf16 full-depth gap is
+   printed, not gated); then, beside (a), granite's train_4k at full
+   width cut to TOOLS_LAYERS layers and batch 1 under GRANITE_VARIANTS
+   and hubert-xlarge's at TOOLS_LAYERS layers, TOOLS_STEPS steps each (the
+   first warm-up). Each run beside its count at the same cut: measured ms
+   (median after warm-up), ``t_compute``, ``t_memory``, ``t_collective``,
+   collectives and bytes a rank, and its share of the roofline. Gates:
+   counted collectives and bytes equal the run's; every share at most
+   SHARE_MAX; finite losses, grad norms and logits; granite's GMM
+   launches 2F ``gmm_swiglu``, 4F ``gmm`` and F ``gmm_swiglu_bwd`` a
+   layer a step (F, 3F and F without the MoE's recompute: remat off or
+   policy "save_moe"), all on the tensor cores, and none elsewhere;
+   ``baseline`` and ``zero1`` bit-equal first losses; the two EP modes'
+   first loss and grad norm within LOSS_TOL and GNORM_TOL. (a) The
+   hill-climb's three cells at the reference's global batches under
+   TOOLS_CELL_VARIANTS, and each run of (b) at its cut, counted on the
+   meta device in TOOLS_WORKERS spawned processes: no failure, and every
+   variant of the MoE cell counts collectives. (c) The four examples
+   through their ``main`` on the card (``quickstart``,
+   ``schedule_explorer`` dumping under ``tempfile``, ``serve_decode`` on
+   its default arch and on granite's smoke config, ``train_moe_e2e`` for
+   E2E_STEPS steps with checkpoints under ``tempfile``): each returns; the
+   MoE ones launch the GMM kernels, the others none. Its paths in the
+   ``kernels`` line: ``tools_hillclimb``, ``tools_quickstart``,
+   ``tools_serve_decode``, ``tools_train_moe_e2e``.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
 CUDA device nothing is printed to stdout.
@@ -246,7 +280,9 @@ CUDA device nothing is printed to stdout.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -294,6 +330,7 @@ from repro_torch.launch import bench_fused_dropless as fused_bench  # noqa
 from repro_torch.launch import bench_swiglu_add as bench_mod  # noqa: E402
 from repro_torch.launch import dropless as dropless_mod  # noqa: E402
 from repro_torch.launch import dryrun as dryrun_mod  # noqa: E402
+from repro_torch.launch import hillclimb as hc_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
@@ -306,6 +343,10 @@ from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.ep import (EPConfig, _pair_capacity,  # noqa
                                      make_moe_ep)
 from repro_torch.parallel.flash_decode import make_flash_decode  # noqa
+from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
+from repro_torch.examples import schedule_explorer as ex_explorer  # noqa
+from repro_torch.examples import serve_decode as ex_serve  # noqa: E402
+from repro_torch.examples import train_moe_e2e as ex_e2e  # noqa: E402
 
 ARCH = "granite-moe-3b-a800m"
 SLOTS, REQUESTS, PROMPT_LEN, MAX_NEW = 8, 16, 128, 32
@@ -440,6 +481,28 @@ PATCH_BATCH, VLM_TRAIN_LAYERS, AV_REPEATS = 8, 4, 3
 # max(t_compute, t_memory) / its measured time, may not exceed SHARE_MAX
 # (a count below the work done).
 DRYRUN_WORKERS, SHARE_MAX = 6, 1.05
+# The one-card tools (phase 18). (a) The hill-climb's three cells at the
+# reference's global batches under its default variants, counted on the
+# meta device over TOOLS_MESH virtual ranks in TOOLS_WORKERS processes.
+# (b) On the card, each variant's real step (``hillclimb.variant_steps``)
+# beside its count at the same cut: granite's train_4k at full width cut to
+# TOOLS_LAYERS layers and batch 1 under GRANITE_VARIANTS, TOOLS_STEPS steps
+# each (the first warm-up); llama3.2-3b's decode_32k at full depth, batch
+# cut from 128 to DECODE_BATCH, under DECODE_VARIANTS, one warm-up and
+# DECODE_STEPS teacher-forced steps from a cache of random keys and values;
+# hubert-xlarge's train_4k baseline at TOOLS_LAYERS layers. The two decode
+# paths are held to each other in fp32 at full width cut to PARITY_LAYERS
+# layers (FAMILY_TOL x max|logit|); at full depth in bf16 their gap is
+# printed. (c) The four examples, train_moe_e2e for E2E_STEPS steps.
+TOOLS_MESH, TOOLS_WORKERS = (1, EP), 6
+TOOLS_CELL_VARIANTS = ("baseline", "opt")
+GRANITE_VARIANTS = ("baseline", "zero1", "zero1_noremat", "ep_dp",
+                    "ep_dp_savemoe", "ep_dp_baselinea2a")
+TOOLS_LAYERS, TOOLS_STEPS = 4, 3
+LLAMA = "llama3.2-3b"
+DECODE_VARIANTS, DECODE_BATCH, DECODE_STEPS = (
+    ("baseline", "flashdecode_off"), 8, 8)
+E2E_STEPS = 10
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -2871,6 +2934,359 @@ def run_audio_vlm():
              "audio_vlm_train": _sum_launches(*training)})
 
 
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def tools_runs(granite=None, hubert=None, llama=None, seq=TRAIN_SEQ,
+               decode_len=None) -> dict:
+    """Phase 18 (b)'s runs, each counted in (a) at its own cut:
+    {label: (cfg, ShapeSpec, variant)}."""
+    granite = granite or dataclasses.replace(get_config(ARCH),
+                                             n_layers=TOOLS_LAYERS)
+    hubert = hubert or dataclasses.replace(get_config(AUDIO),
+                                           n_layers=TOOLS_LAYERS)
+    llama = llama or get_config(LLAMA)
+    train = ShapeSpec("train_4k", seq, TRAIN_BATCH, "train")
+    decode = ShapeSpec("decode_32k",
+                       decode_len or SHAPES["decode_32k"].seq_len,
+                       DECODE_BATCH, "decode")
+    runs = {f"granite_{v}": (granite, train, v) for v in GRANITE_VARIANTS}
+    runs.update({f"llama_{v}": (llama, decode, v) for v in DECODE_VARIANTS})
+    runs["hubert_baseline"] = (hubert, train, "baseline")
+    return runs
+
+
+def tools_train_case(cfg, sp, variant, dev="cuda", steps=TOOLS_STEPS):
+    """Phase 18 (b): ``steps`` training steps (the first warm-up) of
+    ``variant``'s real step, ``hillclimb.variant_steps`` over TOOLS_MESH
+    virtual ranks on ``dev``, from seed 0 on ``sp``'s batches: per step its
+    ms (host clock around a synchronized step), loss, grad norm, and the
+    last step's collectives and bytes a rank; the launches of all steps."""
+    _free(dev)
+    mesh = make_test_mesh(*TOOLS_MESH, device=dev)
+    vcfg, fns = hc_mod.variant_steps(cfg, mesh, variant)
+    params = adamw.cast_params(M.init_params(
+        vcfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        vcfg.compute_dtype)
+    state = adamw.init_opt_state(params)
+    stream = SyntheticStream(DataConfig(vocab=vcfg.vocab,
+                                        seq_len=sp.seq_len,
+                                        global_batch=sp.global_batch))
+    reset_launches()
+    log = []
+    for i in range(steps):
+        batch = (av_batch(vcfg, sp.global_batch, sp.seq_len, dev, seed=i,
+                          labels=True) if vcfg.family == "audio"
+                 else stream.batch(i, dev))
+        mesh.comm.stats.reset()
+        _sync(dev)
+        t = time.perf_counter()
+        params, state, m = fns.train_step(params, state, batch)
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        _sync(dev)
+        log.append((1e3 * (time.perf_counter() - t), loss, gnorm))
+    launches = read_launches()
+    tc = {"gmm_swiglu": swiglu_mod.launches_tc, "gmm": gmm_mod.launches_tc,
+          "gmm_swiglu_bwd": bwd_mod.launches_tc}
+    out = {"arch": vcfg.name, "variant": variant, "n_layers": vcfg.n_layers,
+           "batch": sp.global_batch, "seq": sp.seq_len, "kind": "train",
+           "remat": vcfg.remat, "remat_policy": vcfg.remat_policy,
+           "step_ms": [x[0] for x in log],
+           "ms": statistics.median(x[0] for x in log[1:]),
+           "losses": [x[1] for x in log], "grad_norms": [x[2] for x in log],
+           "collectives": dict(mesh.comm.stats.counts),
+           "comm_bytes_per_rank": mesh.comm.stats.bytes,
+           "launches": launches, "tensor_core_launches": tc,
+           "max_memory_allocated_bytes": _peak(dev)}
+    del params, state, fns
+    return out
+
+
+def decode_cache(cfg, batch, max_len, steps, dev, seed=1):
+    """A ``max_len``-slot cache of random keys and values, its length
+    ``max_len - steps - 1``: room for a warm-up and ``steps`` steps."""
+    cache = M.init_cache(cfg, batch, max_len, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for lc in cache:
+        lc["k"].normal_(generator=gen)
+        lc["v"].normal_(generator=gen)
+        lc["len"] = torch.full_like(lc["len"], max_len - steps - 1)
+    return cache
+
+
+def tools_decode_case(cfg, sp, variant, dev="cuda", steps=DECODE_STEPS):
+    """Phase 18 (b): one warm-up and ``steps`` decode steps of
+    ``variant``'s real step over TOOLS_MESH virtual ranks on ``dev``,
+    teacher-forced on seeded tokens from :func:`decode_cache`: per step its
+    ms, the last step's collectives and bytes a rank, the launches. Returns
+    the line and the logits of every step (on the host)."""
+    _free(dev)
+    mesh = make_test_mesh(*TOOLS_MESH, device=dev)
+    vcfg, fns = hc_mod.variant_steps(cfg, mesh, variant)
+    params = M.init_params(vcfg, torch.Generator(device=dev).manual_seed(0),
+                           device=dev)
+    B = sp.global_batch
+    toks = torch.randint(0, vcfg.vocab, (steps + 1, B, 1), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(2))
+    ms, logits = [], []
+    with torch.no_grad():
+        cache = decode_cache(vcfg, B, sp.seq_len, steps, dev)
+        reset_launches()
+        for i in range(steps + 1):
+            mesh.comm.stats.reset()
+            _sync(dev)
+            t = time.perf_counter()
+            lg, cache = fns.decode_step(params, toks[i], cache)
+            _sync(dev)
+            ms.append(1e3 * (time.perf_counter() - t))
+            logits.append(lg.float().cpu())
+    launches = read_launches()
+    logits = torch.stack(logits)
+    out = {"arch": vcfg.name, "variant": variant, "n_layers": vcfg.n_layers,
+           "batch": B, "seq": sp.seq_len, "kind": "decode",
+           "dtype": vcfg.dtype, "step_ms": ms,
+           "ms": statistics.median(ms[1:]),
+           "collectives": dict(mesh.comm.stats.counts),
+           "comm_bytes_per_rank": mesh.comm.stats.bytes,
+           "launches": launches,
+           "logits_finite": bool(torch.isfinite(logits).all()),
+           "max_memory_allocated_bytes": _peak(dev)}
+    del params, cache, fns
+    return out, logits
+
+
+def decode_gap(a, b) -> dict:
+    err, scale = float((a - b).abs().max()), float(b.abs().max())
+    return {"max_abs_err": err, "logit_max_abs": scale,
+            "of_max_logit": err / max(scale, 1e-30)}
+
+
+def tools_decode_consistency(cfg=None, dev="cuda", max_len=None, steps=4):
+    """Phase 18 (b): the two decode paths (flash decoding over the virtual
+    ranks, and the dense one-token attention) on the same cache and
+    tokens, fp32 at full width cut to PARITY_LAYERS layers, within
+    FAMILY_TOL x max|logit| of each other; the flash path's three
+    all-reduces a layer ran."""
+    cfg = cfg or dataclasses.replace(get_config(LLAMA),
+                                     n_layers=PARITY_LAYERS, dtype="float32")
+    sp = ShapeSpec("decode_32k", max_len or SHAPES["decode_32k"].seq_len,
+                   DECODE_BATCH, "decode")
+    (fd, lf), (dense, ld) = (tools_decode_case(cfg, sp, v, dev, steps)
+                             for v in DECODE_VARIANTS)
+    out = dict(decode_gap(lf, ld), n_layers=cfg.n_layers, dtype=cfg.dtype,
+               seq=sp.seq_len, batch=sp.global_batch, steps=steps,
+               tol=FAMILY_TOL, flash_collectives=fd["collectives"],
+               dense_collectives=dense["collectives"])
+    if not (out["of_max_logit"] <= FAMILY_TOL
+            and fd["collectives"] == {"all-reduce": 3 * cfg.n_layers}
+            and not dense["collectives"]):
+        raise AssertionError(f"the decode paths disagree: {out}")
+    return out
+
+
+def hillclimb_launches(run) -> dict:
+    """The GMM launches a granite variant's run must make: per layer per
+    step 2F ``gmm_swiglu``, 4F ``gmm`` and F ``gmm_swiglu_bwd`` (phase 14's
+    formulas), or F, 3F and F where the MoE forward is not recomputed
+    (remat off, or policy "save_moe")."""
+    mode = "baseline" if run["variant"] == "ep_dp_baselinea2a" \
+        else "hyperparallel"
+    F = ep_bench.ffn_calls(mode, TOOLS_MESH[1], 1)
+    again = run["remat"] and run["remat_policy"] != "save_moe"
+    per = dict(TRAIN_LAUNCHES, gmm_swiglu=2 if again else 1,
+               gmm=4 if again else 3)
+    return {k: run["n_layers"] * len(run["step_ms"]) * F * n
+            for k, n in per.items()}
+
+
+def tools_check(runs, measured, results) -> dict:
+    """Phase 18 (a) and (b) joined: each run beside its count at the same
+    cut. Gates: the count did not fail; its collectives and bytes a rank
+    equal the run's last step's; the share of the roofline, max(t_compute,
+    t_memory) / the measured ms, at most SHARE_MAX; finite losses, grad
+    norms and logits; granite's GMM launches as :func:`hillclimb_launches`
+    (every one on the tensor cores), no launch elsewhere; baseline and
+    zero1 bit-equal on the first step; the two EP modes' first step within
+    LOSS_TOL (loss) and GNORM_TOL (grad norm)."""
+    rows, bad = {}, []
+    for (label, (cfg, sp, variant)), (row, fail) in zip(runs.items(),
+                                                        results):
+        run = measured[label]
+        if fail is not None:
+            bad.append(f"{label}: count failed {fail}")
+            continue
+        share = (max(row["t_compute_s"], row["t_memory_s"])
+                 / (run["ms"] / 1e3))
+        rows[label] = dict(run, tag=row["tag"], line=row["line"],
+                           t_compute_ms=1e3 * row["t_compute_s"],
+                           t_memory_ms=1e3 * row["t_memory_s"],
+                           t_collective_ms=1e3 * row["t_collective_s"],
+                           bottleneck=row["bottleneck"],
+                           counted_collectives=row["collectives"],
+                           counted_bytes_per_rank=row[
+                               "collective_bytes_per_rank"],
+                           roofline_share=share, count_s=row["count_s"])
+        if (row["collectives"] != run["collectives"]
+                or row["collective_bytes_per_rank"]
+                != run["comm_bytes_per_rank"]):
+            bad.append(f"{label}: counted collectives {row['collectives']}"
+                       f" / {row['collective_bytes_per_rank']} B, ran "
+                       f"{run['collectives']} / {run['comm_bytes_per_rank']}")
+        if share > SHARE_MAX:
+            bad.append(f"{label}: share {share:.3f} > {SHARE_MAX}")
+        values = run.get("losses", []) + run.get("grad_norms", [])
+        if not all(math.isfinite(v) for v in values) or \
+                not run.get("logits_finite", True):
+            bad.append(f"{label}: non-finite values")
+        if label.startswith("granite_"):
+            want = hillclimb_launches(run)
+            tc = run["tensor_core_launches"]
+            if run["launches"] != want or tc != {k: want[k] for k in tc}:
+                bad.append(f"{label}: launches {run['launches']} (tensor "
+                           f"cores {tc}) != {want}")
+        elif any(run["launches"].values()):
+            bad.append(f"{label}: launched {run['launches']}, no MoE")
+    base, z1 = measured["granite_baseline"], measured["granite_zero1"]
+    if base["losses"][0] != z1["losses"][0]:
+        bad.append(f"baseline and zero1 first losses differ: "
+                   f"{base['losses'][0]} != {z1['losses'][0]}")
+    ring, a2a = (measured["granite_ep_dp"],
+                 measured["granite_ep_dp_baselinea2a"])
+    modes = {"loss_rel_gap": abs(ring["losses"][0] - a2a["losses"][0])
+             / abs(a2a["losses"][0]),
+             "grad_norm_rel_gap": abs(ring["grad_norms"][0]
+                                      - a2a["grad_norms"][0])
+             / a2a["grad_norms"][0]}
+    if modes["loss_rel_gap"] > LOSS_TOL or \
+            modes["grad_norm_rel_gap"] > GNORM_TOL:
+        bad.append(f"the EP modes differ beyond their limits: {modes}")
+    if bad:
+        raise AssertionError(f"phase 18 failed its gates: {bad}")
+    return {"runs": rows, "ep_modes": modes,
+            "baseline_zero1_first_loss_bit_equal": True}
+
+
+def tools_cells(results) -> list:
+    """Phase 18 (a)'s lines: the three cells under TOOLS_CELL_VARIANTS at
+    the reference's global batches, in ``hillclimb.CELLS`` order. Gates: no
+    count failed; a MoE cell's every variant counts collectives (EP is on
+    in each)."""
+    rows, bad = [], []
+    cells = [(name, arch, v) for name, (arch, _) in hc_mod.CELLS.items()
+             for v in TOOLS_CELL_VARIANTS]
+    for (name, arch, variant), (row, fail) in zip(cells, results):
+        if fail is not None:
+            bad.append(fail)
+            continue
+        rows.append({"cell": name, "variant": variant, **{k: row[k] for k in (
+            "tag", "line", "t_compute_s", "t_memory_s", "t_collective_s",
+            "bottleneck", "roofline_frac", "collectives",
+            "collective_bytes_per_rank", "args_gb", "temp_gb", "count_s")}})
+        if get_config(arch).family == "moe" and not row["collectives"]:
+            bad.append((name, variant, "no collective counted"))
+    if bad:
+        raise AssertionError(f"phase 18 (a) failed: {bad}")
+    return rows
+
+
+def tools_examples(dev="cuda", quick_argv=(), explorer_argv=(),
+                   serve_argv=(), e2e_argv=()) -> tuple:
+    """Phase 18 (c): the four examples through their ``main`` on ``dev``
+    (their output kept, its last lines printed in the phase's line), the
+    SSC dump and checkpoints under ``tempfile``. Each must return; the MoE
+    ones must launch the GMM kernels (quickstart's training and executor,
+    serve_decode on granite's smoke config, train_moe_e2e), the others
+    none. Returns the lines and each example's launches."""
+    out, launches, bad = {}, {}, []
+    with tempfile.TemporaryDirectory() as d:
+        cases = (
+            ("quickstart", ex_quickstart.main, list(quick_argv),
+             ("gmm_swiglu", "gmm", "gmm_swiglu_bwd")),
+            ("schedule_explorer", ex_explorer.main,
+             ["--dump", os.path.join(d, "ssc_rank0.json"),
+              *explorer_argv], ()),
+            ("serve_decode", ex_serve.main, list(serve_argv), ()),
+            ("serve_decode_moe", ex_serve.main,
+             ["--arch", ARCH, *serve_argv], ("gmm_swiglu", "gmm")),
+            ("train_moe_e2e", ex_e2e.main,
+             ["--steps", str(E2E_STEPS), "--log-every", "1",
+              "--ckpt-dir", os.path.join(d, "e2e"), *e2e_argv],
+             ("gmm_swiglu", "gmm", "gmm_swiglu_bwd")))
+        for name, fn, argv, kernels in cases:
+            _free(dev)
+            reset_launches()
+            buf = io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = fn(["--device", dev, *argv])
+            n = read_launches()
+            launches[name] = n
+            out[name] = {"seconds": time.perf_counter() - t,
+                         "launches": n,
+                         "output_tail": buf.getvalue().splitlines()[-4:]}
+            if name == "train_moe_e2e":
+                out[name].update(steps=res.step, losses=[
+                    m["loss"] for m in res.metrics_log],
+                    saves=sum(r["op"] == "save" for r in res.ckpt_log))
+                if res.step != E2E_STEPS or not all(
+                        math.isfinite(x) for x in out[name]["losses"]):
+                    bad.append((name, out[name]))
+            if any(n[k] == 0 for k in kernels) or (
+                    not kernels and any(n.values())):
+                bad.append((name, n))
+    if bad:
+        raise AssertionError(f"phase 18 (c) failed: {bad}")
+    return out, launches
+
+
+def run_tools():
+    """Phase 18. The decode runs first (host-bound: nothing beside them),
+    then the counts of (a) in TOOLS_WORKERS spawned processes beside the
+    device-bound training runs, then the examples. Returns the phase's
+    line and the launches of paths tools_hillclimb (granite's variants),
+    tools_quickstart, tools_serve_decode and tools_train_moe_e2e."""
+    t0 = time.perf_counter()
+    runs = tools_runs()
+    measured, logits = {}, {}
+    consistency = tools_decode_consistency()
+    for label, (cfg, sp, variant) in runs.items():
+        if sp.kind == "decode":
+            measured[label], logits[label] = tools_decode_case(cfg, sp,
+                                                               variant)
+    bf16_gap = decode_gap(*(logits[f"llama_{v}"] for v in DECODE_VARIANTS))
+    del logits
+    cells = [(get_config(arch), shape, v, TOOLS_MESH)
+             for arch, shape in hc_mod.CELLS.values()
+             for v in TOOLS_CELL_VARIANTS]
+    jobs = cells + [(cfg, sp, v, TOOLS_MESH) for cfg, sp, v in runs.values()]
+    with ThreadPoolExecutor(1) as pool:
+        t_count = time.perf_counter()
+        fut = pool.submit(dryrun_mod.count_all, jobs, TOOLS_WORKERS,
+                          hc_mod.count_job)
+        for label, (cfg, sp, variant) in runs.items():
+            if sp.kind == "train":
+                measured[label] = tools_train_case(cfg, sp, variant)
+        results = fut.result()
+        count_s = time.perf_counter() - t_count
+    _free()
+    joined = tools_check(runs, measured, results[len(cells):])
+    examples, ex_launches = tools_examples()
+    hill = {k: sum(measured[f"granite_{v}"]["launches"][k]
+                   for v in GRANITE_VARIANTS) for k in COUNTERS}
+    return ({"phase": "tools", "mesh": list(TOOLS_MESH),
+             "cells": tools_cells(results[:len(cells)]),
+             "count_seconds": count_s, "count_workers": TOOLS_WORKERS,
+             **joined, "decode_consistency": consistency,
+             "decode_bf16_gap": dict(bf16_gap, note="printed, not gated"),
+             "examples": examples, "seconds": time.perf_counter() - t0},
+            {"tools_hillclimb": hill,
+             "tools_quickstart": ex_launches["quickstart"],
+             "tools_serve_decode": ex_launches["serve_decode_moe"],
+             "tools_train_moe_e2e": ex_launches["train_moe_e2e"]})
+
+
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
     """The ``kernels`` line's entry of a swiglu_add mode: timed at the
     paper's largest size in bf16 (M = 32768), with every size beside it."""
@@ -2973,6 +3389,9 @@ def main() -> int:
     av_out, av_launches = run_audio_vlm()
     emit(av_out)
     path_launches.update(av_launches)
+    tools_out, tools_launches = run_tools()
+    emit(tools_out)
+    path_launches.update(tools_launches)
 
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -28,7 +28,7 @@ from ..core.odg import ScheduleConfig
 from ..core.routing import (balanced_plan, hotspot_plan, random_plan,
                             skewed_plan)
 from ..core.ssc import SSCCache
-from .bench_swiglu_add import emit
+from .bench_common import emit
 
 EP, E_LOC, ROWS = 8, 8, 128
 D_MODEL, D_FF = 2048, 512

@@ -35,7 +35,7 @@ from ..core.odg import ScheduleConfig, build_moe_ffn_forward
 from ..core.routing import hotspot_plan, skewed_plan
 from ..core.scheduler import compile_schedule
 from ..core.simulator import simulate_unified
-from .bench_swiglu_add import emit
+from .bench_common import emit
 
 EP, E_LOC, ROWS = 8, 8, 128
 D_MODEL, D_FF = 2048, 512

@@ -35,7 +35,7 @@ import numpy as np
 
 from ..core.buckets import BucketSpec, fit_ladder
 from ..models.moe import MoEConfig, routed_counts
-from .bench_swiglu_add import emit
+from .bench_common import emit
 from .online import AdmissionConfig, replay_admission, size_slots
 from .replay import exact_plans, replay_trace, resolve_policies, synth_trace
 

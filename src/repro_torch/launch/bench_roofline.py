@@ -17,7 +17,7 @@ import json
 import os
 import sys
 
-from .bench_swiglu_add import emit
+from .bench_common import emit
 
 DRYRUN_JSON = "dryrun.json"
 

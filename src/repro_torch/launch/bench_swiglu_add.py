@@ -28,12 +28,12 @@ import torch
 
 from ..core.hardware import AscendA3
 from ..core.hardware import H100
-from ..core.odg import ODG, OperatorNode, ScheduleConfig, SplitSpec, VECTOR
 from ..core.scheduler import compile_schedule
 from ..core.simulator import simulate_baseline, simulate_unified
 from ..device import resolve_device
 from ..kernels.ref import swiglu_add_ref, swiglu_add_serial_ref
 from ..kernels.swiglu_add import swiglu_add_interleaved, swiglu_add_serial
+from .bench_common import build_swiglu_add_odg, emit
 
 PAPER = {32768: (723.29, 588.38, 0.0520, 0.2544)}  # serial_us, int_us, hits
 SIM_SIZES = (8192, 16384, 32768)
@@ -48,38 +48,6 @@ TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 MODES = {"serial": (swiglu_add_serial, swiglu_add_serial_ref),
          "interleaved": (swiglu_add_interleaved, swiglu_add_ref)}
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def emit(name: str, us, derived: str = "") -> None:
-    print(f"{name},{'' if us is None else f'{us:.2f}'},{derived}",
-          flush=True)
-
-
-def build_swiglu_add_odg(M: int, n_tiles: int, width_in: int = 4096,
-                         width_out: int = 2048) -> ODG:
-    """§6 microbenchmark workload: SwiGLU → Add over [M, width] rows."""
-    cfg = ScheduleConfig(ep=1, e_loc=1, rows=M, d_model=width_in // 2,
-                         d_ff=width_out, gmm_m_split=n_tiles)
-    g = ODG(cfg, "forward")
-    h = g.tensor("h@0", M, width_in * 2, external=True)
-    y = g.tensor("y@0", M, width_out * 2, external=True)
-    mid = g.tensor("g@0", M, width_out * 2)
-    out = g.tensor("out@0", M, width_out * 2)
-
-    n_fn = (lambda c, op: n_tiles)
-    g.add_op(OperatorNode(
-        name="SwiGLU@0", op_type="swiglu", resource=VECTOR, rank=0,
-        inputs=[h], outputs=[mid],
-        split_spec=SplitSpec(split_inputs=None, split_output_dims=(0,),
-                             task_num_fn=n_fn)))
-    g.add_op(OperatorNode(
-        name="Add@0", op_type="elementwise", resource=VECTOR, rank=0,
-        inputs=[mid, y], outputs=[out],
-        split_spec=SplitSpec(split_inputs=((0, 0),), split_output_dims=(0,),
-                             task_num_fn=n_fn),
-        meta={"task_type": "Add"}))
-    g.validate_acyclic()
-    return g
 
 
 def sim_rows(hw: AscendA3 = AscendA3()) -> list[dict]:

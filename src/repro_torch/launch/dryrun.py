@@ -18,7 +18,10 @@ Two differences from the reference:
 * one card, mesh ``1x1``: the reference's 256- and 512-chip production
   meshes wait for the port's multi-card work (``launch/mesh.py`` has no
   ``make_production_mesh``), so a cell's per-device numbers here are the
-  whole step's;
+  whole step's. ``count_cell(mesh=)`` takes a mesh of virtual ranks
+  (``launch/hillclimb.py`` counts on ``1x4``): the FLOPs and bytes are
+  still the whole step's, and the collectives and bytes a rank come from
+  the ranks' ``comm.stats``;
 * no 2- and 3-trip extrapolation: XLA's cost analysis visits a scanned
   layer stack's body once, so the reference compiles unrolled probes and
   extrapolates, while the port's Python loop runs every layer and the count
@@ -95,16 +98,26 @@ def lookup_flops(cfg, shape) -> float:
             * cfg.d_model * rows)
 
 
-def count_cell(cfg, shape):
+def mesh_name(mesh) -> str:
+    """``"DxM"`` (or ``"PxDxM"``) of a mesh."""
+    return "x".join(str(n) for n in mesh.shape.values())
+
+
+def count_cell(cfg, shape, mesh=None, **step_kw):
     """Run one cell's step on the meta device under a ``WorkCounter``.
 
     ``shape`` is a name of ``SHAPES`` or a ``ShapeSpec`` (a cell cut to a
-    run's batch and sequence). Returns (``Roofline``, seconds).
+    run's batch and sequence). ``mesh`` (default ``1x1``) is a mesh of
+    virtual ranks on the meta device; ``step_kw`` go to
+    ``launch.steps.make_steps`` (``ep``, ``mode``, ``flash_decode``, ...).
+    The collectives and bytes a rank are read from ``mesh.comm.stats``
+    around the step. Returns (``Roofline``, seconds).
     """
     sp = _spec(shape)
     t0 = time.perf_counter()
-    mesh = make_mesh((1, 1), "meta")
-    fns = St.make_steps(cfg, mesh)
+    mesh = mesh or make_mesh((1, 1), "meta")
+    fns = St.make_steps(cfg, mesh, **step_kw)
+    mesh.comm.stats.reset()
     batch = input_specs(cfg, sp)
     params = M.init_params(cfg, device="meta")
     if sp.kind == "train":
@@ -128,12 +141,16 @@ def count_cell(cfg, shape):
         with torch.no_grad(), R.WorkCounter() as wc:
             run()
     dt = time.perf_counter() - t0
+    # Each data group runs the model axis' program once: a rank's share.
+    stats, groups = mesh.comm.stats, mesh.dp_size
     rf = R.Roofline(
-        arch=cfg.name, shape=sp.name, mesh="1x1", chips=1,
+        arch=cfg.name, shape=sp.name, mesh=mesh_name(mesh), chips=1,
         flops_per_device=float(wc.flops), bytes_per_device=float(wc.bytes),
-        collective_bytes=0.0, model_flops_global=float(model_flops(cfg, sp)),
+        collective_bytes=stats.bytes / groups,
+        model_flops_global=float(model_flops(cfg, sp)),
         arg_bytes=float(arg_bytes), temp_bytes=float(wc.peak_live_bytes),
-        coll_counts={}, model_bytes_global=float(model_bytes(cfg, sp)),
+        coll_counts={k: n // groups for k, n in sorted(stats.counts.items())},
+        model_bytes_global=float(model_bytes(cfg, sp)),
         dtype=cfg.dtype, kernels=wc.kernels)
     return rf, dt
 
@@ -151,24 +168,26 @@ def _ops_estimate(cell) -> int:
     """A cell's count takes time by its ops, not its sizes: layers, times
     microbatches and three passes (forward, recompute, backward) for a
     train step (the launcher's microbatch policy)."""
-    cfg, shape = cell
+    cfg, shape = cell[:2]
     if _spec(shape).kind != "train":
         return cfg.n_layers
     n = cfg.param_count()
     return 3 * cfg.n_layers * (8 if n > 100e9 else 4 if n > 10e9 else 1)
 
 
-def count_all(cells, workers: int = 1) -> list:
+def count_all(cells, workers: int = 1, fn=None) -> list:
     """``(row, None)`` or ``(None, failure)`` of each ``(cfg, shape)`` cell,
     in order; with ``workers`` > 1 in spawned processes, the most ops
-    first."""
+    first. ``fn(*cell)`` (a module-level function, default: this module's
+    count of the cell) counts one cell whose first two items are its
+    config and shape."""
+    fn = fn or _count_row
     if workers <= 1:
-        return [_count_row(*c) for c in cells]
+        return [fn(*c) for c in cells]
     order = sorted(range(len(cells)), key=lambda i: -_ops_estimate(cells[i]))
     ctx = multiprocessing.get_context("spawn")
     with ctx.Pool(min(workers, len(cells))) as pool:
-        done = pool.starmap(_count_row, [cells[i] for i in order],
-                            chunksize=1)
+        done = pool.starmap(fn, [cells[i] for i in order], chunksize=1)
     results = [None] * len(cells)
     for i, r in zip(order, done):
         results[i] = r

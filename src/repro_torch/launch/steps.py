@@ -116,15 +116,16 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
 
 def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
                ep: Optional[EPConfig] = None, mode: str = "tp_sp",
-               dropless=None, grad_transform=None,
-               accum_steps: int = 0) -> StepFns:
+               dropless=None, grad_transform=None, accum_steps: int = 0,
+               flash_decode: bool = True) -> StepFns:
     """The train, prefill and decode steps over ``mesh``.
 
     EP (``ep``) is the MoE of all three; ``dropless`` replaces it in
     training only, as in the reference. An audio encoder's prefill step is
     its forward, ``(logits, None)``. The decode step uses flash
-    decoding when the mesh's model axis is larger than 1 and the config
-    has heads.
+    decoding when ``flash_decode`` is set, the mesh's model axis is larger
+    than 1 and the config has heads; without it the dense one-token
+    attention runs.
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
@@ -136,7 +137,7 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
                                  moe_impl=moe_impl, dropless=dropless,
                                  grad_transform=grad_transform)
     fd_impl = None
-    if mesh.shape.get("model", 1) > 1 and cfg.n_heads:
+    if flash_decode and mesh.shape.get("model", 1) > 1 and cfg.n_heads:
         from ..parallel.flash_decode import make_flash_decode
         fd_impl = make_flash_decode(mesh, "model")
 

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.ctx import current_flash_decode
+
 
 class MetaDraws:
     """The ``gen`` of the ``init_*`` functions on the meta device, where no
@@ -239,9 +241,9 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     writes the new keys and values into ``cache["k"]``/``cache["v"]`` in
     place (no copy of the cache per token); ``len`` is a new tensor.
     ``flash_decode``: an impl of ``parallel.flash_decode.make_flash_decode``
-    for one-token decode with a scalar length (the JAX package installs it
-    by ``flash_decode_context``); where it returns ``None`` the dense path
-    runs.
+    for one-token decode with a scalar length; without one, the ambient
+    ``parallel.ctx.flash_decode_context``'s. Where it returns ``None`` the
+    dense path runs.
     """
     B, S, _ = x.shape
     compute_dtype = x.dtype
@@ -280,9 +282,11 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
         # p lives in slot p % W.
         ring = bool(sliding_window) and W <= sliding_window
         res = None
-        if (S == 1 and flash_decode is not None and lens.dim() == 0
+        fd = flash_decode if flash_decode is not None \
+            else current_flash_decode()
+        if (S == 1 and fd is not None and lens.dim() == 0
                 and not sliding_window):
-            res = flash_decode(q, kc, vc, k, v, lens)
+            res = fd(q, kc, vc, k, v, lens)
         if res is not None:
             o, kc, vc = res
             new_cache = {"k": kc, "v": vc, "len": lens + 1}

@@ -33,6 +33,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..parallel.ctx import current_moe_impl
 from . import layers as L
 from .moe import MoEConfig, init_moe, moe_grouped
 from .rglru import init_rglru, rglru_block
@@ -274,9 +275,10 @@ def _attn_half(cfg: ModelConfig, p, x, cache=None, flash_decode=None,
 
 
 def _moe_half(cfg: ModelConfig, p, x, moe_impl: Optional[Callable] = None):
-    """ln2 → MoE → residual."""
+    """ln2 → MoE → residual: ``moe_impl``, else the ambient
+    ``parallel.ctx.moe_impl_context``'s, else the kernels."""
     h = L.apply_norm(cfg.norm, x, p, "ln2")
-    impl = moe_impl or default_moe_impl(cfg)
+    impl = moe_impl or current_moe_impl() or default_moe_impl(cfg)
     return x + impl(p["moe"], h, cfg.moe)
 
 
@@ -455,11 +457,13 @@ def loss_fn(cfg: ModelConfig, params, batch, moe_impl=None,
             ce_chunk: int = 512):
     """Next-token (or frame-label) cross entropy, fp32, vocab-pad masked.
 
-    The MoE defaults to :func:`train_moe_impl`. The unembedding and
-    logsumexp run in sequence chunks, each under ``checkpoint`` while
-    autograd records, so the full [B, S, V] logits never materialize.
+    The MoE defaults to the ambient ``moe_impl_context``'s, else
+    :func:`train_moe_impl`. The unembedding and logsumexp run in sequence
+    chunks, each under ``checkpoint`` while autograd records, so the full
+    [B, S, V] logits never materialize.
     """
-    x = final_hidden(cfg, params, batch, moe_impl or train_moe_impl(cfg))
+    x = final_hidden(cfg, params, batch, moe_impl or current_moe_impl()
+                     or train_moe_impl(cfg))
     labels = batch["labels"]
     unembed = _unembedding(cfg, params)
     B, S, _ = x.shape

@@ -59,11 +59,14 @@ def make_flash_decode(mesh, axis: str = "model"):
         stats = []
         for r in comm.ranks:
             blk = slice(r * s_loc, (r + 1) * s_loc)
-            # The owner's local write: this block's row at local_idx.
+            # The owner's local write: this block's row at local_idx (a
+            # one-element index: a 0-d one would read it on the host, which
+            # the meta device, the hill-climb's count, cannot).
+            at = (r * s_loc + local_idx).reshape(1).long()
             for cache, new in ((k_cache, new_k), (v_cache, new_v)):
-                old = cache[rows, r * s_loc + local_idx]
-                cache[rows, r * s_loc + local_idx] = torch.where(
-                    owner == r, new[:, 0], old)
+                mine = cache[rows]
+                mine.index_copy_(1, at, torch.where(
+                    owner == r, new, mine.index_select(1, at)))
             k_loc, v_loc = k_cache[rows, blk], v_cache[rows, blk]
             s = torch.einsum("bqkgd,bskd->bkgqs", qg, k_loc).float()
             s = s * (1.0 / math.sqrt(hd))

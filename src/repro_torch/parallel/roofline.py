@@ -24,9 +24,10 @@ while it runs, on the meta device in ``launch/dryrun.py``:
 
 The reference parses collectives from HLO text (``parse_collectives``); the
 port has no HLO and no counterpart. An EP cell's collective bytes come from
-``parallel/comm.py``'s counters (``comm.stats``), and they are 0 on one
-card, the only mesh the dry run runs on. ``t_compute`` divides by the peak
-of the config's compute dtype (``core.hardware.H100``).
+``parallel/comm.py``'s counters (``comm.stats``): 0 on the dry run's ``1x1``
+mesh, the bytes a virtual rank sends on ``launch/hillclimb.py``'s ``1x4``,
+priced at NVLink's rate as a prediction for an NVLink box. ``t_compute``
+divides by the peak of the config's compute dtype (``core.hardware.H100``).
 """
 
 from __future__ import annotations

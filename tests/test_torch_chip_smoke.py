@@ -3,6 +3,7 @@ control of the trainable expert FFN's end-to-end check, the reader of the
 compiler's register and spill report, the dropless tiles' body check,
 phase 9's SSC lookups check and the cases of phases 10-12 and 14-17."""
 
+import dataclasses
 import sys
 from pathlib import Path
 
@@ -406,3 +407,90 @@ def test_audio_vlm_phase_runs_on_the_cpu():
     assert [r["run"] for r in dry["runs"]] == list(runs)
     assert dry["runs"][0]["kind"] == "decode"
     assert dry["runs"][-1]["n_layers"] == vlm.n_layers
+
+
+def test_tools_phase_runs_on_the_cpu(monkeypatch):
+    """Phase 18's cases at the smoke configs on the CPU: (b) every
+    variant's real step through ``hillclimb.variant_steps`` over four
+    virtual ranks, (a) each counted at the same cut on the meta device,
+    joined by ``tools_check`` (the shares read CPU times here: no device
+    number); the fp32 decode consistency; (c) the examples. The launch
+    counters count only on the card, so the launch gates fail here: with
+    the counts ``hillclimb_launches`` gives, every other gate of (b)
+    holds, and (c) names exactly the MoE examples."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import hillclimb as hc
+    from repro_torch.launch.train import pad_experts
+    granite = pad_experts(dataclasses.replace(
+        get_smoke_config("granite-moe-3b-a800m"), remat=True), 4)
+    llama = get_smoke_config("llama3_2-3b")
+    runs = chip_smoke.tools_runs(granite=granite,
+                                 hubert=get_smoke_config("hubert-xlarge"),
+                                 llama=llama, seq=32, decode_len=64)
+    assert len(runs) == 9
+    measured = {}
+    for label, (cfg, sp, v) in runs.items():
+        if sp.kind == "train":
+            measured[label] = chip_smoke.tools_train_case(cfg, sp, v,
+                                                          dev="cpu", steps=2)
+        else:
+            measured[label], logits = chip_smoke.tools_decode_case(
+                cfg, sp, v, dev="cpu", steps=3)
+            assert tuple(logits.shape[:2]) == (4, chip_smoke.DECODE_BATCH)
+    results = dryrun.count_all([(c, s, v, chip_smoke.TOOLS_MESH)
+                                for c, s, v in runs.values()], 1,
+                               hc.count_job)
+    with pytest.raises(AssertionError, match="launches"):
+        chip_smoke.tools_check(runs, measured, results)
+    for label, run in measured.items():
+        if label.startswith("granite_"):
+            run["launches"] = chip_smoke.hillclimb_launches(run)
+            run["tensor_core_launches"] = {
+                k: run["launches"][k]
+                for k in ("gmm_swiglu", "gmm", "gmm_swiglu_bwd")}
+    out = chip_smoke.tools_check(runs, measured, results)
+    assert out["baseline_zero1_first_loss_bit_equal"]
+    assert out["runs"]["granite_ep_dp"]["counted_collectives"] == {
+        "collective-permute": out["runs"]["granite_ep_dp"][
+            "counted_collectives"]["collective-permute"]}
+    assert out["runs"]["llama_baseline"]["collectives"] == {
+        "all-reduce": 3 * llama.n_layers}
+    assert chip_smoke.hillclimb_launches(
+        measured["granite_zero1_noremat"])["gmm"] == 3 * 2 * 16 * 2
+    fp32 = dataclasses.replace(llama, dtype="float32")
+    cons = chip_smoke.tools_decode_consistency(cfg=fp32, dev="cpu",
+                                               max_len=64, steps=2)
+    assert cons["of_max_logit"] <= chip_smoke.FAMILY_TOL
+    monkeypatch.setattr(chip_smoke, "E2E_STEPS", 2)
+    with pytest.raises(AssertionError, match="phase 18 .c. failed") as e:
+        chip_smoke.tools_examples(
+            dev="cpu", quick_argv=["--steps", "2"], explorer_argv=[
+                "--ep", "2"], serve_argv=["--batch", "2", "--gen", "3",
+                                          "--prompt-len", "8"],
+            e2e_argv=["--seq", "16", "--batch", "2"])
+    named = [n for n in ("quickstart", "schedule_explorer", "serve_decode'",
+                         "serve_decode_moe", "train_moe_e2e")
+             if f"('{n}" in str(e.value)]
+    assert named == ["quickstart", "serve_decode_moe", "train_moe_e2e"]
+
+
+def test_tools_cells_gates_on_failures_and_moe_collectives():
+    """Phase 18 (a)'s join of the three cells' counts: one row a cell and
+    variant in ``hillclimb.CELLS`` order; it fails on a failed count, and
+    on a MoE cell's variant that counts no collective (EP is on in each)."""
+    row = {"tag": "t", "line": "l", "t_compute_s": 1.0, "t_memory_s": 2.0,
+           "t_collective_s": 0.5, "bottleneck": "memory",
+           "roofline_frac": 0.1, "collectives": {"all-to-all": 1},
+           "collective_bytes_per_rank": 8.0, "args_gb": 1.0, "temp_gb": 1.0,
+           "count_s": 1.0}
+    n = 3 * len(chip_smoke.TOOLS_CELL_VARIANTS)
+    rows = chip_smoke.tools_cells([(row, None)] * n)
+    assert [(r["cell"], r["variant"]) for r in rows][:2] == [
+        ("granite_train", "baseline"), ("granite_train", "opt")]
+    assert len(rows) == n
+    with pytest.raises(AssertionError, match="no collective counted"):
+        chip_smoke.tools_cells([(dict(row, collectives={}), None)] * n)
+    with pytest.raises(AssertionError, match="boom"):
+        chip_smoke.tools_cells([(row, None)] * (n - 1)
+                               + [(None, ("llama", "decode", "opt", "boom"))])
