@@ -46,8 +46,12 @@ Phases, each printing one JSON line:
    forward and backward, the backward on its tensor-core body) and the
    paper module's (E = 8, K = 7168, F = 2048 at C = 2,560 and 10,240),
    each timed by device time only beside its bound and ``torch.bmm``
-   (the backward beside the three ``torch.bmm`` of its sizes); and
-   dbrx-132b's shapes (phase 16 (d) and (e): E = 16, K = 6144, F = 10752
+   (the backward beside the three ``torch.bmm`` of its sizes); phase 19's
+   (``dist_kernel_rows``: 24 experts a rank at ep = 2 and a ring chunk's
+   C_pair = 2,736 of a rank's 4,096 tokens, ``dist_capacity``;
+   gmm_swiglu, gmm and its dx and dW calls, and the backward on its
+   tensor-core body, each twice and bit-equal, untimed); and dbrx-132b's
+   shapes (phase 16 (d) and (e): E = 16, K = 6144, F = 10752
    at a decode step's C = 3, a 128-token prefill's C = 40 and a
    4096-token training step's C = 1,280; at the last also gmm as GMM2's
    two backward calls and the backward kernel on its tensor-core body),
@@ -273,6 +277,28 @@ Phases, each printing one JSON line:
    ``kernels`` line: ``tools_hillclimb``, ``tools_quickstart``,
    ``tools_serve_decode``, ``tools_train_moe_e2e``.
 
+19. dist_train — training across processes: ``launch.train --nproc
+   DIST_PROCS --backend gloo --n-layers DIST_LAYERS`` on the one card (NCCL refuses two ranks on
+   one card, so the ranks' collectives go through host buffers over gloo:
+   this measures a shared card, not links or scaling), granite at full
+   width cut to DIST_LAYERS layers, mesh DIST_MESH, bf16, DIST_STEPS steps
+   of DIST_BATCH x TRAIN_SEQ tokens, zero1 then ep_dp (the MoE on the
+   ring over each model row). Gates: step 1's loss within LOSS_TOL and each
+   grad leaf's norm within GNORM_TOL of the one-process run over virtual
+   ranks at the same mesh (``dist_virtual_case``); finite losses and grad
+   norms; each process's ``gmm_swiglu`` / ``gmm`` / ``gmm_swiglu_bwd``
+   launches DIST_LAYERS x 2 ring steps x (2, 4, 1) a step, all on tensor
+   cores; each process's optimizer-state bytes those of its
+   ``opt_state_spec`` blocks; ep_dp's checkpoint, written by rank 0 in the
+   reference's layout, restored here, every rank's block of every leaf
+   equal (CRC32) to the block that rank ended with. Printed: each mode's
+   median step ms, collectives and bytes a rank a step, peak memory a
+   process, and NCCL's refusal of two ranks on the one card. The path
+   ``dist_train`` of the ``kernels`` line sums the processes' launches.
+   Each mode also prints rank 0's host seconds a step in each kind of
+   transfer (``comm.stats.seconds``), the rest of its step being compute
+   and waits for the other ranks.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
 CUDA device nothing is printed to stdout.
@@ -303,7 +329,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch.checkpoint import ckpt as ckpt_mod  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import JaxTrainLayout  # noqa: E402
 from repro_torch.data.pipeline import DataConfig, SyntheticStream  # noqa
 from repro_torch.ft import harness as ft_harness  # noqa: E402
@@ -334,7 +360,8 @@ from repro_torch.launch import hillclimb as hc_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
-from repro_torch.launch.mesh import dist_mesh, make_test_mesh  # noqa: E402
+from repro_torch.launch.mesh import (dist_mesh, make_mesh,  # noqa: E402
+                                     make_test_mesh)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.moe import (bridge_dispatch, capacity,  # noqa
                                     init_moe, moe_grouped,
@@ -342,6 +369,7 @@ from repro_torch.models.moe import (bridge_dispatch, capacity,  # noqa
 from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.parallel.ep import (EPConfig, _pair_capacity,  # noqa
                                      make_moe_ep)
+from repro_torch.parallel import sharding  # noqa: E402
 from repro_torch.parallel.flash_decode import make_flash_decode  # noqa
 from repro_torch.examples import quickstart as ex_quickstart  # noqa: E402
 from repro_torch.examples import schedule_explorer as ex_explorer  # noqa
@@ -503,6 +531,14 @@ LLAMA = "llama3.2-3b"
 DECODE_VARIANTS, DECODE_BATCH, DECODE_STEPS = (
     ("baseline", "flashdecode_off"), 8, 8)
 E2E_STEPS = 10
+# Training across processes (phase 19): DIST_PROCS processes, one rank
+# each, on the one card over gloo (NCCL refuses two ranks on one card),
+# mesh DIST_MESH, granite at full width cut to DIST_LAYERS layers,
+# DIST_STEPS steps of DIST_BATCH x TRAIN_SEQ tokens (train_4k's global batch
+# cut from 256 to 4: one row a rank), in each of DIST_MODES.
+DIST_PROCS, DIST_MESH, DIST_LAYERS, DIST_STEPS = 4, (2, 2), 2, 3
+DIST_BATCH = 4
+DIST_MODES = ("zero1", "ep_dp")
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -950,6 +986,7 @@ def check_kernels(cfg):
         rows.append(r)
     rows.append(trainable_ffn_case(E, c_train, D, Fe, gen))
     rows += ep_kernel_rows(cfg, gen)
+    rows += dist_kernel_rows(cfg, gen)
     rows += dbrx_kernel_rows(gen)
     for dtype in (torch.bfloat16, torch.float32):
         for E_, C, K, F in ((2, 128, 64, 128), (3, 64, 96, 64),
@@ -976,6 +1013,7 @@ def check_kernels(cfg):
                                     False))
     return rows, {"decode8": c_dec8, "decode4": c_dec4, "prefill": c_pre,
                   "train": c_train, **ep_capacities(cfg),
+                  "dist_train": dist_capacity(cfg),
                   **dbrx_capacities()}
 
 
@@ -1024,6 +1062,48 @@ def ep_kernel_rows(cfg, gen):
         raise AssertionError(f"EP gmm_swiglu_bwd ran the FMA body: {r}")
     rows.append(dict(r, shape="paper_ring"))
     torch.cuda.empty_cache()
+    return rows
+
+
+def dist_capacity(cfg) -> int:
+    """Phase 19's ring chunk: C_pair of a rank's tokens at ep =
+    DIST_MESH[-1], the tokens ``rules.batch_spec`` gives a rank of
+    DIST_BATCH x TRAIN_SEQ in each of DIST_MODES (zero1's sequence chunks
+    of the model row's rows are as many)."""
+    pcfg = train_mod.pad_experts(cfg, DIST_MESH[-1])
+    mesh = _ShapeMesh(DIST_MESH)
+    shape = (DIST_BATCH, TRAIN_SEQ)
+    tokens = {math.prod(sharding.block_shape(shape, sharding.ShardingRules(
+        pcfg, mesh, mode=m).batch_spec({"tokens": shape})["tokens"], mesh))
+        for m in DIST_MODES}
+    if len(tokens) != 1:
+        raise AssertionError(f"phase 19's modes give a rank {tokens} tokens")
+    return _pair_capacity(tokens.pop(), pcfg.moe, DIST_MESH[-1], EP_CF)
+
+
+def dist_kernel_rows(cfg, gen):
+    """Phase 19's GMM shapes, run in phase 3: e_total / DIST_MESH[-1]
+    experts a rank and a ring chunk's C_pair rows (``dist_capacity``):
+    gmm_swiglu, gmm forward and the two gmm calls of its backward (dx with
+    w a transposed view, dW with x one), and gmm_swiglu_bwd on the tensor
+    cores, each against its plain version and called twice, bit-equal."""
+    pcfg = train_mod.pad_experts(cfg, DIST_MESH[-1])
+    e_loc = pcfg.moe.e_total // DIST_MESH[-1]
+    C, D, Fe = dist_capacity(cfg), cfg.d_model, cfg.moe.d_expert
+    rows = []
+    for tag, name, C_, K, N, lay in (
+            ("dist_ring", "gmm_swiglu", C, D, Fe, (0, 0)),
+            ("dist_ring", "gmm", C, Fe, D, (0, 0)),
+            ("dist_ring_bwd_dx", "gmm", C, D, Fe, (0, 1)),
+            ("dist_ring_bwd_dw", "gmm", Fe, C, D, (1, 0))):
+        r = kernel_case(name, e_loc, C_, K, N, torch.bfloat16, gen,
+                        timed=False, layouts=lay, repeat=True)
+        rows.append(dict(r, shape=tag))
+    r = bwd_case(e_loc, C, D, Fe, torch.bfloat16, gen, timed=False)
+    if r["body"] != "tensor_cores":
+        raise AssertionError(f"phase 19's gmm_swiglu_bwd ran the FMA "
+                             f"body: {r}")
+    rows.append(dict(r, shape="dist_ring"))
     return rows
 
 
@@ -3287,6 +3367,267 @@ def run_tools():
              "tools_train_moe_e2e": ex_launches["train_moe_e2e"]})
 
 
+def dist_virtual_case(cfg, mode, dev="cuda", seq=TRAIN_SEQ):
+    """Phase 19's yardstick: one step of the one-process run over virtual
+    ranks at the same mesh on the global batch: its loss and each leaf's
+    grad norm (before clipping)."""
+    dev = torch.device(dev)
+    seen = {}
+
+    def keep(g):
+        seen["norms"] = [float(t.float().norm()) for t in adamw.tree_leaves(g)]
+        return g
+    mesh = make_mesh(DIST_MESH, dev)
+    step = steps_mod.make_steps(
+        cfg, mesh, opt=adamw.OptConfig(lr=1e-3, warmup_steps=2,
+                                       total_steps=DIST_STEPS),
+        ep=EPConfig(capacity_factor=EP_CF), mode=mode,
+        grad_transform=keep).train_step
+    params = adamw.cast_params(M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        cfg.compute_dtype)
+    batch = SyntheticStream(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=DIST_BATCH)).sharded_batch(
+        0, mesh, dev)
+    _, _, m = step(params, adamw.init_opt_state(params), batch)
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "grad_leaf_norms": seen["norms"]}
+    del params, step, batch, m
+    _free(dev)
+    return out
+
+
+def dist_expected_opt_bytes(cfg, mode) -> int:
+    """A rank's optimizer-state bytes by its ``opt_state_spec`` blocks:
+    fp32 m, v and master of each leaf's block (every rank's blocks have
+    one shape)."""
+    rules = sharding.ShardingRules(cfg, _ShapeMesh(DIST_MESH), mode=mode)
+    meta = adamw.cast_params(M.init_params(cfg, device="meta"),
+                             cfg.compute_dtype)
+    return sum(3 * 4 * math.prod(sharding.block_shape(t.shape, spec,
+                                                       rules.mesh))
+               for t, spec in zip(adamw.tree_leaves(meta),
+                                  sharding.opt_state_specs(rules, meta)))
+
+
+class _ShapeMesh:
+    def __init__(self, dims):
+        names = ("pod", "data", "model")[-len(dims):]
+        self.shape = dict(zip(names, dims))
+        self.axis_names = names
+
+
+def dist_restore_check(cfg, mode, step_dir, ranks) -> dict:
+    """The processes' checkpoint restored in this process (on the host),
+    each rank's block of every leaf cut from it: its CRC32 must equal the
+    one that rank took of its own block at the end of its run."""
+    rules = sharding.ShardingRules(cfg, _ShapeMesh(DIST_MESH), mode=mode)
+    meta = adamw.cast_params(M.init_params(cfg, device="meta"),
+                             cfg.compute_dtype)
+    params = adamw.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
+                            meta)
+    state = adamw.init_opt_state(params)
+    t0 = time.perf_counter()
+    JaxTrainLayout.restore(step_dir, params, state)
+    restore_s = time.perf_counter() - t0
+    specs = {"params": sharding.param_specs(rules, meta)}
+    specs.update({k: sharding.opt_state_specs(rules, meta)
+                  for k in ("m", "v", "master")})
+    trees = {"params": params, **{k: state[k] for k in ("m", "v",
+                                                       "master")}}
+    unequal, blocks = [], 0
+    for kind, tree in trees.items():
+        for i, (t, spec) in enumerate(zip(adamw.tree_leaves(tree),
+                                          specs[kind])):
+            crcs = {}
+            for r in ranks:
+                c = r["coords"]
+                key = tuple(c[a] for a in sharding.spec_axes(spec))
+                if key not in crcs:
+                    blk = sharding.local_block(t, spec, rules.mesh, c)
+                    crcs[key] = train_mod._crc32([blk])[0]
+                    blocks += 1
+                if crcs[key] != r["state_crc32"][kind][i]:
+                    unequal.append((kind, i, r["rank"]))
+    out = {"step": state["step"], "restore_s": restore_s,
+           "blocks_checked": blocks, "blocks_unequal": unequal}
+    if unequal or state["step"] != DIST_STEPS:
+        raise AssertionError(f"the processes' checkpoint does not restore "
+                             f"to their blocks: {out}")
+    return out
+
+
+def _nccl_try(rank, init, out_dir):
+    import torch.distributed as dist
+    try:
+        dist.init_process_group("nccl", init_method=init, world_size=2,
+                                rank=rank)
+        t = torch.ones(1, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        msg = "no error"
+    except Exception as e:      # the refusal is what this try records
+        msg = f"{type(e).__name__}: {e}"
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    with open(os.path.join(out_dir, f"nccl{rank}.txt"), "w") as f:
+        f.write(msg)
+
+
+def nccl_try_start():
+    """Start two NCCL ranks on the one card (``nccl_refusal`` reads what
+    NCCL said)."""
+    import torch.multiprocessing as mp
+    d = tempfile.mkdtemp()
+    return d, mp.start_processes(_nccl_try, args=(f"file://{d}/init", d),
+                                 nprocs=2, join=False, start_method="spawn")
+
+
+def nccl_refusal(started, timeout_s=60) -> dict:
+    """NCCL's own refusal of two ranks on the one card, read from each
+    process (killed if it has not ended ``timeout_s`` after this call)."""
+    d, ctx = started
+    try:
+        t0, ended = time.perf_counter(), None
+        try:
+            while not ctx.join(timeout=1):
+                if time.perf_counter() - t0 > timeout_s:
+                    ended = f"killed after {timeout_s} s"
+                    break
+        except Exception as e:      # a rank NCCL ended by a signal
+            ended = f"{type(e).__name__}: {e}"
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        msgs = []
+        for r in range(2):
+            path = os.path.join(d, f"nccl{r}.txt")
+            msgs.append(open(path).read() if os.path.exists(path)
+                        else "no message (killed)")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return {"ranks": 2, "device": "cuda:0", "messages": msgs,
+            "ended": ended}
+
+
+def run_dist_train(smoke=False, dev="cuda", seq=TRAIN_SEQ, nccl=True):
+    """Phase 19: ``launch.train --nproc DIST_PROCS --backend gloo
+    --n-layers DIST_LAYERS`` on the one card (or ``dev``; ``smoke``: at the
+    smoke config's widths), granite at full width cut to DIST_LAYERS
+    layers, mesh DIST_MESH, zero1 then ep_dp. Returns the phase's line and
+    the launches of path dist_train (every process's, summed)."""
+    t_phase = time.perf_counter()
+    cuda = torch.device(dev).type == "cuda"
+    base = dataclasses.replace(
+        get_smoke_config(ARCH) if smoke else get_config(ARCH),
+        n_layers=DIST_LAYERS)
+    pcfg = train_mod.pad_experts(base, DIST_MESH[-1])
+    total = {k: 0 for k in COUNTERS}
+    modes, root = {}, tempfile.mkdtemp()
+    names = ["/".join(map(str, p)) for p, _, _ in
+             sharding.jax_leaves(M.init_params(pcfg, device="meta"))]
+    # One rank's ring makes an FFN call at each of its ep steps.
+    F = DIST_MESH[-1]
+    per_step = {k: DIST_LAYERS * F * n for k, n in TRAIN_LAUNCHES.items()
+                if n}
+    # NCCL's try runs beside the modes: it fails at its first collective.
+    started = nccl_try_start() if nccl else None
+    try:
+        for mode in DIST_MODES:
+            want = dist_virtual_case(pcfg, mode, dev, seq)
+            ckpt = os.path.join(root, mode)
+            argv = ["--arch", ARCH, "--nproc", str(DIST_PROCS), "--mesh",
+                    "x".join(map(str, DIST_MESH)), "--mode", mode,
+                    "--backend", "gloo", "--device", dev, "--seq", str(seq),
+                    "--global-batch", str(DIST_BATCH), "--steps",
+                    str(DIST_STEPS), "--lr", "1e-3", "--n-layers",
+                    str(DIST_LAYERS)] + (["--smoke"] if smoke else [])
+            if mode == DIST_MODES[-1]:     # one checkpoint, at the end
+                argv += ["--ckpt-dir", ckpt, "--ckpt-every", str(DIST_STEPS)]
+            t = time.perf_counter()
+            run = train_mod.main(argv)
+            wall = time.perf_counter() - t
+            log, ranks = run.metrics_log, run.ranks
+            if not all(math.isfinite(m["loss"])
+                       and math.isfinite(m["grad_norm"]) for m in log):
+                raise AssertionError(f"{mode}: non-finite metrics {log}")
+            got = log[0]
+            loss_gap = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+            norm_gap = max(abs(a - b) / max(b, 1e-30) for a, b in zip(
+                got["grad_leaf_norms"], want["grad_leaf_norms"],
+                strict=True))
+            launches = [dict(r["launches"]) for r in ranks]
+            tc = [r.pop("tensor_cores") for r in launches]
+            for k in COUNTERS:
+                total[k] += sum(r.get(k, 0) for r in launches)
+            opt_bytes = dist_expected_opt_bytes(pcfg, mode)
+            step_ms = [m["step_ms"] for m in log]
+            row = {
+                "wall_s": wall, "losses": [m["loss"] for m in log],
+                "grad_norms": [m["grad_norm"] for m in log],
+                "step_ms": step_ms,
+                "step_ms_median_after_warmup": statistics.median(
+                    step_ms[1:]),
+                "tokens_per_s": DIST_BATCH * seq / (statistics.median(
+                    step_ms[1:]) / 1e3),
+                "virtual": {k: want[k] for k in ("loss", "grad_norm")},
+                "loss_rel_gap": loss_gap,
+                "grad_leaf_norm_rel_gap_max": norm_gap,
+                "grad_leaf_norms": {n: [a, b] for n, a, b in sorted(
+                    zip(names, got["grad_leaf_norms"],
+                        want["grad_leaf_norms"]),
+                    key=lambda x: -abs(x[1] - x[2]) / max(x[2], 1e-30))[:4]},
+                "collectives_per_rank_per_step": log[-1]["collectives"],
+                "comm_bytes_per_rank_per_step":
+                    log[-1]["comm_bytes_per_rank"],
+                # Rank 0's host seconds in each kind of transfer, the
+                # backward's included, a step after the warm-up.
+                "comm_s_per_step": [m["comm_seconds"] for m in log[1:]],
+                "peak_bytes_per_process": [r["peak_bytes"] for r in ranks],
+                "opt_state_bytes_per_process": [r["opt_state_bytes"]
+                                                for r in ranks],
+                "opt_state_bytes_by_spec": opt_bytes,
+                "launches_per_process": launches,
+                "launches_per_process_per_step": per_step,
+                "tensor_core_launches_per_process": tc,
+                "ckpt": ranks[0]["ckpt_log"]}
+            if loss_gap > LOSS_TOL or norm_gap > GNORM_TOL:
+                raise AssertionError(f"{mode}: beyond the virtual ranks' "
+                                     f"run: {row}")
+            if any(b != opt_bytes for b in row[
+                    "opt_state_bytes_per_process"]):
+                raise AssertionError(f"{mode}: optimizer state is not the "
+                                     f"spec's blocks: {row}")
+            want_l = {k: DIST_STEPS * n for k, n in per_step.items()}
+            if cuda and any(
+                    {k: r[k] for k in want_l} != want_l
+                    or t != {k: want_l[k] for k in t}
+                    for r, t in zip(launches, tc)):
+                raise AssertionError(f"{mode}: launches {launches} (tensor "
+                                     f"cores {tc}) != {want_l} a process")
+            if mode == DIST_MODES[-1]:
+                row["restore"] = dist_restore_check(
+                    pcfg, mode, ckpt_mod.latest_step_dir(ckpt), ranks)
+                shutil.rmtree(ckpt, ignore_errors=True)
+            modes[mode] = row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        # Reaps the two NCCL ranks whatever happened above.
+        refusal = None if started is None else nccl_refusal(started)
+    out = {"phase": "dist_train", "arch": ARCH, "n_layers": DIST_LAYERS,
+           "processes": DIST_PROCS, "mesh": list(DIST_MESH),
+           "backend": "gloo (host-staged: one card)", "device": dev,
+           "seq": seq, "global_batch": DIST_BATCH, "steps": DIST_STEPS,
+           "capacity_factor": EP_CF, "loss_tol": LOSS_TOL,
+           "grad_norm_tol": GNORM_TOL, "modes": modes}
+    if refusal is not None:
+        out["nccl_two_ranks_one_card"] = refusal
+    out["seconds"] = time.perf_counter() - t_phase
+    return out, total
+
+
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
     """The ``kernels`` line's entry of a swiglu_add mode: timed at the
     paper's largest size in bf16 (M = 32768), with every size beside it."""
@@ -3392,6 +3733,10 @@ def main() -> int:
     tools_out, tools_launches = run_tools()
     emit(tools_out)
     path_launches.update(tools_launches)
+    _free()
+    dist_out, dist_launches = run_dist_train()
+    emit(dist_out)
+    path_launches["dist_train"] = dist_launches
 
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -23,11 +23,21 @@ step is. Each leaf's CRC32 is taken over the stored bytes.
 Save and ``restore(..., into=True)`` hold one leaf on the host at a time and
 no copy of a leaf on the device: a state that fills the card can be saved
 and restored in place.
+
+Across processes (a process mesh, ``launch.mesh.dist_mesh(dims)``) a leaf
+of which each process holds a block is a :class:`Sharded` leaf. Every
+process calls ``save(..., comm=)`` with the world's comm: each sharded
+leaf's blocks are gathered on rank 0, which alone writes the files, the
+same bytes a one-process save of the whole tree writes; ``_COMPLETE`` and
+``latest`` follow a barrier that every process passes. ``restore`` reads
+the files on every process and keeps each sharded leaf's own block, so a
+checkpoint restores at any mesh whose blocks divide its leaves.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import zipfile
@@ -35,6 +45,8 @@ import zlib
 
 import numpy as np
 import torch
+
+from ..parallel.sharding import assemble, local_block, spec_axes
 
 _SHARD_LEAVES = 64  # leaves per npz shard
 
@@ -77,13 +89,52 @@ class Stacked:
         return torch.Size((len(self.parts), *self.parts[0].shape))
 
 
+class Sharded:
+    """One leaf of which this process holds ``block``, its block under
+    ``spec`` at ``mesh.coords`` (``parallel.sharding.local_block``)."""
+
+    def __init__(self, block, spec, mesh):
+        self.block, self.spec, self.mesh = block, tuple(spec), mesh
+        self.shape = torch.Size(
+            n * math.prod(mesh.shape[a] for a in spec_axes((e,)))
+            for n, e in zip(block.shape, self.spec))
+        self.dtype = block.dtype
+
+    def whole(self):
+        """The whole leaf on the host of rank 0 (``None`` elsewhere): every
+        process must call it."""
+        blocks = self.mesh.world.gather(self.block.detach().contiguous())
+        return None if blocks is None else assemble(blocks, self.spec,
+                                                    self.mesh)
+
+    def own(self, t: torch.Tensor) -> torch.Tensor:
+        """This process's block of the whole leaf ``t``."""
+        return local_block(t, self.spec, self.mesh, self.mesh.coords)
+
+
+def _host(leaf):
+    """A tensor leaf on the host (``None`` off rank 0 for a sharded one)."""
+    return leaf.whole() if isinstance(leaf, Sharded) else leaf
+
+
 def _to_storable(leaf) -> tuple[np.ndarray, str]:
-    """(the array npz stores, the manifest's dtype name) of one leaf."""
+    """(the array npz stores, the manifest's dtype name) of one leaf; a
+    sharded leaf's is ``(None, None)`` off rank 0."""
     if isinstance(leaf, Stacked):
-        rows = torch.empty(leaf.shape, dtype=leaf.parts[0].dtype)
-        for row, part in zip(rows, leaf.parts):
-            row.copy_(part.detach())
+        rows = None
+        for i, part in enumerate(leaf.parts):
+            part = _host(part)
+            if part is None:
+                continue
+            if rows is None:
+                rows = torch.empty(leaf.shape, dtype=leaf.parts[0].dtype)
+            rows[i].copy_(part.detach())
+        if rows is None:
+            return None, None
         leaf = rows
+    leaf = _host(leaf)
+    if leaf is None:
+        return None, None
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
@@ -137,12 +188,25 @@ def _write_npz(path: str, arrays) -> None:
                 np.lib.format.write_array(f, a, allow_pickle=False)
 
 
-def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
+def save(ckpt_dir: str, step: int, tree, extra: dict | None = None, *,
+         comm=None) -> str:
     """Write ``tree`` as ``<ckpt_dir>/step_<step>`` and point ``latest`` at
     it; returns the step directory. ``extra`` (JSON-safe) rides the
-    manifest."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    manifest. ``comm``: the world's comm of a process mesh, every process
+    calling ``save`` with its own blocks (see the module docstring)."""
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
+    if comm is not None and comm.rank != 0:
+        flat = dict(_flatten(tree))
+        for k in sorted(flat):
+            leaf = flat[k]
+            parts = leaf.parts if isinstance(leaf, Stacked) else [leaf]
+            for part in parts:              # this rank's blocks to rank 0
+                if isinstance(part, Sharded):
+                    part.whole()
+        comm.barrier()                      # every block was sent
+        comm.barrier()                      # rank 0 has written latest
+        return final
+    os.makedirs(ckpt_dir, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
@@ -172,6 +236,8 @@ def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
     _file_op("write_manifest")
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
+    if comm is not None:
+        comm.barrier()
     _file_op("write_complete")
     with open(os.path.join(tmp, "_COMPLETE"), "w") as f:
         f.write("ok")
@@ -185,6 +251,8 @@ def save(ckpt_dir: str, step: int, tree, extra: dict | None = None) -> str:
     _file_op("replace_latest")
     os.replace(os.path.join(ckpt_dir, "latest.tmp"),
                os.path.join(ckpt_dir, "latest"))
+    if comm is not None:
+        comm.barrier()
     return final
 
 
@@ -212,19 +280,25 @@ def latest_step_dir(ckpt_dir: str) -> str | None:
 def _from_stored(key: str, a: np.ndarray, dtype: str, like, into: bool):
     """A stored array as a leaf like ``like``: an int, a tensor on
     ``like``'s device and in its dtype, or, ``into``, ``like`` itself with
-    the array copied into it."""
+    the array copied into it. A :class:`Sharded` leaf (or row) keeps its own
+    block."""
     if isinstance(like, int):
         return int(a)
     t = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
          if dtype == "bfloat16" else torch.from_numpy(a))
     if not into:
+        if isinstance(like, Sharded):
+            return like.own(t).to(device=like.block.device, dtype=like.dtype)
         return t.to(device=like.device, dtype=like.dtype)
     if t.shape != like.shape:
         raise ValueError(f"{key}: stored shape {tuple(t.shape)} != "
                          f"{tuple(like.shape)}")
     for dst, src in (zip(like.parts, t) if isinstance(like, Stacked)
                      else ((like, t),)):
-        dst.copy_(src)
+        if isinstance(dst, Sharded):
+            dst.block.copy_(dst.own(src))
+        else:
+            dst.copy_(src)
     return like
 
 

@@ -22,7 +22,9 @@ can start a run from the same params and state. Their inverses,
 back into the JAX package's ``[L, ...]`` leaves: a training checkpoint's
 tree is then exactly the JAX launcher's ``(params, opt_state)``, and a
 checkpoint written by either package restores in the other
-(``jax_train_tree``, ``restore_jax_train``).
+(``jax_train_tree``, ``restore_jax_train``). Across processes
+(:class:`DistTrainLayout`) each leaf a process holds a block of is a
+``checkpoint.ckpt.Sharded`` leaf of that tree: the files are the same.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from .checkpoint import ckpt as CK
 from .device import resolve_device
+from .optim.adamw import Zero1, tree_map
 
 _FP32_LEAVES = ("router", "A_log", "dt_bias", "gate_a", "gate_a_b",
                 "gate_x", "gate_x_b", "lam")
@@ -143,24 +146,44 @@ def opt_state_to_jax(state: dict) -> dict:
     return out
 
 
-def jax_train_tree(params: dict, opt_state: dict) -> tuple:
+def _sharded(tree, specs, mesh):
+    """``tree`` with each tensor whose spec splits it a ``ckpt.Sharded``
+    leaf (``specs`` in ``adamw.tree_leaves`` order)."""
+    it = iter(specs)
+
+    def wrap(t):
+        spec = next(it)
+        return (CK.Sharded(t, spec, mesh)
+                if any(e is not None for e in spec) else t)
+    return tree_map(wrap, tree)
+
+
+def jax_train_tree(params: dict, opt_state: dict, zero=None) -> tuple:
     """The JAX launcher's ``(params, opt_state)`` tree over the port's own
     tensors, copying none: each per-layer leaf list is one
     ``checkpoint.ckpt.Stacked`` leaf. ``ckpt.save`` writes it in the JAX
     package's layout, and ``ckpt.restore(..., into=True)`` fills it in
-    place."""
+    place. ``zero`` (an ``optim.adamw.Zero1``): this process's blocks of
+    a process mesh, each a ``ckpt.Sharded`` leaf under its spec."""
+    if zero is not None:
+        params = _sharded(params, zero.param_specs, zero.mesh)
+        opt_state = dict(opt_state, **{
+            k: _sharded(opt_state[k], zero.opt_specs, zero.mesh)
+            for k in ("m", "v", "master")})
     state = {k: _to_jax(opt_state[k], CK.Stacked)
              for k in ("m", "v", "master")}
     state["step"] = opt_state["step"]
     return _to_jax(params, CK.Stacked), state
 
 
-def restore_jax_train(step_dir: str, params: dict, opt_state: dict) -> dict:
+def restore_jax_train(step_dir: str, params: dict, opt_state: dict,
+                      zero=None) -> dict:
     """Restore a training checkpoint in the JAX package's layout into the
     port's ``params`` and ``opt_state`` in place (``opt_state["step"]``
-    included), one leaf at a time; returns the manifest."""
+    included), one leaf at a time; returns the manifest. ``zero``: keep
+    this process's blocks (see :func:`jax_train_tree`)."""
     (_, state), manifest = CK.restore(
-        step_dir, jax_train_tree(params, opt_state), into=True)
+        step_dir, jax_train_tree(params, opt_state, zero), into=True)
     opt_state["step"] = state["step"]
     return manifest
 
@@ -171,3 +194,25 @@ class JaxTrainLayout:
 
     tree = staticmethod(jax_train_tree)
     restore = staticmethod(restore_jax_train)
+
+
+class DistTrainLayout:
+    """``ft.runner.train_loop``'s checkpoint layout on a process mesh: the
+    JAX launcher's ``(params, opt_state)``, each process's blocks of its
+    ZeRO-1 state (``rules.opt_state_spec``) and params
+    (``rules.param_spec``) gathered on rank 0, which writes the files
+    (``comm``); a restore keeps each process's blocks."""
+
+    def __init__(self, rules, mesh):
+        self.rules, self.mesh = rules, mesh
+        self.comm = mesh.world
+
+    def _zero(self, params):
+        return Zero1(self.rules, self.mesh, params)
+
+    def tree(self, params: dict, opt_state: dict) -> tuple:
+        return jax_train_tree(params, opt_state, self._zero(params))
+
+    def restore(self, step_dir: str, params: dict, opt_state: dict) -> dict:
+        return restore_jax_train(step_dir, params, opt_state,
+                                 self._zero(params))

@@ -9,12 +9,16 @@ losses move in short runs.
 :meth:`SyntheticStream.batch` puts the global batch on one device;
 :meth:`SyntheticStream.sharded_batch` builds it data group by data group,
 each from its own rows, as the reference assembles a global array from its
-shards, or gives one data group's rows only.
+shards, or gives one data group's rows only. On a process mesh
+(``launch.mesh.dist_mesh(dims)``) it makes this rank's rows alone: the
+block that the stream's ``rules.batch_spec`` gives the rank's coords (over
+(pod, data, model) in the zero1 and ep_dp modes).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -29,8 +33,12 @@ class DataConfig:
 
 
 class SyntheticStream:
-    def __init__(self, dc: DataConfig):
+    """``rules``: the ``parallel.sharding.ShardingRules`` whose batch spec
+    places the rows on a process mesh."""
+
+    def __init__(self, dc: DataConfig, rules=None):
         self.dc = dc
+        self.rules = rules
 
     def _tokens(self, step: int, row_lo: int, row_hi: int) -> np.ndarray:
         """Rows [row_lo, row_hi) of the global batch at ``step``."""
@@ -70,8 +78,11 @@ class SyntheticStream:
         — the global batch, as a one-card mesh of virtual ranks holds it.
         An int: that group's rows only, which every rank of its model group
         holds (a ``DistComm`` process passes its own). ``mesh=None`` is one
-        data group: the global batch, as :meth:`batch` gives it.
+        data group: the global batch, as :meth:`batch` gives it. A process
+        mesh: this rank's rows (see the module docstring).
         """
+        if getattr(mesh, "local_rows", False):
+            return self._rank_rows(step, mesh, device)
         dc, n = self.dc, (1 if mesh is None else mesh.dp_size)
         if dc.global_batch % n:
             raise ValueError(f"global batch {dc.global_batch} does not "
@@ -80,5 +91,23 @@ class SyntheticStream:
         groups = range(n) if data_rank is None else [data_rank]
         t = np.concatenate([self._tokens(step, g * per, (g + 1) * per)
                             for g in groups])
+        return {k: torch.as_tensor(v, dtype=torch.long, device=device)
+                for k, v in (("tokens", t[:, :-1]), ("labels", t[:, 1:]))}
+
+    def _rank_rows(self, step: int, mesh, device) -> dict:
+        from ..parallel.sharding import local_block
+        if self.rules is None:
+            raise ValueError("a process mesh takes its rows by the stream's "
+                             "rules: SyntheticStream(dc, rules=...)")
+        B, S = self.dc.global_batch, self.dc.seq_len
+        spec = self.rules.batch_spec({"tokens": (B, S)})["tokens"]
+        world = math.prod(mesh.shape.values())
+        if spec[1:] != (None,) or B % world:
+            # Each rank's rows must be its own share of the batch's mean.
+            raise ValueError(f"a batch of {B} rows does not split over the "
+                             f"{world} ranks ({spec})")
+        rows = local_block(torch.arange(B), spec[:1], mesh, mesh.coords)
+        lo, hi = int(rows[0]), int(rows[-1]) + 1
+        t = self._tokens(step, lo, hi)
         return {k: torch.as_tensor(v, dtype=torch.long, device=device)
                 for k, v in (("tokens", t[:, :-1]), ("labels", t[:, 1:]))}

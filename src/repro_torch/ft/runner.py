@@ -27,6 +27,14 @@ convention. The step's time ends by waiting for the loss: on the card,
 twice on the device. ``layout`` (e.g. ``convert.JaxTrainLayout``) maps the
 state to the tree that is saved and restored into; without it
 ``(params, opt_state)`` is saved as it is.
+
+On a process mesh (``launch.mesh.dist_mesh(dims)``, with
+``convert.DistTrainLayout``) every rank runs the loop on its own rows and
+blocks: the resume's step directory is rank 0's, so every rank takes the
+same step; each rank's watchdog times its own step, and all ranks' step
+times feed the per-rank EWMA (as ``rank_time_us`` would); the
+checkpoint's blocks are gathered on rank 0, which alone writes and
+prunes.
 """
 
 from __future__ import annotations
@@ -191,7 +199,11 @@ def train_loop(*, step_fn, params, opt_state, stream, mesh, device,
     elastic_events: list = []
     ckpt_log: list = []
     saving = ft.ckpt_dir is not None
+    world = mesh.world if getattr(mesh, "local_rows", False) else None
+    writer = world is None or world.rank == 0
     latest = CK.latest_step_dir(ft.ckpt_dir) if saving else None
+    if world is not None and saving:
+        latest = world.broadcast_object(latest)
     if latest is not None:
         t0 = time.time()
         if layout is None:
@@ -233,6 +245,8 @@ def train_loop(*, step_fn, params, opt_state, stream, mesh, device,
         ewma = (1 - ft.ewma_alpha) * ewma + ft.ewma_alpha * dt
 
         rt = metrics.get("rank_time_us")
+        if world is not None:
+            rt = [1e6 * t for t in world.all_gather_object(dt)]
         if rt is not None:
             rt = [float(x) for x in np.ravel(np.asarray(rt))]
             if rank_ewma is None or len(rank_ewma) != len(rt):
@@ -256,11 +270,12 @@ def train_loop(*, step_fn, params, opt_state, stream, mesh, device,
                     else layout.tree(params, opt_state))
             path = CK.save(ft.ckpt_dir, step, tree,
                            extra=_run_extra(elastic, metrics_log, stragglers,
-                                            rank_ewma))
+                                            rank_ewma), comm=world)
             ckpt_log.append({"op": "save", "step": step,
                              "s": time.time() - t0,
                              "bytes": _dir_bytes(path)})
-            CK.gc_old(ft.ckpt_dir, keep=ft.keep)
+            if writer:
+                CK.gc_old(ft.ckpt_dir, keep=ft.keep)
 
     return RunState(step=step, params=params, opt_state=opt_state,
                     metrics_log=metrics_log, stragglers=stragglers,

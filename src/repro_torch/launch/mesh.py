@@ -2,11 +2,19 @@
 
 A :class:`Mesh` names its axes (``("data", "model")`` or ``("pod", "data",
 "model")``) with their sizes, and holds the comm of its ``model`` axis
-(``parallel.comm``). On one card the ranks of the model axis are virtual
-(:class:`~repro_torch.parallel.comm.VirtualComm`), and each data group's
-program runs on that group's rows of the batch in turn. A
-:class:`~repro_torch.parallel.comm.DistComm` mesh is one model group of
-processes (its data axes are 1): each process holds its group's rows.
+(``parallel.comm``). Three kinds:
+
+* ``make_mesh``: the ranks are virtual
+  (:class:`~repro_torch.parallel.comm.VirtualComm`), all in this process,
+  and each data group's program runs on that group's rows of the batch in
+  turn;
+* ``dist_mesh()``: one model group of ``torch.distributed`` processes (its
+  data axes are 1), every process holding the whole tensors;
+* ``dist_mesh(dims)``: D x M (or P x D x M) processes, one rank each at
+  ``coords``, holding its own rows of the batch (the zero1 and ep_dp modes,
+  ``parallel.sharding``). It has a
+  :class:`~repro_torch.parallel.comm.DistComm` for every set of axes
+  (``axes_comm``): the model row (``comm``), the data column, the world.
 
 The reference's ``make_production_mesh`` (16 x 16 or 2 x 16 x 16 chips)
 needs a cluster and is not ported.
@@ -15,15 +23,35 @@ needs a cluster and is not ported.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+from typing import Optional
 
-from ..parallel.comm import DistComm, VirtualComm
+from ..parallel.comm import CommStats, DistComm, VirtualComm
+from ..parallel.sharding import dp_axes, rank_coords
 
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     shape: dict          # axis name -> size, outermost first
     comm: object         # the comm of the "model" axis
+    # A process mesh (``dist_mesh(dims)``): this process's place, and a
+    # DistComm over the ranks that differ from it only in each set of axes.
+    coords: Optional[dict] = None
+    comms: Optional[dict] = None   # frozenset of axis names -> DistComm
+
+    @property
+    def local_rows(self) -> bool:
+        """Whether this process holds its own rows (a process mesh)."""
+        return self.coords is not None
+
+    def axes_comm(self, axes):
+        """The comm over ``axes`` of a process mesh."""
+        return self.comms[frozenset(axes)]
+
+    @property
+    def world(self):
+        return self.axes_comm(self.axis_names)
 
     @property
     def axis_names(self) -> tuple:
@@ -63,15 +91,50 @@ def make_test_mesh(data: int = 2, model: int = 4, *, device="cuda") -> Mesh:
     return make_mesh((data, model), device)
 
 
-def dist_mesh(group=None) -> Mesh:
-    """This process's model group of ``torch.distributed`` ranks."""
-    comm = DistComm(group)
-    return Mesh({"data": 1, "model": comm.ep}, comm)
+def dist_mesh(dims=None, group=None) -> Mesh:
+    """A mesh of ``torch.distributed`` processes.
 
-
-def dp_axes(mesh) -> tuple[str, ...]:
-    """The pure data-parallel axes of a mesh (pod is outer DP)."""
-    return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
+    ``dims=None``: this process's model group (``group``, default the
+    world), every process of it holding the whole tensors. ``dims``
+    (``(D, M)`` or ``(P, D, M)``, their product the world size): the world
+    as a process mesh, global rank r at ``rank_coords(shape, r)`` (model
+    fastest, as the reference numbers its devices), holding its own rows.
+    Every process must call it, in the same order: it makes a group for
+    each set of axes."""
+    import torch.distributed as dist
+    if dims is None:
+        comm = DistComm(group)
+        return Mesh({"data": 1, "model": comm.ep}, comm)
+    dims = _checked(tuple(int(n) for n in dims), dims)
+    names = ("pod", "data", "model") if len(dims) == 3 else ("data", "model")
+    shape = dict(zip(names, dims))
+    world = dist.get_world_size()
+    if math.prod(dims) != world:
+        raise ValueError(f"mesh {'x'.join(map(str, dims))} needs "
+                         f"{math.prod(dims)} processes, the world has "
+                         f"{world}")
+    rank = dist.get_rank()
+    coords = rank_coords(shape, rank)
+    stats = CommStats()
+    everyone = [rank_coords(shape, r) for r in range(world)]
+    comms = {}
+    for n in range(1, len(names) + 1):
+        for axes in itertools.combinations(names, n):
+            # The ranks that share this process's coords off ``axes``; every
+            # process makes every class's group, as new_group requires.
+            classes = {}
+            for r, c in enumerate(everyone):
+                classes.setdefault(tuple(c[a] for a in names
+                                         if a not in axes), []).append(r)
+            mine = None
+            for ranks in classes.values():
+                g = (None if len(ranks) == world
+                     else dist.new_group(ranks))
+                if rank in ranks:
+                    mine = g
+            comms[frozenset(axes)] = DistComm(mine, stats=stats)
+    return Mesh(shape, comms[frozenset(("model",))], coords=coords,
+                comms=comms)
 
 
 def model_axis_size(mesh) -> int:

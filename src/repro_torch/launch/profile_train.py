@@ -20,8 +20,8 @@ step, the device ms per step of the port's own CUDA kernels by namespace
 (``OWN``: the tensor-core body of ``gmm_swiglu`` and ``gmm``, their FMA
 body, ``gmm``'s fp32 tiled and small-row bodies, the tensor-core and FMA
 bodies of ``gmm_swiglu_bwd``, ``swiglu_add``) against all other kernels,
-each of the port's own kernels by name, and the ``TOP`` kernels with the
-most device time. ``--dropless`` trains the MoE through the dropless tile
+each of the port's own kernels by name, the ``TOP`` kernels with the
+most device time, and the card's peak allocated bytes over the run. ``--dropless`` trains the MoE through the dropless tile
 taskflow (``launch.dropless``, its default config), as ``launch.train
 --dropless`` does. ``--mesh DxM`` runs the MoE expert-parallel over the
 mesh's model axis of virtual ranks (``--ep-mode``, capacity factor 4.0), as
@@ -154,6 +154,7 @@ def main(argv=None):
         "own_kernels": rows(e for e in ranked
                             if any(part in e.key for part in OWN.values())),
         "top_kernels": rows(ranked[:TOP]),
+        "peak_bytes": torch.cuda.max_memory_allocated(dev),
     }
     print(json.dumps(out), flush=True)
     return out

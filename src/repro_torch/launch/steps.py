@@ -8,17 +8,28 @@ the SSC cache's per-step ``ssc_*`` deltas. ``mesh`` and ``ep`` run the MoE
 expert-parallel over the mesh's model axis (``parallel.ep.make_moe_ep``).
 
 ``make_steps(cfg, mesh, ...)`` returns the three steps with EP as the MoE
-of each and flash decoding in the decode step. The reference's
-``ShardingRules`` place params, optimizer state and batches over several
-devices; in one process that placement changes no value, and it comes with
-the port's sharding slice. Of the three modes (``tp_sp``, ``zero1``,
-``ep_dp``) only what changes values is kept: ``ep_dp`` sets
+of each and flash decoding in the decode step, and the mode's
+``parallel.sharding.ShardingRules`` (``StepFns.rules``). On a mesh of
+virtual ranks the rules place nothing (one process holds every value), and
+of the three modes only what changes values is kept: ``ep_dp`` sets
 ``EPConfig.dp_batch``.
+
+On a process mesh (``launch.mesh.dist_mesh(dims)``; the zero1 and ep_dp
+modes, one rank a process) the train step takes this rank's rows and
+params (ep_dp: its own experts) and a ZeRO-1 optimizer state
+(``adamw.init_opt_state(params, rules, mesh)``). After the backward it
+mean-reduces each grad over the ranks that hold other rows: every rank for
+a leaf each rank computed from its own rows, the data axes only for the
+experts under EP, whose grads the EP program already summed over the model
+group. The loss is the mean over the ranks. ``tp_sp`` across processes
+(tensor and sequence parallelism inside the layers) is not ported and
+raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -26,9 +37,14 @@ import torch
 from ..models import model as M
 from ..optim import adamw
 from ..parallel.ep import EPConfig, make_moe_ep
+from ..parallel.sharding import ShardingRules, expert_leaves
 from .dropless import make_moe_dropless
 
 MODES = ("tp_sp", "zero1", "ep_dp")
+_TP_SP_ACROSS_PROCESSES = (
+    "tp_sp across processes needs tensor and sequence parallelism inside "
+    "the layers, which is not ported (ROADMAP Queue 1 · 1: tp_sp across "
+    "processes with FSDP); train across processes in zero1 or ep_dp")
 
 
 @dataclasses.dataclass
@@ -39,6 +55,7 @@ class StepFns:
     ep_cfg: Optional[EPConfig]
     # The dropless path's DroplessMoE handle (its SSC cache) when active.
     dropless: Optional[object] = None
+    rules: Optional[ShardingRules] = None
 
 
 def value_and_grad(cfg, params, batch, moe_impl=None):
@@ -55,9 +72,25 @@ def value_and_grad(cfg, params, batch, moe_impl=None):
     return loss.detach(), adamw.tree_map(lambda _: next(it), params)
 
 
+def reduce_grads(grads, mesh, experts_summed: bool):
+    """The mean of the ranks' grads on a process mesh, in place: each leaf
+    summed over every rank, the experts over the data axes alone when
+    ``experts_summed`` (EP summed them over the model group), and divided
+    by the world size: the rows of every rank carry one share of the
+    batch's mean."""
+    n = math.prod(mesh.shape.values())
+    world = mesh.world
+    data = mesh.axes_comm(tuple(a for a in mesh.axis_names if a != "model"))
+    flags = expert_leaves(grads)
+    for g, expert in zip(adamw.tree_leaves(grads), flags):
+        comm = data if expert and experts_summed else world
+        g.copy_(comm.all_reduce(g).div_(n))
+    return grads
+
+
 def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
                     accum_steps: int = 0, moe_impl=None, mesh=None, ep=None,
-                    dropless=None, grad_transform=None):
+                    dropless=None, grad_transform=None, rules=None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with ``loss``, ``grad_norm`` and ``lr`` in ``metrics``.
     ``batch`` holds ``tokens`` and ``labels`` (a vlm's may add
@@ -71,14 +104,29 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
     the process-level one) and ``metrics`` gain ``ssc_hits``,
     ``ssc_misses``, ``ssc_evictions``, ``ssc_entries`` and
     ``ssc_pad_ratio`` for the step. ``ep``: an :class:`EPConfig` runs the
-    MoE expert-parallel over ``mesh``'s model axis (a mesh alone places
-    nothing in one process). ``grad_transform`` runs on the grads before
-    the update (``adamw.apply_updates``).
+    MoE expert-parallel over ``mesh``'s model axis (a mesh of virtual ranks
+    places nothing). ``grad_transform`` runs on the grads before the update
+    (``adamw.apply_updates``). ``rules`` (the zero1 or ep_dp mode's) and a
+    process ``mesh``: the step of this rank (see the module docstring).
     """
-    if ep is not None and cfg.family == "moe":
+    dist_step = rules is not None and getattr(mesh, "local_rows", False)
+    if rules is not None and not dist_step:
+        raise ValueError("rules= places a step on a process mesh "
+                         "(launch.mesh.dist_mesh(dims)); pass mesh= too")
+    if dist_step and rules.mode == "tp_sp" and math.prod(
+            mesh.shape.values()) > 1:
+        raise ValueError(_TP_SP_ACROSS_PROCESSES)
+    if dist_step and dropless is not None:
+        raise ValueError("the dropless path trains in one process; across "
+                         "processes the MoE runs the fixed-capacity EP")
+    ep_moe = ep is not None and cfg.family == "moe"
+    if ep_moe:
         if mesh is None:
             raise ValueError("ep= needs the mesh= whose model axis it runs on")
-        moe_impl = make_moe_ep(mesh, ep, cfg.act)
+        moe_impl = make_moe_ep(mesh, ep, cfg.act, local_experts=(
+            dist_step and rules.mode == "ep_dp"))
+    elif dist_step and rules.mode == "ep_dp" and cfg.family == "moe":
+        raise ValueError("ep_dp holds each rank's experts: pass ep=")
     dropless_moe = None
     if dropless is not None and cfg.family == "moe":
         dropless_moe = make_moe_dropless(cfg, dropless)
@@ -102,8 +150,15 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
             loss, grads = adamw.accumulate_grads(loss_and_grads, params, mb)
         else:
             loss, grads = loss_and_grads(params, batch)
+        zero = {}
+        if dist_step:
+            n = math.prod(mesh.shape.values())
+            loss = mesh.world.all_reduce(loss.reshape(1))[0] / n
+            grads = reduce_grads(grads, mesh, experts_summed=ep_moe)
+            zero = {"rules": rules, "mesh": mesh}
         params, opt_state, metrics = adamw.apply_updates(
-            params, grads, opt_state, opt, grad_transform=grad_transform)
+            params, grads, opt_state, opt, grad_transform=grad_transform,
+            **zero)
         metrics["loss"] = loss
         if dropless_moe is not None:
             for k, v in dropless_moe.step_stats().items():
@@ -129,8 +184,23 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
+    rules = ShardingRules(cfg, mesh, mode=mode)
+    dist_step = getattr(mesh, "local_rows", False)
+    if dist_step and mode == "tp_sp" and math.prod(mesh.shape.values()) > 1:
+        raise ValueError(_TP_SP_ACROSS_PROCESSES)
     if mode == "ep_dp" and ep is not None:
         ep = dataclasses.replace(ep, dp_batch=True)
+    if dist_step:
+        train_step = make_train_step(
+            cfg, opt, accum_steps=accum_steps, mesh=mesh, ep=ep,
+            dropless=dropless, grad_transform=grad_transform, rules=rules)
+
+        def serving(*_args, **_kw):
+            raise ValueError("serving runs in one process, as in the "
+                             "reference (launch.serve uses no mesh)")
+        return StepFns(train_step=train_step, prefill_step=serving,
+                       decode_step=serving, ep_cfg=ep,
+                       dropless=train_step.dropless, rules=rules)
     moe_impl = (make_moe_ep(mesh, ep, cfg.act)
                 if ep is not None and cfg.family == "moe" else None)
     train_step = make_train_step(cfg, opt, accum_steps=accum_steps,
@@ -152,4 +222,4 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
 
     return StepFns(train_step=train_step, prefill_step=prefill_step,
                    decode_step=decode_step, ep_cfg=ep,
-                   dropless=train_step.dropless)
+                   dropless=train_step.dropless, rules=rules)

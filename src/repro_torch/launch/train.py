@@ -1,4 +1,5 @@
-"""Training on one device — counterpart of ``repro.launch.train``.
+"""Training on one device or across processes — counterpart of
+``repro.launch.train``.
 
 On the card (the default), granite-moe-3b-a800m at full width and depth on
 4096-token batches:
@@ -30,6 +31,26 @@ group by data group; ``--mode`` as in the JAX launcher:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --mesh 1x4 --ep-mode baseline --steps 3
 
+``--nproc N`` trains in N processes, one rank each, over
+``torch.distributed`` (a ``--mesh`` of N ranks, ``--mode zero1`` or
+``ep_dp``; ``tp_sp`` across processes raises): each rank takes its rows of
+the batch (``parallel.sharding``), the MoE runs expert-parallel over its
+model row, the grads are mean-reduced over the ranks, and each rank keeps
+its ZeRO-1 block of the optimizer state (ep_dp: its experts too); rank 0
+prints and writes the checkpoint. ``--backend nccl``, the default on the
+card, puts rank r on ``cuda:r`` and raises when the machine has fewer
+cards than processes; ``--backend gloo`` runs every rank on ``--device``,
+CUDA tensors moving through host buffers (several processes on one card),
+and is the default with ``--device cpu``. The rendezvous is a file in a new
+temporary directory. ``--n-layers`` cuts the depth: four processes on one
+card share it, granite at its 32 layers takes most of a card in one
+process, and at 2 layers four processes fit.
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --nproc 4 --mesh 2x2 --mode ep_dp --global-batch 4 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --nproc 4 --mesh 2x2 \
+        --mode zero1 --backend gloo --n-layers 2 --seq 4096 \
+        --global-batch 4 --steps 3
+
 Params come from ``init_params`` (seed 0), cast to the compute dtype as the
 JAX launcher casts them; batches from ``SyntheticStream``. Each step logs
 its loss, grad norm, host-clock ms (the step ends by waiting for the
@@ -53,11 +74,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import math
+import os
+import zlib
 from typing import Optional
 
 import torch
 
-from ..convert import JaxTrainLayout
+from ..convert import DistTrainLayout, JaxTrainLayout
 from ..core.buckets import BucketSpec
 from ..core.passes import pipeline_arg
 from ..device import resolve_device
@@ -67,9 +91,10 @@ from ..kernels import gmm as gmm_kernel
 from ..models import model as M
 from ..optim import adamw
 from ..parallel.ep import EPConfig
+from ..parallel.sharding import own_params
 from . import steps as St
 from .dropless import DroplessConfig
-from .mesh import make_mesh, mesh_dims
+from .mesh import dist_mesh, make_mesh, mesh_dims
 
 
 @dataclasses.dataclass
@@ -79,10 +104,17 @@ class TrainRun:
     # Per step (from 0; with --ckpt-dir the steps before a resume too):
     # step, loss, grad_norm, lr, step_ms, gmm_launches, peak_bytes (the
     # card's peak so far; None off the card), ssc_* when dropless, and
-    # collectives and comm_bytes_per_rank with --mesh.
+    # collectives and comm_bytes_per_rank with --mesh, and with --nproc
+    # over gloo comm_seconds (each kind's transfers' host seconds).
     metrics_log: list
     dropless: object = None   # the DroplessMoE handle of a dropless run
     resumed_from: Optional[int] = None   # the checkpoint step resumed from
+    # With --nproc: each rank's record (params and opt_state are None):
+    # rank, coords, device, kernel launches, optimizer-state bytes, peak
+    # device bytes, checkpoint log and, with --ckpt-dir, its final blocks'
+    # CRC32s; metrics_log is rank 0's, each step's record with
+    # grad_leaf_norms (the reduced grads', adamw.tree_leaves order).
+    ranks: Optional[list] = None
 
 
 def pad_experts(cfg, ep: int):
@@ -104,6 +136,8 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
     ap.add_argument("--arch", default="granite-moe-3b-a800m")
     ap.add_argument("--smoke", action="store_true",
                     help="use the reduced smoke config (CPU-sized)")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the arch to this many layers (full width)")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seq", type=int, default=64)
     ap.add_argument("--global-batch", type=int, default=8)
@@ -144,6 +178,15 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
     ap.add_argument("--ckpt-every", type=int, default=None,
                     help="steps between checkpoints (default 10; needs "
                          "--ckpt-dir)")
+    ap.add_argument("--nproc", type=int, default=0,
+                    help="train in N processes, one rank each, over "
+                         "torch.distributed (--mesh of N ranks, --mode "
+                         "zero1 or ep_dp); default: one process")
+    ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
+                    help="with --nproc: nccl (the default on the card, "
+                         "rank r on cuda:r, one card a rank) or gloo (the "
+                         "ranks on --device; CUDA tensors move through host "
+                         "buffers; the default with --device cpu)")
     args = ap.parse_args(argv)
     if args.ckpt_every is not None:
         if args.ckpt_dir is None:
@@ -162,7 +205,10 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
     elif args.mode or args.ep_mode:
         ap.error("--mode and --ep-mode need --mesh")
     from ..configs import get_config, get_smoke_config
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = (get_smoke_config(args.arch) if args.smoke
+           else get_config(args.arch))
+    if args.n_layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.n_layers)
     if cfg.family == "audio":
         raise ValueError(
             f"{cfg.name!r} trains on features, and this launcher feeds "
@@ -197,27 +243,138 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
         if kw:
             print(f"dropless schedule pipeline: {dropless.pipeline!r}")
 
-    dev = resolve_device(args.device)
+    if args.nproc:
+        _check_processes(ap, args, dims, dropless)
+        return _spawn(args, cfg, inject_fault)
+    return _train(args, cfg, dims, dropless, inject_fault,
+                  resolve_device(args.device))
+
+
+def _check_processes(ap, args, dims, dropless) -> None:
+    """Refuse a ``--nproc`` run the slice does not cover, before any
+    process starts."""
+    if dims is None or math.prod(dims) != args.nproc:
+        ap.error(f"--nproc {args.nproc} needs a --mesh of {args.nproc} "
+                 f"ranks")
+    if (args.mode or "tp_sp") == "tp_sp" and args.nproc > 1:
+        raise ValueError(St._TP_SP_ACROSS_PROCESSES)
+    if dropless is not None:
+        ap.error("--dropless trains in one process")
+    if args.global_batch % args.nproc:
+        ap.error(f"--global-batch {args.global_batch} does not split over "
+                 f"{args.nproc} processes")
+    if backend_of(args) == "nccl":
+        if not args.device.startswith("cuda"):
+            ap.error("--backend nccl runs the ranks on the card: "
+                     "--device cuda")
+        n = torch.cuda.device_count()
+        if args.nproc > n:
+            raise RuntimeError(
+                f"--backend nccl runs one rank a card: {args.nproc} "
+                f"processes, {n} cards (NCCL refuses two ranks on one "
+                f"card); --backend gloo runs them on --device over "
+                f"host-staged transfers")
+
+
+def backend_of(args) -> str:
+    """``--backend``, by default NCCL on the card and gloo on the CPU."""
+    if args.backend is not None:
+        return args.backend
+    return "gloo" if args.device == "cpu" else "nccl"
+
+
+def _spawn(args, cfg, inject_fault) -> TrainRun:
+    """``args.nproc`` processes, one rank each, over a ``file://``
+    rendezvous in a new temporary directory; returns rank 0's log and every
+    rank's record."""
+    import shutil
+    import tempfile
+
+    import torch.multiprocessing as mp
+    d = tempfile.mkdtemp(prefix="train_nproc_")
+    try:
+        mp.start_processes(_rank_main, args=(
+            args, cfg, f"file://{os.path.join(d, 'init')}", d,
+            inject_fault),
+            nprocs=args.nproc, join=True, start_method="spawn")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"),
+                            weights_only=False) for r in range(args.nproc)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    logs = [(r.pop("metrics_log"), r.pop("resumed_from")) for r in ranks]
+    return TrainRun(params=None, opt_state=None, metrics_log=logs[0][0],
+                    resumed_from=logs[0][1], ranks=ranks)
+
+
+def _rank_main(rank, args, cfg, init, out_dir, inject_fault) -> None:
+    import torch.distributed as dist
+    backend = backend_of(args)
+    dist.init_process_group(backend, init_method=init,
+                            world_size=args.nproc, rank=rank)
+    try:
+        dev = resolve_device(args.device)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", rank % torch.cuda.device_count())
+            torch.cuda.set_device(dev)
+        # The ranks share the host's cores.
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.nproc))
+        run = _train(args, cfg, mesh_dims(args.mesh), None, inject_fault,
+                     dev)
+        rec = dict(run.ranks[0], metrics_log=run.metrics_log,
+                   resumed_from=run.resumed_from)
+        torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _kernel_launches() -> dict:
+    from ..kernels import gmm_swiglu, gmm_swiglu_bwd
+    return {"gmm_swiglu": gmm_swiglu.launches, "gmm": gmm_kernel.launches,
+            "gmm_swiglu_bwd": gmm_swiglu_bwd.launches,
+            "tensor_cores": {"gmm_swiglu": gmm_swiglu.launches_tc,
+                             "gmm": gmm_kernel.launches_tc,
+                             "gmm_swiglu_bwd": gmm_swiglu_bwd.launches_tc}}
+
+
+def _crc32(tree) -> list:
+    """Each tensor leaf's CRC32 over its bytes on the host."""
+    return [zlib.crc32(t.detach().cpu().contiguous().view(torch.uint8)
+                       .numpy()) for t in adamw.tree_leaves(tree)
+            if isinstance(t, torch.Tensor)]
+
+
+def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
+    """The run of this process: the whole one with ``args.nproc`` 0, else
+    this rank's (``torch.distributed`` initialized)."""
     oc = adamw.OptConfig(lr=args.lr, warmup_steps=max(2, args.steps // 10),
                          total_steps=args.steps)
-    mesh = None
+    mesh, rules, layout = None, None, JaxTrainLayout
     if dims is None:
         step_fn = St.make_train_step(cfg, oc, dropless=dropless)
     else:
-        mesh = make_mesh(dims, dev)
+        mesh = dist_mesh(dims) if args.nproc else make_mesh(dims, dev)
         cfg = pad_experts(cfg, mesh.shape["model"])
         ep = EPConfig(mode=args.ep_mode or "hyperparallel",
                       capacity_factor=4.0)
-        step_fn = St.make_steps(cfg, mesh, opt=oc, ep=ep,
-                                mode=args.mode or "tp_sp",
-                                dropless=dropless).train_step
+        fns = St.make_steps(cfg, mesh, opt=oc, ep=ep,
+                            mode=args.mode or "tp_sp", dropless=dropless)
+        step_fn = fns.train_step
     params = adamw.cast_params(
         M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
                       device=dev), cfg.compute_dtype)
-    opt_state = adamw.init_opt_state(params)
+    if args.nproc:
+        rules = fns.rules
+        params = own_params(rules, params, mesh)
+        opt_state = adamw.init_opt_state(params, rules, mesh)
+        layout = DistTrainLayout(rules, mesh)
+    else:
+        opt_state = adamw.init_opt_state(params)
     stream = SyntheticStream(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                        global_batch=args.global_batch))
+                                        global_batch=args.global_batch),
+                             rules=rules)
     cuda = dev.type == "cuda"
+    talk = mesh is None or not mesh.local_rows or mesh.world.rank == 0
     launches = gmm_kernel.launches
     if mesh is not None:
         mesh.comm.stats.reset()
@@ -232,26 +389,31 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
         rec.update({k: v for k, v in m.items() if k.startswith("ssc_")})
         if mesh is not None:
             rec["collectives"] = dict(mesh.comm.stats.counts)
-            rec["comm_bytes_per_rank"] = mesh.comm.stats.bytes / mesh.dp_size
+            rec["comm_seconds"] = dict(mesh.comm.stats.seconds)
+            rec["comm_bytes_per_rank"] = mesh.comm.stats.bytes / (
+                1 if mesh.local_rows else mesh.dp_size)
             mesh.comm.stats.reset()
+        if args.nproc:
+            rec["grad_leaf_norms"] = m["grad_leaf_norms"].tolist()
         ssc = ("" if dropless is None else
                f" ssc hits {rec['ssc_hits']} misses {rec['ssc_misses']} "
                f"entries {rec['ssc_entries']} "
                f"pad {rec['ssc_pad_ratio']:.3f}")
-        print(f"step {s:4d} loss {float(m['loss']):.4f} "
-              f"gnorm {float(m['grad_norm']):.3f} {1e3 * dt:.0f}ms{ssc}",
-              flush=True)
+        if talk:
+            print(f"step {s:4d} loss {float(m['loss']):.4f} "
+                  f"gnorm {float(m['grad_norm']):.3f} {1e3 * dt:.0f}ms{ssc}",
+                  flush=True)
         return rec
 
     run = train_loop(
         step_fn=step_fn, params=params, opt_state=opt_state, stream=stream,
         mesh=mesh, device=dev, n_steps=args.steps,
         ft=FTConfig(ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every),
-        inject_fault=inject_fault, log_every=1, layout=JaxTrainLayout,
+        inject_fault=inject_fault, log_every=1, layout=layout,
         on_step=on_step)
-    if run.resumed_from is not None:
+    if run.resumed_from is not None and talk:
         print(f"resumed from step {run.resumed_from}")
-    if run.stragglers:
+    if run.stragglers and talk:
         print("stragglers:", run.stragglers)
     if dropless is not None:
         info = step_fn.dropless.cache.info()
@@ -264,9 +426,26 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
     # steps before a resume included.
     log = [dict({k: v for k, v in m.items() if k != "step_time_s"},
                 step=m["step"] - 1) for m in run.metrics_log]
-    return TrainRun(params=run.params, opt_state=run.opt_state,
-                    metrics_log=log, dropless=step_fn.dropless,
-                    resumed_from=run.resumed_from)
+    if not args.nproc:
+        return TrainRun(params=run.params, opt_state=run.opt_state,
+                        metrics_log=log, dropless=step_fn.dropless,
+                        resumed_from=run.resumed_from)
+    state = run.opt_state
+    rank = {"rank": mesh.world.rank, "coords": mesh.coords,
+            "device": str(dev), "launches": _kernel_launches(),
+            "opt_state_bytes": sum(
+                t.numel() * t.element_size() for k in ("m", "v", "master")
+                for t in adamw.tree_leaves(state[k])),
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
+                           else None),
+            "ckpt_log": run.ckpt_log}
+    if args.ckpt_dir is not None:
+        # What this rank saved last (the final state when the last step
+        # saved): its blocks' CRC32s, leaf by leaf.
+        rank["state_crc32"] = {"params": _crc32(run.params), **{
+            k: _crc32(state[k]) for k in ("m", "v", "master")}}
+    return TrainRun(params=None, opt_state=None, metrics_log=log,
+                    resumed_from=run.resumed_from, ranks=[rank])
 
 
 if __name__ == "__main__":

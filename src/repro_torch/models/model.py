@@ -311,6 +311,38 @@ def block_apply(cfg: ModelConfig, btype: str, p, x, cache=None,
 # ---------------------------------------------------------------------------
 
 
+class _Lookup(torch.autograd.Function):
+    """``table[tokens]``, whose backward sums each row's grads in fp32 and
+    rounds them to the table's dtype once. Indexing's own backward adds
+    into the table's dtype, so a bf16 table rounds after every repeat of a
+    token, and a frequent token's grad stops growing (PERF.md §6).
+    In fp32 the two are the same op. The fp32 sums take one row a distinct
+    token of the batch, not one a row of the table, and are found without
+    reading the count of distinct tokens back to the host."""
+
+    @staticmethod
+    def forward(ctx, table, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.shape, ctx.dtype = table.shape, table.dtype
+        return table[tokens]
+
+    @staticmethod
+    def backward(ctx, g):
+        (tokens,) = ctx.saved_tensors
+        tok = tokens.reshape(-1)
+        g = g.reshape(-1, ctx.shape[-1])
+        # Each token's place among the batch's distinct tokens, in order.
+        srt, order = torch.sort(tok)
+        run = torch.cumsum(srt[1:] != srt[:-1], 0)
+        run = torch.cat([run.new_zeros(1), run])
+        inv = torch.empty_like(run).scatter_(0, order, run)
+        acc = torch.zeros(g.shape, dtype=torch.float32, device=g.device)
+        acc.index_put_((inv,), g.float(), accumulate=True)
+        out = torch.zeros(ctx.shape, dtype=ctx.dtype, device=g.device)
+        # A token's repeats write its one sum.
+        return out.index_put_((tok,), acc[inv].to(ctx.dtype)), None
+
+
 def embed_inputs(cfg: ModelConfig, params, batch):
     """The stack's input: ``features`` [B, S, feat_in] through ``feat_proj``
     (audio), else the token embeddings, with a vlm batch's ``patches``
@@ -320,7 +352,7 @@ def embed_inputs(cfg: ModelConfig, params, batch):
         x = torch.einsum("bsf,fd->bsd", batch["features"].to(dt),
                          params["feat_proj"].to(dt))
     else:
-        x = params["embed"].to(dt)[batch["tokens"]]
+        x = _Lookup.apply(params["embed"].to(dt), batch["tokens"])
         if cfg.family == "vlm" and "patches" in batch:
             x = torch.cat([batch["patches"].to(dt), x], dim=1)
     if cfg.embed_scale:

@@ -20,6 +20,18 @@ and every per-layer leaf of at least one dimension. A top-level 1-d leaf,
 such as the final norm scale, is not decayed. A hybrid stack follows its
 JAX layout: a 1-d leaf of a ``super`` layer (stacked over the super-blocks
 there) is decayed, the same leaf of a ``tail`` layer (unstacked) is not.
+
+ZeRO-1 (the zero1 and ep_dp modes over a process mesh,
+``launch.mesh.dist_mesh(dims)``): ``init_opt_state(params, rules, mesh)``
+keeps ``m``, ``v`` and ``master`` as this rank's block of each leaf under
+``rules.opt_state_spec`` (``parallel.sharding``), and
+``apply_updates(..., rules=, mesh=)`` updates only that block, then
+all-gathers the new param blocks over the axes the spec adds. AdamW is
+elementwise, so each block's values are bit-equal to the same elements of
+the replicated update of the same grads. The clip norm is that of the
+reduced grads: the same on every rank. A leaf whose param is itself a
+block (ep_dp's experts) adds its blocks' squared sums over the ranks that
+hold the others.
 """
 
 from __future__ import annotations
@@ -29,6 +41,8 @@ import math
 from typing import Callable, Optional
 
 import torch
+
+from ..parallel import sharding as S
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,36 +98,64 @@ def cast_params(params, dtype=torch.bfloat16):
                     params)
 
 
-def init_opt_state(params) -> dict:
+class Zero1:
+    """This rank's ZeRO-1 share of a param tree over a process ``mesh``:
+    per leaf (``tree_leaves`` order) its param spec, its optimizer-state
+    spec, and the state's spec relative to the param this rank holds."""
+
+    def __init__(self, rules, mesh, params):
+        self.mesh = mesh
+        self.param_specs = S.param_specs(rules, params, own=True)
+        self.opt_specs = S.opt_state_specs(rules, params, own=True)
+        self.rel_specs = [S.relative_spec(o, p) for o, p in
+                          zip(self.opt_specs, self.param_specs)]
+
+    def block(self, i: int, t: torch.Tensor) -> torch.Tensor:
+        """Leaf ``i``'s state block (a view) of this rank's param-shaped
+        ``t``."""
+        return S.local_block(t, self.rel_specs[i], self.mesh.shape,
+                             self.mesh.coords)
+
+    def gather(self, i: int, blk: torch.Tensor) -> torch.Tensor:
+        """This rank's param-shaped tensor from its block ``blk``: the
+        blocks all-gathered over the axes the state spec adds."""
+        spec = self.rel_specs[i]
+        axes = S.spec_axes(spec)
+        if not axes:
+            return blk
+        parts = self.mesh.axes_comm(axes).all_gather(blk.contiguous())
+        sub = {a: self.mesh.shape[a] for a in self.mesh.axis_names
+               if a in axes}
+        return S.assemble(parts, spec, sub)
+
+    def sharded_axes(self, i: int) -> tuple:
+        """The axes over which leaf ``i``'s param is itself split."""
+        return S.spec_axes(self.param_specs[i])
+
+
+def init_opt_state(params, rules=None, mesh=None) -> dict:
     """m/v moments + fp32 master weights (params at the step boundary are
-    the compute copies; masters only appear in the update math)."""
+    the compute copies; masters only appear in the update math).
+
+    ``rules`` and a process ``mesh``: ZeRO-1, each of ``m``, ``v``,
+    ``master`` the block of its leaf under ``rules.opt_state_spec`` at the
+    mesh's ``coords`` (this rank's); ``params`` are those this rank
+    holds."""
+    blocks = None
+    if rules is not None:
+        z = Zero1(rules, mesh, params)
+        it = iter(range(len(tree_leaves(params))))
+        blocks = tree_map(lambda p: z.block(next(it), p), params)
+    src = params if blocks is None else blocks
+
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-    return {"m": tree_map(zeros, params),
-            "v": tree_map(zeros, params),
+    return {"m": tree_map(zeros, src),
+            "v": tree_map(zeros, src),
             "master": tree_map(
-                lambda p: p.detach().to(torch.float32, copy=True), params),
+                lambda p: p.detach().to(torch.float32, copy=True)
+                .contiguous(), src),
             "step": 0}
-
-
-def global_norm(tree):
-    """sqrt of the sum of the leaves' squares, in fp32 (a 0-d tensor)."""
-    leaves = tree_leaves(tree)
-    total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for g in leaves:
-        total = total + torch.sum(torch.square(g.float()))
-    return torch.sqrt(total)
-
-
-@torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
-    """Scale ``grads`` in place so their global norm is at most
-    ``max_norm``; returns (grads, norm before clipping)."""
-    norm = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
-    for g in tree_leaves(grads):
-        g.mul_(scale.to(g.dtype))
-    return grads, norm
 
 
 def decay_flags(params) -> list:
@@ -128,36 +170,73 @@ def decay_flags(params) -> list:
 
 @torch.no_grad()
 def apply_updates(params, grads, state, oc: OptConfig,
-                  grad_transform: Optional[Callable] = None):
+                  grad_transform: Optional[Callable] = None, *,
+                  rules=None, mesh=None):
     """One AdamW step on the fp32 masters; refreshes the compute params.
 
     Returns ``(params, state, metrics)``. ``params``, ``grads`` and the
     tensors of ``state`` are updated in place (see the module docstring);
     ``state["step"]`` is a new int. ``grad_transform(grads) -> grads`` runs
-    before clipping (``parallel.compression``'s transforms).
+    before clipping (``parallel.compression``'s transforms). ``metrics``:
+    ``grad_norm`` (before clipping), ``grad_leaf_norms`` (each leaf's, in
+    ``tree_leaves`` order) and ``lr``.
+
+    ``rules`` and a process ``mesh``: the ZeRO-1 update of a state from
+    ``init_opt_state(params, rules, mesh)``, the grads already reduced.
     """
     if grad_transform is not None:
         grads = grad_transform(grads)
-    grads, gnorm = clip_by_global_norm(grads, oc.clip_norm)
+    gl = tree_leaves(grads)
+    zero = None if rules is None else Zero1(rules, mesh, params)
+    # Each leaf's squares summed in fp64: a leaf's blocks summed apart and
+    # added give its sum to well under an fp32 ulp, so the norm, and so the
+    # update, does not depend on how the leaf is split. The fp64 norm
+    # kernel squares and sums the leaf's one fp64 copy in one pass.
+    sq = [torch.linalg.vector_norm(g, dtype=torch.float64).square()
+          for g in gl]
+    if zero is not None:
+        # A leaf split over some axes sums its blocks' squares over them.
+        by_axes: dict = {}
+        for i in range(len(gl)):
+            axes = zero.sharded_axes(i)
+            if axes:
+                by_axes.setdefault(axes, []).append(i)
+        for axes, idx in by_axes.items():
+            tot = mesh.axes_comm(axes).all_reduce(torch.stack(
+                [sq[i] for i in idx]))
+            for j, i in enumerate(idx):
+                sq[i] = tot[j]
+    total = torch.zeros((), dtype=torch.float64, device=gl[0].device)
+    for v in sq:
+        total = total + v
+    gnorm = torch.sqrt(total).float()
+    scale = torch.clamp(oc.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     step = state["step"] + 1
     lr = schedule(oc, step)
     b1, b2 = oc.betas
     bc1 = float(1 - torch.tensor(b1, dtype=torch.float32) ** step)
     bc2 = float(1 - torch.tensor(b2, dtype=torch.float32) ** step)
-    for p, g, m, v, master, decay in zip(
-            tree_leaves(params), tree_leaves(grads), tree_leaves(state["m"]),
+    for i, (p, g, m, v, master, decay) in enumerate(zip(
+            tree_leaves(params), gl, tree_leaves(state["m"]),
             tree_leaves(state["v"]), tree_leaves(state["master"]),
-            decay_flags(params)):
-        g = g.float()
+            decay_flags(params))):
+        if zero is not None:
+            g = zero.block(i, g)
+        g = g.mul_(scale.to(g.dtype)).float()
         m.mul_(b1).add_(g, alpha=1 - b1)
         v.mul_(b2).addcmul_(g, g, value=1 - b2)
         delta = (m / bc1).div_((v / bc2).sqrt_().add_(oc.eps))
         if decay:                     # decoupled weight decay
             delta.add_(master, alpha=oc.weight_decay)
         master.add_(delta, alpha=-lr)
-        p.copy_(master)
+        if zero is None:
+            p.copy_(master)
+        else:
+            p.copy_(zero.gather(i, master.to(p.dtype)))
     state["step"] = step
-    return params, state, {"grad_norm": gnorm, "lr": lr}
+    return params, state, {"grad_norm": gnorm, "lr": lr,
+                           "grad_leaf_norms": torch.sqrt(
+                               torch.stack(sq)).float()}
 
 
 def accumulate_grads(loss_and_grad_fn, params, microbatches):

@@ -19,25 +19,41 @@ takes and returns such lists.
 ``VirtualComm`` runs the ranks' programs in turn in one process: each
 collective reorders device tensors, so autograd runs through it as it
 stands. ``DistComm`` runs one rank per process over a ``torch.distributed``
-group (``gloo`` for CPU tensors, NCCL for CUDA tensors; a tensor on the
-other kind of device raises). Its collectives are autograd functions whose
-backward is the inverse transfer. Outside the boundary every process holds
-the whole (replicated) tensors, as the reference's program outside
-shard_map sees global arrays, and the boundary's backward follows
-shard_map's transpose: a replicated input's grad is all-reduced over the
-group, a replicated output's cotangent is divided by ``ep``, and a split
-input or output is all-gathered or sliced.
+group: NCCL for CUDA tensors, ``gloo`` for CPU tensors. A CUDA tensor on a
+``gloo`` group (the launcher's ``--backend gloo``) is staged: each transfer
+copies it to a host buffer, moves that, and copies the result back, its
+counted bytes unchanged. That is how one card runs several processes,
+which NCCL refuses. A CPU tensor on an NCCL group raises. Its collectives
+are autograd functions whose backward is the inverse transfer.
+
+On a mesh of one model group (``launch.mesh.dist_mesh()``) every process
+holds the whole (replicated) tensors outside the boundary, as the
+reference's program outside shard_map sees global arrays, and the
+boundary's backward follows shard_map's transpose: a replicated input's
+grad is all-reduced over the group, a replicated output's cotangent is
+divided by ``ep``, and a split input or output is all-gathered or sliced.
+On a process mesh (``dist_mesh(dims)``) each process holds its own rows,
+and ``parallel.ep`` hands the program those rows as they are: the data
+parallel reduction (``launch.steps``) sums their grads.
 
 Both count, in ``comm.stats``, the collectives of the program (not the
 boundary) and the bytes one rank sends to other ranks: a block that stays
 on its rank (the all-to-all's own block, the ring's step 0) is not link
-traffic.
+traffic. ``DistComm`` also counts the data-parallel ``all_reduce`` and the
+ZeRO-1 ``all_gather``; its ``gather``, ``broadcast_object`` and
+``all_gather_object`` (a checkpoint's and the loop's bookkeeping) are not
+counted. On a ``gloo`` group, whose transfers end on the host, it also
+adds each transfer's host seconds to ``stats.seconds`` by kind, the
+backward's transfers included; an NCCL transfer is asynchronous, and is
+not timed.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import time
 
 import torch
 import torch.distributed as dist
@@ -48,10 +64,13 @@ from ..device import resolve_device
 @dataclasses.dataclass
 class CommStats:
     """Collectives by kind (``all-to-all``, ``collective-permute``,
-    ``all-reduce``) and the bytes one rank sent to other ranks."""
+    ``all-reduce``) and the bytes one rank sent to other ranks; a
+    ``DistComm`` over gloo adds its transfers' host seconds by kind."""
     counts: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
     bytes: int = 0
+    seconds: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
 
     def add(self, kind: str, nbytes: int) -> None:
         self.counts[kind] += 1
@@ -60,6 +79,7 @@ class CommStats:
     def reset(self) -> None:
         self.counts.clear()
         self.bytes = 0
+        self.seconds.clear()
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -116,9 +136,9 @@ class VirtualComm:
 
 class DistComm:
     """This process's rank of a ``torch.distributed`` group (default: the
-    world)."""
+    world). ``stats``: a :class:`CommStats` to share with other comms."""
 
-    def __init__(self, group=None):
+    def __init__(self, group=None, *, stats=None):
         if not dist.is_initialized():
             raise RuntimeError("DistComm needs torch.distributed."
                                "init_process_group first")
@@ -127,50 +147,79 @@ class DistComm:
         self.ep = dist.get_world_size(group)
         self.backend = dist.get_backend(group)
         self.ranks = [self.rank]
-        self.stats = CommStats()
+        self.stats = CommStats() if stats is None else stats
 
-    def _check(self, t: torch.Tensor) -> torch.Tensor:
-        want = "nccl" if t.is_cuda else "gloo"
-        if self.backend != want:
-            raise RuntimeError(
-                f"a {t.device.type} tensor needs a {want} group, not "
-                f"{self.backend}")
-        return t.contiguous()
+    def _wire(self, t: torch.Tensor) -> torch.Tensor:
+        """The tensor the backend moves: ``t``, or over gloo a CUDA
+        tensor's copy in pinned host memory."""
+        if self.backend == "nccl" and not t.is_cuda:
+            raise RuntimeError(f"a {t.device.type} tensor needs a gloo "
+                               f"group, not nccl")
+        t = t.contiguous()
+        if not (t.is_cuda and self.backend == "gloo"):
+            return t
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        return host.copy_(t)
+
+    @contextlib.contextmanager
+    def _timed(self, kind: str, x: torch.Tensor):
+        """Adds the transfer's host seconds to ``stats.seconds[kind]`` over
+        gloo. The card first ends the work queued before the transfer,
+        which the staged copy to the host would wait for all the same."""
+        if self.backend != "gloo":
+            yield
+            return
+        if x.is_cuda:
+            torch.cuda.synchronize(x.device)
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.stats.seconds[kind] += time.perf_counter() - t
 
     def _peer(self, r: int) -> int:
         return r if self.group is None else dist.get_global_rank(
             self.group, r)
 
-    # Raw transfers (no autograd, not counted).
+    # Raw transfers (no autograd, not counted, timed over gloo).
     def _a2a(self, x):
-        x = self._check(x)
-        out = torch.empty_like(x)
-        dist.all_to_all_single(out, x, group=self.group)
-        return out
+        with self._timed("all-to-all", x):
+            w = self._wire(x)
+            out = torch.empty_like(w)
+            dist.all_to_all_single(out, w, group=self.group)
+            return out.to(x.device)
 
     def _shift(self, x, shift: int):
-        x = self._check(x)
         dst, src = (self.rank + shift) % self.ep, (self.rank - shift) % self.ep
         if dst == self.rank:
-            return x.clone()
-        out = torch.empty_like(x)
-        reqs = dist.batch_isend_irecv([
-            dist.P2POp(dist.isend, x, self._peer(dst), self.group),
-            dist.P2POp(dist.irecv, out, self._peer(src), self.group)])
-        for req in reqs:
-            req.wait()
-        return out
+            return x.contiguous().clone()
+        with self._timed("collective-permute", x):
+            w = self._wire(x)
+            out = torch.empty_like(w)
+            reqs = dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, w, self._peer(dst), self.group),
+                dist.P2POp(dist.irecv, out, self._peer(src), self.group)])
+            for req in reqs:
+                req.wait()
+            return out.to(x.device)
+
+    def _blocks(self, x) -> list:
+        """Every rank's ``x`` (equal shapes), in rank order."""
+        with self._timed("all-gather", x):
+            w = self._wire(x)
+            parts = [torch.empty_like(w) for _ in range(self.ep)]
+            dist.all_gather(parts, w, group=self.group)
+            return [p.to(x.device) for p in parts]
 
     def _gather(self, x, dim):
-        x = self._check(x)
-        parts = [torch.empty_like(x) for _ in range(self.ep)]
-        dist.all_gather(parts, x, group=self.group)
-        return torch.cat(parts, dim)
+        return torch.cat(self._blocks(x), dim)
 
     def _all_reduce(self, x, op):
-        x = self._check(x).clone()
-        dist.all_reduce(x, op=op, group=self.group)
-        return x
+        with self._timed("all-reduce", x):
+            w = self._wire(x)
+            w = w.clone() if w is x else w
+            dist.all_reduce(w, op=op, group=self.group)
+            return w.to(x.device)
 
     def _own(self, x, dim):
         return torch.chunk(x, self.ep, dim)[self.rank]
@@ -202,6 +251,46 @@ class DistComm:
     def psum(self, xs):
         self.stats.add("all-reduce", _all_reduce_bytes(xs[0], self.ep))
         return [self._all_reduce(xs[0], dist.ReduceOp.SUM)]
+
+    # Data parallelism and ZeRO-1 (counted; no autograd).
+    def all_reduce(self, x):
+        """The sum of every rank's ``x``, a new tensor."""
+        if self.ep == 1:
+            return x.clone()
+        self.stats.add("all-reduce", _all_reduce_bytes(x, self.ep))
+        return self._all_reduce(x, dist.ReduceOp.SUM)
+
+    def all_gather(self, x) -> list:
+        """Every rank's ``x`` (equal shapes), in rank order."""
+        if self.ep == 1:
+            return [x]
+        self.stats.add("all-gather", (self.ep - 1) * _nbytes(x))
+        return self._blocks(x)
+
+    # Bookkeeping (not counted).
+    def gather(self, x, dst: int = 0):
+        """Every rank's ``x`` (equal shapes) on the host of rank ``dst``,
+        in rank order; ``None`` on the other ranks."""
+        w = self._wire(x)
+        parts = ([torch.empty_like(w) for _ in range(self.ep)]
+                 if self.rank == dst else None)
+        dist.gather(w, parts, dst=self._peer(dst), group=self.group)
+        return None if parts is None else [p.cpu() for p in parts]
+
+    def broadcast_object(self, obj, src: int = 0):
+        """Rank ``src``'s ``obj`` (picklable) on every rank."""
+        box = [obj]
+        dist.broadcast_object_list(box, src=self._peer(src),
+                                   group=self.group)
+        return box[0]
+
+    def all_gather_object(self, obj) -> list:
+        out = [None] * self.ep
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
+
+    def barrier(self) -> None:
+        dist.barrier(group=self.group)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -187,15 +187,29 @@ def _split_rule(epc: EPConfig, B: int, S: int, ep: int, n_dp: int):
 
 
 def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
-                bucket=None, topology=None, inter_bucket=None):
+                bucket=None, topology=None, inter_bucket=None,
+                local_experts: bool = False):
     """Returns ``moe_impl(params, x, mc)`` running EP over the model axis.
 
-    ``params`` and ``x`` [B, S, d] are the whole tensors (on a
-    ``DistComm`` mesh, every process of the group holds them). ``x`` is
-    split as the reference's ``x_spec``: the batch over the data groups
-    when B > 1 (over every axis with ``dp_batch``), the sequence over
-    ``model`` when S % ep == 0 and S > 1; otherwise every rank routes the
-    whole group's rows (decode), and the redundant work is done.
+    On a mesh of virtual ranks or of one model group, ``params`` and ``x``
+    [B, S, d] are the whole tensors (on a ``DistComm`` group, every process
+    holds them). ``x`` is split as the reference's ``x_spec``: the batch
+    over the data groups when B > 1 (over every axis with ``dp_batch``),
+    the sequence over ``model`` when S % ep == 0 and S > 1; otherwise every
+    rank routes the whole group's rows (decode), and the redundant work is
+    done.
+
+    On a process mesh (``launch.mesh.dist_mesh(dims)``) ``x`` is this
+    rank's own rows, its share of a batch split over every axis. With
+    ``dp_batch`` (ep_dp) the rank routes them, as the reference's ``x_spec``
+    over every axis does; without (zero1) an all-to-all over the model
+    group first gives each rank its sequence chunk of the group's rows, as
+    the reference's ``x_spec`` (data, model) does, and a second one brings
+    the results back. The router's grad is this rank's rows' alone (the
+    data-parallel reduction sums it). The experts are the whole replicated
+    leaves, of which each rank runs its block and gets the whole grad back;
+    with ``local_experts`` (ep_dp) they are this rank's block
+    ``[E / ep, ...]`` and so is their grad.
 
     ``plan``: a host-known :class:`RoutingPlan` (``plan_from_dispatch`` on
     this batch's routing, or one covering it). In ``hyperparallel`` mode
@@ -209,11 +223,15 @@ def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
     """
     ep = mesh.shape[epc.axis]
     comm = mesh.comm
+    local = getattr(mesh, "local_rows", False)
     if epc.axis != "model" or comm.ep != ep:
         raise ValueError(f"EP runs over the mesh's model axis, whose comm "
                          f"has {comm.ep} ranks, not over {epc.axis!r}")
     if epc.mode not in ("baseline", "hyperparallel"):
         raise ValueError(f"EP mode {epc.mode!r}: baseline or hyperparallel")
+    if local_experts and not local:
+        raise ValueError("local_experts= needs a process mesh, whose ranks "
+                         "hold their own experts")
     if (bucket is not None or inter_bucket is not None) and plan is None:
         raise ValueError(
             "make_moe_ep(bucket=.../inter_bucket=...) quantizes a routing "
@@ -266,13 +284,10 @@ def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
         return [torch.stack([zero if t is None else t for t in b])
                 for b in blocks]
 
-    def run_group(params, x, dim, mc):
-        d = x.shape[-1]
+    def run_ranks(xs, routers, w_ins, w_downs, mc):
+        """Each rank's program on its rows ``xs`` [b, s, d]."""
+        d = xs[0].shape[-1]
         e_loc = mc.e_total // ep
-        xs = comm.shard(x, dim)
-        routers = comm.shard(params["router"], None)
-        w_ins = comm.shard(params["w_in"], 0)
-        w_downs = comm.shard(params["w_down"], 0)
         sends, routed = [], []
         for x_loc, router in zip(xs, routers):
             T = x_loc.shape[0] * x_loc.shape[1]
@@ -283,16 +298,55 @@ def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
             routed.append((top_p, top_i, slot, T, C))
         run = baseline if epc.mode == "baseline" else ring
         backs = run(sends, w_ins, w_downs)
-        ys = [_combine(back, top_p, top_i, slot, T, d, ep, e_loc, C,
-                       x_loc.dtype).reshape(x_loc.shape)
-              for back, (top_p, top_i, slot, T, C), x_loc
-              in zip(backs, routed, xs)]
+        return [_combine(back, top_p, top_i, slot, T, d, ep, e_loc, C,
+                         x_loc.dtype).reshape(x_loc.shape)
+                for back, (top_p, top_i, slot, T, C), x_loc
+                in zip(backs, routed, xs)]
+
+    def run_group(params, x, dim, mc):
+        xs = comm.shard(x, dim)
+        ys = run_ranks(xs, comm.shard(params["router"], None),
+                       comm.shard(params["w_in"], 0),
+                       comm.shard(params["w_down"], 0), mc)
         return comm.unshard(ys, dim)
+
+    def seq_chunks(x):
+        """[b, S, d] rows of each rank → [ep * b, S / ep, d]: the group's
+        rows in rank order, this rank's chunk of their sequence."""
+        b, S, d = x.shape
+        x = x.reshape(b, ep, S // ep, d).transpose(0, 1).contiguous()
+        return comm.all_to_all([x])[0].reshape(ep * b, S // ep, d)
+
+    def seq_rows(y):
+        """The inverse of ``seq_chunks``."""
+        n, s, d = y.shape
+        y = comm.all_to_all([y.reshape(ep, n // ep, s, d).contiguous()])[0]
+        return y.transpose(0, 1).reshape(n // ep, ep * s, d)
+
+    def run_local(params, x, mc):
+        S = x.shape[1]
+        w_in, w_down = params["w_in"], params["w_down"]
+        if local_experts:
+            if w_in.shape[0] * ep != mc.e_total:
+                raise ValueError(f"{w_in.shape[0]} local experts on each of "
+                                 f"{ep} ranks, not {mc.e_total}")
+            w_ins, w_downs = [w_in], [w_down]
+        else:
+            w_ins, w_downs = comm.shard(w_in, 0), comm.shard(w_down, 0)
+        if epc.dp_batch or ep == 1:
+            return run_ranks([x], [params["router"]], w_ins, w_downs, mc)[0]
+        if S % ep or S == 1:
+            raise ValueError(f"zero1 splits the sequence over model: "
+                             f"{S} tokens over {ep} ranks")
+        return seq_rows(run_ranks([seq_chunks(x)], [params["router"]],
+                                  w_ins, w_downs, mc)[0])
 
     def moe_impl(params, x, mc: MoEConfig):
         if mc.e_total % ep:
             raise ValueError(f"e_total={mc.e_total} not divisible by "
                              f"ep={ep}")
+        if local:
+            return run_local(params, x, mc)
         B, S, _ = x.shape
         n_dp = mesh.dp_size
         split, dim = _split_rule(epc, B, S, ep, n_dp)

@@ -494,3 +494,39 @@ def test_tools_cells_gates_on_failures_and_moe_collectives():
     with pytest.raises(AssertionError, match="boom"):
         chip_smoke.tools_cells([(row, None)] * (n - 1)
                                + [(None, ("llama", "decode", "opt", "boom"))])
+
+
+def test_dist_train_phase_runs_on_the_cpu():
+    """Phase 19 at the smoke config's widths on the CPU: ``launch.train
+    --nproc 4 --backend gloo`` on mesh 2x2 in zero1 and ep_dp, each within
+    LOSS_TOL / GNORM_TOL of the one-process run over virtual ranks, each
+    process's optimizer state its spec's blocks, and the processes'
+    checkpoint restored here to every rank's blocks (launches are checked
+    on the card only, the NCCL try needs it)."""
+    out, launches = chip_smoke.run_dist_train(smoke=True, dev="cpu",
+                                              seq=32, nccl=False)
+    assert out["phase"] == "dist_train"
+    assert set(out["modes"]) == set(chip_smoke.DIST_MODES)
+    for row in out["modes"].values():
+        assert row["loss_rel_gap"] <= chip_smoke.LOSS_TOL
+        assert row["grad_leaf_norm_rel_gap_max"] <= chip_smoke.GNORM_TOL
+        assert row["opt_state_bytes_per_process"] == [
+            row["opt_state_bytes_by_spec"]] * chip_smoke.DIST_PROCS
+        assert len(row["losses"]) == chip_smoke.DIST_STEPS
+        assert len(row["comm_s_per_step"]) == chip_smoke.DIST_STEPS - 1
+    restore = out["modes"][chip_smoke.DIST_MODES[-1]]["restore"]
+    assert restore["blocks_checked"] > 0 and not restore["blocks_unequal"]
+    # The plain versions ran on the CPU: no kernel launch was counted.
+    assert set(launches) == set(chip_smoke.COUNTERS)
+
+
+def test_dist_capacity_is_the_ring_chunk_of_a_ranks_rows():
+    """Phase 3 checks the kernels at phase 19's ring chunk: a rank's
+    DIST_BATCH x TRAIN_SEQ / DIST_PROCS tokens (one 4,096-token row, in
+    zero1's sequence chunks as in ep_dp's rows) at ep = DIST_MESH[-1]."""
+    from repro_torch.parallel.ep import _pair_capacity
+    cfg = chip_smoke.get_config(chip_smoke.ARCH)
+    tokens = chip_smoke.DIST_BATCH * chip_smoke.TRAIN_SEQ // (
+        chip_smoke.DIST_PROCS)
+    assert chip_smoke.dist_capacity(cfg) == _pair_capacity(
+        tokens, cfg.moe, chip_smoke.DIST_MESH[-1], chip_smoke.EP_CF) == 2736
