@@ -299,6 +299,23 @@ Phases, each printing one JSON line:
    transfer (``comm.stats.seconds``), the rest of its step being compute
    and waits for the other ranks.
 
+20. dist_tp — tp_sp across processes: phase 19's setup (``launch.train
+   --nproc DIST_PROCS --backend gloo --n-layers DIST_LAYERS``, granite at
+   full width cut to DIST_LAYERS layers, mesh DIST_MESH, bf16 with fp32
+   AdamW, DIST_STEPS steps of DIST_BATCH x TRAIN_SEQ tokens) in mode
+   tp_sp, then tp_sp with ``fsdp=True`` (``train.main(fsdp=True)``): the
+   heads, the vocabulary, the experts and the residual's sequence split
+   over ``model``, with FSDP the attention and expert matrices' ``d`` over
+   ``data`` too (``parallel.tp``). Gates as phase 19's: step 1's loss
+   within LOSS_TOL and each assembled grad leaf's norm within GNORM_TOL of
+   the one-process tp_sp run over virtual ranks; finite losses; each
+   process's params and optimizer state the bytes of its spec blocks;
+   phase 19's launches, all on tensor cores; rank 0's checkpoint (the
+   FSDP run's) restoring every rank's blocks. Printed: the step medians,
+   the collectives and bytes a rank a step by kind, ``comm_s_per_step``
+   and each process's peak. The path ``dist_tp`` of the ``kernels`` line
+   sums the processes' launches.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
 CUDA device nothing is printed to stdout.
@@ -539,6 +556,9 @@ E2E_STEPS = 10
 DIST_PROCS, DIST_MESH, DIST_LAYERS, DIST_STEPS = 4, (2, 2), 2, 3
 DIST_BATCH = 4
 DIST_MODES = ("zero1", "ep_dp")
+# Phase 20: phase 19's setup in mode tp_sp, without then with FSDP (the
+# run's name -> make_steps' fsdp=), the last one checkpointed.
+DIST_TP_RUNS = {"tp_sp": False, "tp_sp_fsdp": True}
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -1068,16 +1088,17 @@ def ep_kernel_rows(cfg, gen):
 def dist_capacity(cfg) -> int:
     """Phase 19's ring chunk: C_pair of a rank's tokens at ep =
     DIST_MESH[-1], the tokens ``rules.batch_spec`` gives a rank of
-    DIST_BATCH x TRAIN_SEQ in each of DIST_MODES (zero1's sequence chunks
-    of the model row's rows are as many)."""
+    DIST_BATCH x TRAIN_SEQ in each of DIST_MODES and in phase 20's tp_sp
+    (zero1's sequence chunks of the model row's rows are as many)."""
     pcfg = train_mod.pad_experts(cfg, DIST_MESH[-1])
     mesh = _ShapeMesh(DIST_MESH)
     shape = (DIST_BATCH, TRAIN_SEQ)
     tokens = {math.prod(sharding.block_shape(shape, sharding.ShardingRules(
         pcfg, mesh, mode=m).batch_spec({"tokens": shape})["tokens"], mesh))
-        for m in DIST_MODES}
+        for m in DIST_MODES + ("tp_sp",)}
     if len(tokens) != 1:
-        raise AssertionError(f"phase 19's modes give a rank {tokens} tokens")
+        raise AssertionError(f"phases 19 and 20 give a rank {tokens} "
+                             f"tokens")
     return _pair_capacity(tokens.pop(), pcfg.moe, DIST_MESH[-1], EP_CF)
 
 
@@ -2187,8 +2208,9 @@ def flash_decode_case(B=SLOTS, max_len=PROMPT_LEN + MAX_NEW, H=24, K=8,
 def dist_case(cfg, backend="nccl", tokens=512, dev="cuda", init_dir=None):
     """Phase 14 (e): a one-rank ``torch.distributed`` group (NCCL on the
     card) runs one full-width MoE layer through ``make_moe_ep`` at ep = 1
-    on ``DistComm`` in both modes, forward and backward; y and every grad
-    must equal the ``VirtualComm`` run's bit for bit."""
+    on the process mesh ``dist_mesh((1, 1))`` in both modes, forward and
+    backward; y and every grad must equal the ``VirtualComm`` run's bit for
+    bit."""
     import torch.distributed as dist
     dev = torch.device(dev)
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -2207,7 +2229,7 @@ def dist_case(cfg, backend="nccl", tokens=512, dev="cuda", init_dir=None):
         dist.init_process_group(backend, init_method=f"file://{d}/init",
                                 world_size=1, rank=0)
         try:
-            got = {m: run(dist_mesh(), m) for m in EP_MODES}
+            got = {m: run(dist_mesh((1, 1)), m) for m in EP_MODES}
         finally:
             dist.destroy_process_group()
     out = {"backend": backend, "tokens": tokens, "modes": {}}
@@ -3397,17 +3419,33 @@ def dist_virtual_case(cfg, mode, dev="cuda", seq=TRAIN_SEQ):
     return out
 
 
-def dist_expected_opt_bytes(cfg, mode) -> int:
+def dist_expected_opt_bytes(cfg, mode, fsdp=None) -> int:
     """A rank's optimizer-state bytes by its ``opt_state_spec`` blocks:
     fp32 m, v and master of each leaf's block (every rank's blocks have
     one shape)."""
-    rules = sharding.ShardingRules(cfg, _ShapeMesh(DIST_MESH), mode=mode)
+    rules = sharding.ShardingRules(cfg, _ShapeMesh(DIST_MESH), mode=mode,
+                                   fsdp=fsdp)
     meta = adamw.cast_params(M.init_params(cfg, device="meta"),
                              cfg.compute_dtype)
     return sum(3 * 4 * math.prod(sharding.block_shape(t.shape, spec,
                                                        rules.mesh))
                for t, spec in zip(adamw.tree_leaves(meta),
                                   sharding.opt_state_specs(rules, meta)))
+
+
+def dist_expected_params(cfg, mode, fsdp=None) -> tuple:
+    """(params, bytes) of a rank's param blocks by its ``param_spec``, in
+    the launcher's compute dtype."""
+    rules = sharding.ShardingRules(cfg, _ShapeMesh(DIST_MESH), mode=mode,
+                                   fsdp=fsdp)
+    meta = adamw.cast_params(M.init_params(cfg, device="meta"),
+                             cfg.compute_dtype)
+    n = b = 0
+    for t, spec in zip(adamw.tree_leaves(meta),
+                       sharding.param_specs(rules, meta)):
+        k = math.prod(sharding.block_shape(t.shape, spec, rules.mesh))
+        n, b = n + k, b + k * t.element_size()
+    return n, b
 
 
 class _ShapeMesh:
@@ -3417,11 +3455,12 @@ class _ShapeMesh:
         self.axis_names = names
 
 
-def dist_restore_check(cfg, mode, step_dir, ranks) -> dict:
+def dist_restore_check(cfg, mode, step_dir, ranks, fsdp=None) -> dict:
     """The processes' checkpoint restored in this process (on the host),
     each rank's block of every leaf cut from it: its CRC32 must equal the
     one that rank took of its own block at the end of its run."""
-    rules = sharding.ShardingRules(cfg, _ShapeMesh(DIST_MESH), mode=mode)
+    rules = sharding.ShardingRules(cfg, _ShapeMesh(DIST_MESH), mode=mode,
+                                   fsdp=fsdp)
     meta = adamw.cast_params(M.init_params(cfg, device="meta"),
                              cfg.compute_dtype)
     params = adamw.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype),
@@ -3512,6 +3551,113 @@ def nccl_refusal(started, timeout_s=60) -> dict:
             "ended": ended}
 
 
+def dist_config(smoke=False):
+    """Phases 19 and 20's model: granite cut to DIST_LAYERS layers (the
+    smoke config's widths with ``smoke``), its experts padded for
+    DIST_MESH's model axis."""
+    base = dataclasses.replace(
+        get_smoke_config(ARCH) if smoke else get_config(ARCH),
+        n_layers=DIST_LAYERS)
+    return train_mod.pad_experts(base, DIST_MESH[-1])
+
+
+def dist_launches_per_step() -> dict:
+    """A process's GMM launches a step: one rank's ring makes an FFN call
+    at each of its ep steps, TRAIN_LAUNCHES a layer a step."""
+    F = DIST_MESH[-1]
+    return {k: DIST_LAYERS * F * n for k, n in TRAIN_LAUNCHES.items() if n}
+
+
+def dist_run_case(pcfg, mode, want, *, smoke=False, dev="cuda",
+                  seq=TRAIN_SEQ, fsdp=None, ckpt=None):
+    """One ``launch.train --nproc DIST_PROCS --backend gloo`` run of
+    phases 19 and 20 in ``mode`` (``fsdp``: ``train.main(fsdp=)``), held
+    to ``want`` (``dist_virtual_case``), its processes' params and state
+    to their spec blocks, their launches to ``dist_launches_per_step``;
+    with ``ckpt`` (a directory) the last step saves there, and its restore
+    is checked. Returns (the run's row, each process's launches)."""
+    cuda = torch.device(dev).type == "cuda"
+    names = ["/".join(map(str, p)) for p, _, _ in
+             sharding.jax_leaves(M.init_params(pcfg, device="meta"))]
+    per_step = dist_launches_per_step()
+    argv = ["--arch", ARCH, "--nproc", str(DIST_PROCS), "--mesh",
+            "x".join(map(str, DIST_MESH)), "--mode", mode,
+            "--backend", "gloo", "--device", dev, "--seq", str(seq),
+            "--global-batch", str(DIST_BATCH), "--steps",
+            str(DIST_STEPS), "--lr", "1e-3", "--n-layers",
+            str(DIST_LAYERS)] + (["--smoke"] if smoke else [])
+    if ckpt is not None:     # one checkpoint, at the end
+        argv += ["--ckpt-dir", ckpt, "--ckpt-every", str(DIST_STEPS)]
+    t = time.perf_counter()
+    run = train_mod.main(argv, fsdp=fsdp)
+    wall = time.perf_counter() - t
+    log, ranks = run.metrics_log, run.ranks
+    if not all(math.isfinite(m["loss"])
+               and math.isfinite(m["grad_norm"]) for m in log):
+        raise AssertionError(f"{mode}: non-finite metrics {log}")
+    got = log[0]
+    loss_gap = abs(got["loss"] - want["loss"]) / abs(want["loss"])
+    norm_gap = max(abs(a - b) / max(b, 1e-30) for a, b in zip(
+        got["grad_leaf_norms"], want["grad_leaf_norms"],
+        strict=True))
+    launches = [dict(r["launches"]) for r in ranks]
+    tc = [r.pop("tensor_cores") for r in launches]
+    opt_bytes = dist_expected_opt_bytes(pcfg, mode, fsdp)
+    n_params, param_bytes = dist_expected_params(pcfg, mode, fsdp)
+    step_ms = [m["step_ms"] for m in log]
+    row = {
+        "wall_s": wall, "losses": [m["loss"] for m in log],
+        "grad_norms": [m["grad_norm"] for m in log],
+        "step_ms": step_ms,
+        "step_ms_median_after_warmup": statistics.median(
+            step_ms[1:]),
+        "tokens_per_s": DIST_BATCH * seq / (statistics.median(
+            step_ms[1:]) / 1e3),
+        "virtual": {k: want[k] for k in ("loss", "grad_norm")},
+        "loss_rel_gap": loss_gap,
+        "grad_leaf_norm_rel_gap_max": norm_gap,
+        "grad_leaf_norms": {n: [a, b] for n, a, b in sorted(
+            zip(names, got["grad_leaf_norms"],
+                want["grad_leaf_norms"]),
+            key=lambda x: -abs(x[1] - x[2]) / max(x[2], 1e-30))[:4]},
+        "collectives_per_rank_per_step": log[-1]["collectives"],
+        "comm_bytes_per_rank_per_step":
+            log[-1]["comm_bytes_per_rank"],
+        # Rank 0's host seconds in each kind of transfer, the
+        # backward's included, a step after the warm-up.
+        "comm_s_per_step": [m["comm_seconds"] for m in log[1:]],
+        "peak_bytes_per_process": [r["peak_bytes"] for r in ranks],
+        "params_per_process_by_spec": n_params,
+        "param_bytes_per_process": [r["param_bytes"] for r in ranks],
+        "param_bytes_by_spec": param_bytes,
+        "opt_state_bytes_per_process": [r["opt_state_bytes"]
+                                        for r in ranks],
+        "opt_state_bytes_by_spec": opt_bytes,
+        "launches_per_process": launches,
+        "launches_per_process_per_step": per_step,
+        "tensor_core_launches_per_process": tc,
+        "ckpt": ranks[0]["ckpt_log"]}
+    if loss_gap > LOSS_TOL or norm_gap > GNORM_TOL:
+        raise AssertionError(f"{mode}: beyond the virtual ranks' "
+                             f"run: {row}")
+    if any(b != opt_bytes for b in row["opt_state_bytes_per_process"]) \
+            or any(b != param_bytes for b in row["param_bytes_per_process"]):
+        raise AssertionError(f"{mode}: params or optimizer state are not "
+                             f"the spec's blocks: {row}")
+    want_l = {k: DIST_STEPS * n for k, n in per_step.items()}
+    if cuda and any(
+            {k: r[k] for k in want_l} != want_l
+            or t != {k: want_l[k] for k in t}
+            for r, t in zip(launches, tc)):
+        raise AssertionError(f"{mode}: launches {launches} (tensor "
+                             f"cores {tc}) != {want_l} a process")
+    if ckpt is not None:
+        row["restore"] = dist_restore_check(
+            pcfg, mode, ckpt_mod.latest_step_dir(ckpt), ranks, fsdp)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return row, launches
+
+
 def run_dist_train(smoke=False, dev="cuda", seq=TRAIN_SEQ, nccl=True):
     """Phase 19: ``launch.train --nproc DIST_PROCS --backend gloo
     --n-layers DIST_LAYERS`` on the one card (or ``dev``; ``smoke``: at the
@@ -3519,98 +3665,20 @@ def run_dist_train(smoke=False, dev="cuda", seq=TRAIN_SEQ, nccl=True):
     layers, mesh DIST_MESH, zero1 then ep_dp. Returns the phase's line and
     the launches of path dist_train (every process's, summed)."""
     t_phase = time.perf_counter()
-    cuda = torch.device(dev).type == "cuda"
-    base = dataclasses.replace(
-        get_smoke_config(ARCH) if smoke else get_config(ARCH),
-        n_layers=DIST_LAYERS)
-    pcfg = train_mod.pad_experts(base, DIST_MESH[-1])
+    pcfg = dist_config(smoke)
     total = {k: 0 for k in COUNTERS}
     modes, root = {}, tempfile.mkdtemp()
-    names = ["/".join(map(str, p)) for p, _, _ in
-             sharding.jax_leaves(M.init_params(pcfg, device="meta"))]
-    # One rank's ring makes an FFN call at each of its ep steps.
-    F = DIST_MESH[-1]
-    per_step = {k: DIST_LAYERS * F * n for k, n in TRAIN_LAUNCHES.items()
-                if n}
     # NCCL's try runs beside the modes: it fails at its first collective.
     started = nccl_try_start() if nccl else None
     try:
         for mode in DIST_MODES:
             want = dist_virtual_case(pcfg, mode, dev, seq)
-            ckpt = os.path.join(root, mode)
-            argv = ["--arch", ARCH, "--nproc", str(DIST_PROCS), "--mesh",
-                    "x".join(map(str, DIST_MESH)), "--mode", mode,
-                    "--backend", "gloo", "--device", dev, "--seq", str(seq),
-                    "--global-batch", str(DIST_BATCH), "--steps",
-                    str(DIST_STEPS), "--lr", "1e-3", "--n-layers",
-                    str(DIST_LAYERS)] + (["--smoke"] if smoke else [])
-            if mode == DIST_MODES[-1]:     # one checkpoint, at the end
-                argv += ["--ckpt-dir", ckpt, "--ckpt-every", str(DIST_STEPS)]
-            t = time.perf_counter()
-            run = train_mod.main(argv)
-            wall = time.perf_counter() - t
-            log, ranks = run.metrics_log, run.ranks
-            if not all(math.isfinite(m["loss"])
-                       and math.isfinite(m["grad_norm"]) for m in log):
-                raise AssertionError(f"{mode}: non-finite metrics {log}")
-            got = log[0]
-            loss_gap = abs(got["loss"] - want["loss"]) / abs(want["loss"])
-            norm_gap = max(abs(a - b) / max(b, 1e-30) for a, b in zip(
-                got["grad_leaf_norms"], want["grad_leaf_norms"],
-                strict=True))
-            launches = [dict(r["launches"]) for r in ranks]
-            tc = [r.pop("tensor_cores") for r in launches]
+            row, launches = dist_run_case(
+                pcfg, mode, want, smoke=smoke, dev=dev, seq=seq,
+                ckpt=(os.path.join(root, mode) if mode == DIST_MODES[-1]
+                      else None))
             for k in COUNTERS:
                 total[k] += sum(r.get(k, 0) for r in launches)
-            opt_bytes = dist_expected_opt_bytes(pcfg, mode)
-            step_ms = [m["step_ms"] for m in log]
-            row = {
-                "wall_s": wall, "losses": [m["loss"] for m in log],
-                "grad_norms": [m["grad_norm"] for m in log],
-                "step_ms": step_ms,
-                "step_ms_median_after_warmup": statistics.median(
-                    step_ms[1:]),
-                "tokens_per_s": DIST_BATCH * seq / (statistics.median(
-                    step_ms[1:]) / 1e3),
-                "virtual": {k: want[k] for k in ("loss", "grad_norm")},
-                "loss_rel_gap": loss_gap,
-                "grad_leaf_norm_rel_gap_max": norm_gap,
-                "grad_leaf_norms": {n: [a, b] for n, a, b in sorted(
-                    zip(names, got["grad_leaf_norms"],
-                        want["grad_leaf_norms"]),
-                    key=lambda x: -abs(x[1] - x[2]) / max(x[2], 1e-30))[:4]},
-                "collectives_per_rank_per_step": log[-1]["collectives"],
-                "comm_bytes_per_rank_per_step":
-                    log[-1]["comm_bytes_per_rank"],
-                # Rank 0's host seconds in each kind of transfer, the
-                # backward's included, a step after the warm-up.
-                "comm_s_per_step": [m["comm_seconds"] for m in log[1:]],
-                "peak_bytes_per_process": [r["peak_bytes"] for r in ranks],
-                "opt_state_bytes_per_process": [r["opt_state_bytes"]
-                                                for r in ranks],
-                "opt_state_bytes_by_spec": opt_bytes,
-                "launches_per_process": launches,
-                "launches_per_process_per_step": per_step,
-                "tensor_core_launches_per_process": tc,
-                "ckpt": ranks[0]["ckpt_log"]}
-            if loss_gap > LOSS_TOL or norm_gap > GNORM_TOL:
-                raise AssertionError(f"{mode}: beyond the virtual ranks' "
-                                     f"run: {row}")
-            if any(b != opt_bytes for b in row[
-                    "opt_state_bytes_per_process"]):
-                raise AssertionError(f"{mode}: optimizer state is not the "
-                                     f"spec's blocks: {row}")
-            want_l = {k: DIST_STEPS * n for k, n in per_step.items()}
-            if cuda and any(
-                    {k: r[k] for k in want_l} != want_l
-                    or t != {k: want_l[k] for k in t}
-                    for r, t in zip(launches, tc)):
-                raise AssertionError(f"{mode}: launches {launches} (tensor "
-                                     f"cores {tc}) != {want_l} a process")
-            if mode == DIST_MODES[-1]:
-                row["restore"] = dist_restore_check(
-                    pcfg, mode, ckpt_mod.latest_step_dir(ckpt), ranks)
-                shutil.rmtree(ckpt, ignore_errors=True)
             modes[mode] = row
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3625,6 +3693,39 @@ def run_dist_train(smoke=False, dev="cuda", seq=TRAIN_SEQ, nccl=True):
     if refusal is not None:
         out["nccl_two_ranks_one_card"] = refusal
     out["seconds"] = time.perf_counter() - t_phase
+    return out, total
+
+
+def run_dist_tp(smoke=False, dev="cuda", seq=TRAIN_SEQ):
+    """Phase 20: tp_sp across processes, phase 19's setup run in mode
+    tp_sp without and with FSDP (``DIST_TP_RUNS``), each held to the one
+    one-process tp_sp run over virtual ranks at the same mesh (FSDP and
+    the residual's placement change no value there). Returns the phase's
+    line and the launches of path dist_tp (every process's, summed)."""
+    t_phase = time.perf_counter()
+    pcfg = dist_config(smoke)
+    total = {k: 0 for k in COUNTERS}
+    runs, root = {}, tempfile.mkdtemp()
+    try:
+        want = dist_virtual_case(pcfg, "tp_sp", dev, seq)
+        for name, fsdp in DIST_TP_RUNS.items():
+            last = name == list(DIST_TP_RUNS)[-1]
+            row, launches = dist_run_case(
+                pcfg, "tp_sp", want, smoke=smoke, dev=dev, seq=seq,
+                fsdp=fsdp, ckpt=os.path.join(root, name) if last else None)
+            row["fsdp"] = fsdp
+            for k in COUNTERS:
+                total[k] += sum(r.get(k, 0) for r in launches)
+            runs[name] = row
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"phase": "dist_tp", "arch": ARCH, "n_layers": DIST_LAYERS,
+           "processes": DIST_PROCS, "mesh": list(DIST_MESH),
+           "backend": "gloo (host-staged: one card)", "device": dev,
+           "seq": seq, "global_batch": DIST_BATCH, "steps": DIST_STEPS,
+           "capacity_factor": EP_CF, "loss_tol": LOSS_TOL,
+           "grad_norm_tol": GNORM_TOL, "runs": runs,
+           "seconds": time.perf_counter() - t_phase}
     return out, total
 
 
@@ -3737,6 +3838,10 @@ def main() -> int:
     dist_out, dist_launches = run_dist_train()
     emit(dist_out)
     path_launches["dist_train"] = dist_launches
+    _free()
+    tp_out, tp_launches = run_dist_tp()
+    emit(tp_out)
+    path_launches["dist_tp"] = tp_launches
 
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -199,9 +199,9 @@ class JaxTrainLayout:
 class DistTrainLayout:
     """``ft.runner.train_loop``'s checkpoint layout on a process mesh: the
     JAX launcher's ``(params, opt_state)``, each process's blocks of its
-    ZeRO-1 state (``rules.opt_state_spec``) and params
-    (``rules.param_spec``) gathered on rank 0, which writes the files
-    (``comm``); a restore keeps each process's blocks."""
+    optimizer state (``rules.opt_state_spec``: ZeRO-1's, or in tp_sp the
+    param's) and params (``rules.param_spec``) gathered on rank 0, which
+    writes the files (``comm``); a restore keeps each process's blocks."""
 
     def __init__(self, rules, mesh):
         self.rules, self.mesh = rules, mesh

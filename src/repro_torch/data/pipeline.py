@@ -9,10 +9,10 @@ losses move in short runs.
 :meth:`SyntheticStream.batch` puts the global batch on one device;
 :meth:`SyntheticStream.sharded_batch` builds it data group by data group,
 each from its own rows, as the reference assembles a global array from its
-shards, or gives one data group's rows only. On a process mesh
-(``launch.mesh.dist_mesh(dims)``) it makes this rank's rows alone: the
-block that the stream's ``rules.batch_spec`` gives the rank's coords (over
-(pod, data, model) in the zero1 and ep_dp modes).
+shards. On a process mesh (``launch.mesh.dist_mesh(dims)``) it makes this
+rank's block alone: the block that the stream's ``rules.batch_spec`` gives
+the rank's coords (rows over (pod, data, model) in the zero1 and ep_dp
+modes; in tp_sp rows over the data axes and the sequence over ``model``).
 """
 
 from __future__ import annotations
@@ -69,45 +69,41 @@ class SyntheticStream:
         return {k: torch.as_tensor(v, dtype=torch.long, device=device)
                 for k, v in self.global_batch_np(step).items()}
 
-    def sharded_batch(self, step: int, mesh, device,
-                      data_rank=None) -> dict:
+    def sharded_batch(self, step: int, mesh, device) -> dict:
         """The batch at ``step`` over ``mesh``'s data groups (the batch
-        split over the pod and data axes, replicated over ``model``).
-
-        ``data_rank=None``: every group's rows, concatenated in group order
-        — the global batch, as a one-card mesh of virtual ranks holds it.
-        An int: that group's rows only, which every rank of its model group
-        holds (a ``DistComm`` process passes its own). ``mesh=None`` is one
-        data group: the global batch, as :meth:`batch` gives it. A process
-        mesh: this rank's rows (see the module docstring).
-        """
-        if getattr(mesh, "local_rows", False):
-            return self._rank_rows(step, mesh, device)
+        split over the pod and data axes, replicated over ``model``): every
+        group's rows, concatenated in group order — the global batch, as a
+        one-card mesh of virtual ranks holds it. ``mesh=None`` is one data
+        group: the global batch, as :meth:`batch` gives it. A process mesh:
+        this rank's block (see the module docstring)."""
+        if mesh is not None and mesh.local_rows:
+            return self._rank_block(step, mesh, device)
         dc, n = self.dc, (1 if mesh is None else mesh.dp_size)
         if dc.global_batch % n:
             raise ValueError(f"global batch {dc.global_batch} does not "
                              f"split over {n} data groups")
-        per = dc.global_batch // n
-        groups = range(n) if data_rank is None else [data_rank]
-        t = np.concatenate([self._tokens(step, g * per, (g + 1) * per)
-                            for g in groups])
+        t = self._tokens(step, 0, dc.global_batch)
         return {k: torch.as_tensor(v, dtype=torch.long, device=device)
                 for k, v in (("tokens", t[:, :-1]), ("labels", t[:, 1:]))}
 
-    def _rank_rows(self, step: int, mesh, device) -> dict:
-        from ..parallel.sharding import local_block
+    def _rank_block(self, step: int, mesh, device) -> dict:
+        from ..parallel.sharding import local_block, spec_axes
         if self.rules is None:
             raise ValueError("a process mesh takes its rows by the stream's "
                              "rules: SyntheticStream(dc, rules=...)")
         B, S = self.dc.global_batch, self.dc.seq_len
         spec = self.rules.batch_spec({"tokens": (B, S)})["tokens"]
-        world = math.prod(mesh.shape.values())
-        if spec[1:] != (None,) or B % world:
-            # Each rank's rows must be its own share of the batch's mean.
-            raise ValueError(f"a batch of {B} rows does not split over the "
-                             f"{world} ranks ({spec})")
-        rows = local_block(torch.arange(B), spec[:1], mesh, mesh.coords)
-        lo, hi = int(rows[0]), int(rows[-1]) + 1
-        t = self._tokens(step, lo, hi)
-        return {k: torch.as_tensor(v, dtype=torch.long, device=device)
+        held = set(spec_axes(spec))
+        if any(n > 1 and a not in held for a, n in mesh.shape.items()):
+            # Each rank's block must be its own share of the batch's mean.
+            raise ValueError(
+                f"a batch of {B} x {S} tokens does not split over the "
+                f"{math.prod(mesh.shape.values())} ranks of mesh "
+                f"{mesh.shape} ({self.rules.mode}: {spec})")
+        rows, cols = (local_block(torch.arange(n), (e,), mesh, mesh.coords)
+                      for n, e in ((B, spec[0]), (S, spec[1])))
+        t = self._tokens(step, int(rows[0]), int(rows[-1]) + 1)
+        lo, hi = int(cols[0]), int(cols[-1]) + 1
+        return {k: torch.as_tensor(v[:, lo:hi], dtype=torch.long,
+                                   device=device)
                 for k, v in (("tokens", t[:, :-1]), ("labels", t[:, 1:]))}

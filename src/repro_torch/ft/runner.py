@@ -199,7 +199,7 @@ def train_loop(*, step_fn, params, opt_state, stream, mesh, device,
     elastic_events: list = []
     ckpt_log: list = []
     saving = ft.ckpt_dir is not None
-    world = mesh.world if getattr(mesh, "local_rows", False) else None
+    world = mesh.world if mesh is not None and mesh.local_rows else None
     writer = world is None or world.rank == 0
     latest = CK.latest_step_dir(ft.ckpt_dir) if saving else None
     if world is not None and saving:

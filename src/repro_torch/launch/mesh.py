@@ -2,19 +2,18 @@
 
 A :class:`Mesh` names its axes (``("data", "model")`` or ``("pod", "data",
 "model")``) with their sizes, and holds the comm of its ``model`` axis
-(``parallel.comm``). Three kinds:
+(``parallel.comm``). Two kinds:
 
 * ``make_mesh``: the ranks are virtual
   (:class:`~repro_torch.parallel.comm.VirtualComm`), all in this process,
   and each data group's program runs on that group's rows of the batch in
   turn;
-* ``dist_mesh()``: one model group of ``torch.distributed`` processes (its
-  data axes are 1), every process holding the whole tensors;
-* ``dist_mesh(dims)``: D x M (or P x D x M) processes, one rank each at
-  ``coords``, holding its own rows of the batch (the zero1 and ep_dp modes,
-  ``parallel.sharding``). It has a
-  :class:`~repro_torch.parallel.comm.DistComm` for every set of axes
+* ``dist_mesh(dims)``: D x M (or P x D x M) ``torch.distributed``
+  processes, one rank each at ``coords``, holding its own block of the
+  batch and of each param by the mode's rules (``parallel.sharding``). It
+  has a :class:`~repro_torch.parallel.comm.DistComm` for every set of axes
   (``axes_comm``): the model row (``comm``), the data column, the world.
+  One model group of M processes is ``dist_mesh((1, M))``.
 
 The reference's ``make_production_mesh`` (16 x 16 or 2 x 16 x 16 chips)
 needs a cluster and is not ported.
@@ -35,8 +34,8 @@ from ..parallel.sharding import dp_axes, rank_coords
 class Mesh:
     shape: dict          # axis name -> size, outermost first
     comm: object         # the comm of the "model" axis
-    # A process mesh (``dist_mesh(dims)``): this process's place, and a
-    # DistComm over the ranks that differ from it only in each set of axes.
+    # A process mesh (``dist_mesh``): this process's place, and a DistComm
+    # over the ranks that differ from it only in each set of axes.
     coords: Optional[dict] = None
     comms: Optional[dict] = None   # frozenset of axis names -> DistComm
 
@@ -91,20 +90,14 @@ def make_test_mesh(data: int = 2, model: int = 4, *, device="cuda") -> Mesh:
     return make_mesh((data, model), device)
 
 
-def dist_mesh(dims=None, group=None) -> Mesh:
-    """A mesh of ``torch.distributed`` processes.
-
-    ``dims=None``: this process's model group (``group``, default the
-    world), every process of it holding the whole tensors. ``dims``
-    (``(D, M)`` or ``(P, D, M)``, their product the world size): the world
-    as a process mesh, global rank r at ``rank_coords(shape, r)`` (model
-    fastest, as the reference numbers its devices), holding its own rows.
-    Every process must call it, in the same order: it makes a group for
-    each set of axes."""
+def dist_mesh(dims) -> Mesh:
+    """The world of ``torch.distributed`` processes as a process mesh of
+    ``dims`` (``(D, M)`` or ``(P, D, M)``, their product the world size):
+    global rank r at ``rank_coords(shape, r)`` (model fastest, as the
+    reference numbers its devices), holding its own rows. Every process
+    must call it, in the same order: it makes a group for each set of
+    axes."""
     import torch.distributed as dist
-    if dims is None:
-        comm = DistComm(group)
-        return Mesh({"data": 1, "model": comm.ep}, comm)
     dims = _checked(tuple(int(n) for n in dims), dims)
     names = ("pod", "data", "model") if len(dims) == 3 else ("data", "model")
     shape = dict(zip(names, dims))

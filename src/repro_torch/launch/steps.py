@@ -14,16 +14,23 @@ virtual ranks the rules place nothing (one process holds every value), and
 of the three modes only what changes values is kept: ``ep_dp`` sets
 ``EPConfig.dp_batch``.
 
-On a process mesh (``launch.mesh.dist_mesh(dims)``; the zero1 and ep_dp
-modes, one rank a process) the train step takes this rank's rows and
-params (ep_dp: its own experts) and a ZeRO-1 optimizer state
-(``adamw.init_opt_state(params, rules, mesh)``). After the backward it
-mean-reduces each grad over the ranks that hold other rows: every rank for
-a leaf each rank computed from its own rows, the data axes only for the
-experts under EP, whose grads the EP program already summed over the model
-group. The loss is the mean over the ranks. ``tp_sp`` across processes
-(tensor and sequence parallelism inside the layers) is not ported and
-raises.
+On a process mesh (``launch.mesh.dist_mesh(dims)``, one rank a process)
+the train step takes this rank's block of the batch and of the params
+(``parallel.sharding.own_params``) and an optimizer state of the same
+blocks, ZeRO-1's in zero1 and ep_dp (``adamw.init_opt_state(params,
+rules, mesh)``):
+
+* zero1 and ep_dp: the rank's rows of a batch split over every axis; the
+  params replicated, but ep_dp's experts, which are the rank's own;
+* tp_sp (the MoE family, with ``ep=``): the rank's sequence chunk of its
+  data group's rows; its heads, vocabulary block and experts over
+  ``model`` and, with FSDP, its block of the attention and expert matrices
+  over ``data``, placed by an ambient ``parallel.tp.TensorParallel``
+  (``seq_parallel=False``: the residual replicated over ``model``).
+
+After the backward :func:`reduce_grads` sums each grad over the ranks that
+hold other rows for its block and takes the mean over the batch's shares.
+The loss is the mean over the ranks.
 """
 
 from __future__ import annotations
@@ -36,15 +43,24 @@ import torch
 
 from ..models import model as M
 from ..optim import adamw
+from ..parallel.ctx import tensor_parallel_context
 from ..parallel.ep import EPConfig, make_moe_ep
-from ..parallel.sharding import ShardingRules, expert_leaves
+from ..parallel.sharding import ShardingRules, param_specs, spec_axes
+from ..parallel.tp import TensorParallel
 from .dropless import make_moe_dropless
 
 MODES = ("tp_sp", "zero1", "ep_dp")
-_TP_SP_ACROSS_PROCESSES = (
-    "tp_sp across processes needs tensor and sequence parallelism inside "
-    "the layers, which is not ported (ROADMAP Queue 1 · 1: tp_sp across "
-    "processes with FSDP); train across processes in zero1 or ep_dp")
+
+
+def tp_sp_family_error(cfg) -> Optional[str]:
+    """Why tp_sp across processes does not take ``cfg`` (``None``: it
+    does)."""
+    if cfg.family == "moe":
+        return None
+    return (f"tp_sp across processes runs the moe family; {cfg.name} is "
+            f"{cfg.family}, whose GLU or in_proj columns need a split of "
+            f"their own (ROADMAP Queue 1 · 1 (d)); train it across "
+            f"processes in zero1 or ep_dp")
 
 
 @dataclasses.dataclass
@@ -72,25 +88,30 @@ def value_and_grad(cfg, params, batch, moe_impl=None):
     return loss.detach(), adamw.tree_map(lambda _: next(it), params)
 
 
-def reduce_grads(grads, mesh, experts_summed: bool):
+def reduce_grads(grads, mesh, rules):
     """The mean of the ranks' grads on a process mesh, in place: each leaf
-    summed over every rank, the experts over the data axes alone when
-    ``experts_summed`` (EP summed them over the model group), and divided
-    by the world size: the rows of every rank carry one share of the
-    batch's mean."""
+    summed over the axes its param spec does not split (the ranks that
+    hold other rows for its block: a leaf split over ``model`` got its
+    group's sum from the collectives' transposes, EP's experts from the
+    ring, an FSDP leaf its sum over ``data`` from the reduce-scatter), then
+    divided by the batch's shares: every rank's rows in zero1 and ep_dp,
+    every data group's in tp_sp, whose ranks share one loss."""
     n = math.prod(mesh.shape.values())
-    world = mesh.world
-    data = mesh.axes_comm(tuple(a for a in mesh.axis_names if a != "model"))
-    flags = expert_leaves(grads)
-    for g, expert in zip(adamw.tree_leaves(grads), flags):
-        comm = data if expert and experts_summed else world
-        g.copy_(comm.all_reduce(g).div_(n))
+    shares = n // (mesh.shape["model"] if rules.mode == "tp_sp" else 1)
+    for g, spec in zip(adamw.tree_leaves(grads),
+                       param_specs(rules, grads, own=True)):
+        axes = tuple(a for a in mesh.axis_names if a not in spec_axes(spec)
+                     and mesh.shape[a] > 1)
+        if axes:
+            g.copy_(mesh.axes_comm(axes).all_reduce(g))
+        g.div_(shares)
     return grads
 
 
 def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
                     accum_steps: int = 0, moe_impl=None, mesh=None, ep=None,
-                    dropless=None, grad_transform=None, rules=None):
+                    dropless=None, grad_transform=None, rules=None,
+                    seq_parallel: bool = True):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with ``loss``, ``grad_norm`` and ``lr`` in ``metrics``.
     ``batch`` holds ``tokens`` and ``labels`` (a vlm's may add
@@ -106,16 +127,19 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
     ``ssc_pad_ratio`` for the step. ``ep``: an :class:`EPConfig` runs the
     MoE expert-parallel over ``mesh``'s model axis (a mesh of virtual ranks
     places nothing). ``grad_transform`` runs on the grads before the update
-    (``adamw.apply_updates``). ``rules`` (the zero1 or ep_dp mode's) and a
-    process ``mesh``: the step of this rank (see the module docstring).
+    (``adamw.apply_updates``). ``rules`` and a process ``mesh``: the step
+    of this rank (see the module docstring); ``seq_parallel`` then places
+    tp_sp's residual.
     """
-    dist_step = rules is not None and getattr(mesh, "local_rows", False)
+    dist_step = rules is not None and mesh is not None and mesh.local_rows
     if rules is not None and not dist_step:
         raise ValueError("rules= places a step on a process mesh "
                          "(launch.mesh.dist_mesh(dims)); pass mesh= too")
-    if dist_step and rules.mode == "tp_sp" and math.prod(
-            mesh.shape.values()) > 1:
-        raise ValueError(_TP_SP_ACROSS_PROCESSES)
+    tp = None
+    if dist_step and rules.mode == "tp_sp":
+        if math.prod(mesh.shape.values()) > 1 and tp_sp_family_error(cfg):
+            raise ValueError(tp_sp_family_error(cfg))
+        tp = TensorParallel(mesh, rules, seq=seq_parallel)
     if dist_step and dropless is not None:
         raise ValueError("the dropless path trains in one process; across "
                          "processes the MoE runs the fixed-capacity EP")
@@ -123,10 +147,10 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
     if ep_moe:
         if mesh is None:
             raise ValueError("ep= needs the mesh= whose model axis it runs on")
-        moe_impl = make_moe_ep(mesh, ep, cfg.act, local_experts=(
-            dist_step and rules.mode == "ep_dp"))
-    elif dist_step and rules.mode == "ep_dp" and cfg.family == "moe":
-        raise ValueError("ep_dp holds each rank's experts: pass ep=")
+        moe_impl = make_moe_ep(mesh, ep, cfg.act, mode=(
+            rules.mode if dist_step else "tp_sp"))
+    elif dist_step and rules.mode != "zero1" and cfg.family == "moe":
+        raise ValueError(f"{rules.mode} holds each rank's experts: pass ep=")
     dropless_moe = None
     if dropless is not None and cfg.family == "moe":
         dropless_moe = make_moe_dropless(cfg, dropless)
@@ -139,7 +163,8 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
         accum_steps = 8 if n_params > 100e9 else (4 if n_params > 10e9 else 1)
 
     def loss_and_grads(params, batch):
-        return value_and_grad(cfg, params, batch, moe_impl)
+        with tensor_parallel_context(tp):
+            return value_and_grad(cfg, params, batch, moe_impl)
 
     def train_step(params, opt_state, batch):
         B = batch["labels"].shape[0]
@@ -154,7 +179,7 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
         if dist_step:
             n = math.prod(mesh.shape.values())
             loss = mesh.world.all_reduce(loss.reshape(1))[0] / n
-            grads = reduce_grads(grads, mesh, experts_summed=ep_moe)
+            grads = reduce_grads(grads, mesh, rules)
             zero = {"rules": rules, "mesh": mesh}
         params, opt_state, metrics = adamw.apply_updates(
             params, grads, opt_state, opt, grad_transform=grad_transform,
@@ -172,8 +197,15 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
 def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
                ep: Optional[EPConfig] = None, mode: str = "tp_sp",
                dropless=None, grad_transform=None, accum_steps: int = 0,
-               flash_decode: bool = True) -> StepFns:
+               flash_decode: bool = True, seq_parallel: bool = True,
+               fsdp: Optional[bool] = None) -> StepFns:
     """The train, prefill and decode steps over ``mesh``.
+
+    ``fsdp`` (default: on above ``sharding.FSDP_THRESHOLD`` parameters) and
+    ``seq_parallel`` are the reference's: on a process mesh in tp_sp they
+    place the attention and expert matrices' ``d`` over ``data`` and the
+    residual's sequence over ``model``; a mesh of virtual ranks computes
+    the same values either way.
 
     EP (``ep``) is the MoE of all three; ``dropless`` replaces it in
     training only, as in the reference. An audio encoder's prefill step is
@@ -184,16 +216,14 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
-    rules = ShardingRules(cfg, mesh, mode=mode)
-    dist_step = getattr(mesh, "local_rows", False)
-    if dist_step and mode == "tp_sp" and math.prod(mesh.shape.values()) > 1:
-        raise ValueError(_TP_SP_ACROSS_PROCESSES)
+    rules = ShardingRules(cfg, mesh, fsdp=fsdp, mode=mode)
     if mode == "ep_dp" and ep is not None:
         ep = dataclasses.replace(ep, dp_batch=True)
-    if dist_step:
+    if mesh.local_rows:
         train_step = make_train_step(
             cfg, opt, accum_steps=accum_steps, mesh=mesh, ep=ep,
-            dropless=dropless, grad_transform=grad_transform, rules=rules)
+            dropless=dropless, grad_transform=grad_transform, rules=rules,
+            seq_parallel=seq_parallel)
 
         def serving(*_args, **_kw):
             raise ValueError("serving runs in one process, as in the "

@@ -32,21 +32,27 @@ group by data group; ``--mode`` as in the JAX launcher:
         --mesh 1x4 --ep-mode baseline --steps 3
 
 ``--nproc N`` trains in N processes, one rank each, over
-``torch.distributed`` (a ``--mesh`` of N ranks, ``--mode zero1`` or
-``ep_dp``; ``tp_sp`` across processes raises): each rank takes its rows of
-the batch (``parallel.sharding``), the MoE runs expert-parallel over its
-model row, the grads are mean-reduced over the ranks, and each rank keeps
-its ZeRO-1 block of the optimizer state (ep_dp: its experts too); rank 0
-prints and writes the checkpoint. ``--backend nccl``, the default on the
-card, puts rank r on ``cuda:r`` and raises when the machine has fewer
-cards than processes; ``--backend gloo`` runs every rank on ``--device``,
-CUDA tensors moving through host buffers (several processes on one card),
-and is the default with ``--device cpu``. The rendezvous is a file in a new
-temporary directory. ``--n-layers`` cuts the depth: four processes on one
-card share it, granite at its 32 layers takes most of a card in one
-process, and at 2 layers four processes fit.
+``torch.distributed`` (a ``--mesh`` of N ranks): each rank takes its block
+of the batch and of the params by the ``--mode``'s rules
+(``parallel.sharding``), the MoE runs expert-parallel over its model row,
+the grads are summed over the ranks that hold other rows and averaged, and
+each rank keeps its block of the optimizer state (ZeRO-1 in zero1 and
+ep_dp); rank 0 prints and writes the checkpoint. ``--mode tp_sp`` (the
+default) splits the heads, the vocabulary, the experts and the residual's
+sequence over the model axis (``parallel.tp``); it trains the MoE family,
+and any other family raises ``ValueError`` before a process starts.
+``main(fsdp=True)`` adds FSDP over ``data`` (the reference's launcher has
+no flag for it either: its default turns it on above 10 B parameters).
+``--backend nccl``, the default on the card, puts rank r on ``cuda:r`` and
+raises when the machine has fewer cards than processes; ``--backend gloo``
+runs every rank on ``--device``, CUDA tensors moving through host buffers
+(several processes on one card), and is the default with ``--device cpu``.
+The rendezvous is a file in a new temporary directory. ``--n-layers``
+cuts the depth: four processes on one card share it, granite at its 32
+layers takes most of a card in one process, and at 2 layers four
+processes fit.
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
-        --nproc 4 --mesh 2x2 --mode ep_dp --global-batch 4 --steps 3
+        --nproc 4 --mesh 2x2 --mode tp_sp --global-batch 4 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --nproc 4 --mesh 2x2 \
         --mode zero1 --backend gloo --n-layers 2 --seq 4096 \
         --global-batch 4 --steps 3
@@ -110,7 +116,8 @@ class TrainRun:
     dropless: object = None   # the DroplessMoE handle of a dropless run
     resumed_from: Optional[int] = None   # the checkpoint step resumed from
     # With --nproc: each rank's record (params and opt_state are None):
-    # rank, coords, device, kernel launches, optimizer-state bytes, peak
+    # rank, coords, device, kernel launches, param and optimizer-state
+    # bytes, peak
     # device bytes, checkpoint log and, with --ckpt-dir, its final blocks'
     # CRC32s; metrics_log is rank 0's, each step's record with
     # grad_leaf_norms (the reduced grads', adamw.tree_leaves order).
@@ -129,9 +136,10 @@ def pad_experts(cfg, ep: int):
         cfg.moe, n_padding_experts=cfg.moe.n_padding_experts + extra))
 
 
-def main(argv=None, *, inject_fault=None) -> TrainRun:
+def main(argv=None, *, inject_fault=None, fsdp=None) -> TrainRun:
     """Parse ``argv`` and train. ``inject_fault(step)`` is called before
-    each step and may raise to simulate a node loss."""
+    each step and may raise to simulate a node loss. ``fsdp``: the
+    reference's ``make_steps(fsdp=)`` (``None``: by the parameter count)."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="granite-moe-3b-a800m")
     ap.add_argument("--smoke", action="store_true",
@@ -180,8 +188,9 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
                          "--ckpt-dir)")
     ap.add_argument("--nproc", type=int, default=0,
                     help="train in N processes, one rank each, over "
-                         "torch.distributed (--mesh of N ranks, --mode "
-                         "zero1 or ep_dp); default: one process")
+                         "torch.distributed (--mesh of N ranks; --mode "
+                         "tp_sp for the moe family, zero1 or ep_dp); "
+                         "default: one process")
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                     help="with --nproc: nccl (the default on the card, "
                          "rank r on cuda:r, one card a rank) or gloo (the "
@@ -243,21 +252,23 @@ def main(argv=None, *, inject_fault=None) -> TrainRun:
         if kw:
             print(f"dropless schedule pipeline: {dropless.pipeline!r}")
 
+    args.fsdp = fsdp
     if args.nproc:
-        _check_processes(ap, args, dims, dropless)
+        _check_processes(ap, args, cfg, dims, dropless)
         return _spawn(args, cfg, inject_fault)
     return _train(args, cfg, dims, dropless, inject_fault,
                   resolve_device(args.device))
 
 
-def _check_processes(ap, args, dims, dropless) -> None:
-    """Refuse a ``--nproc`` run the slice does not cover, before any
+def _check_processes(ap, args, cfg, dims, dropless) -> None:
+    """Refuse a ``--nproc`` run the port does not cover, before any
     process starts."""
     if dims is None or math.prod(dims) != args.nproc:
         ap.error(f"--nproc {args.nproc} needs a --mesh of {args.nproc} "
                  f"ranks")
-    if (args.mode or "tp_sp") == "tp_sp" and args.nproc > 1:
-        raise ValueError(St._TP_SP_ACROSS_PROCESSES)
+    if (args.mode or "tp_sp") == "tp_sp" and args.nproc > 1 and (
+            St.tp_sp_family_error(cfg)):
+        raise ValueError(St.tp_sp_family_error(cfg))
     if dropless is not None:
         ap.error("--dropless trains in one process")
     if args.global_batch % args.nproc:
@@ -358,7 +369,8 @@ def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
         ep = EPConfig(mode=args.ep_mode or "hyperparallel",
                       capacity_factor=4.0)
         fns = St.make_steps(cfg, mesh, opt=oc, ep=ep,
-                            mode=args.mode or "tp_sp", dropless=dropless)
+                            mode=args.mode or "tp_sp", dropless=dropless,
+                            fsdp=args.fsdp)
         step_fn = fns.train_step
     params = adamw.cast_params(
         M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -374,7 +386,7 @@ def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
                                         global_batch=args.global_batch),
                              rules=rules)
     cuda = dev.type == "cuda"
-    talk = mesh is None or not mesh.local_rows or mesh.world.rank == 0
+    talk = not args.nproc or mesh.world.rank == 0
     launches = gmm_kernel.launches
     if mesh is not None:
         mesh.comm.stats.reset()
@@ -391,7 +403,7 @@ def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
             rec["collectives"] = dict(mesh.comm.stats.counts)
             rec["comm_seconds"] = dict(mesh.comm.stats.seconds)
             rec["comm_bytes_per_rank"] = mesh.comm.stats.bytes / (
-                1 if mesh.local_rows else mesh.dp_size)
+                1 if args.nproc else mesh.dp_size)
             mesh.comm.stats.reset()
         if args.nproc:
             rec["grad_leaf_norms"] = m["grad_leaf_norms"].tolist()
@@ -433,6 +445,8 @@ def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
     state = run.opt_state
     rank = {"rank": mesh.world.rank, "coords": mesh.coords,
             "device": str(dev), "launches": _kernel_launches(),
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in adamw.tree_leaves(run.params)),
             "opt_state_bytes": sum(
                 t.numel() * t.element_size() for k in ("m", "v", "master")
                 for t in adamw.tree_leaves(state[k])),

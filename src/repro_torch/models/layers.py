@@ -23,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.ctx import current_flash_decode
+from ..parallel.ctx import current_flash_decode, current_tensor_parallel
 
 
 class MetaDraws:
@@ -244,7 +244,17 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     for one-token decode with a scalar length; without one, the ambient
     ``parallel.ctx.flash_decode_context``'s. Where it returns ``None`` the
     dense path runs.
+
+    Under an ambient ``parallel.tp.TensorParallel`` (training, no cache)
+    ``p`` holds the rank's column blocks of ``wq``/``wk``/``wv`` and row
+    block of ``wo``: the residual ``x`` enters as the group's whole
+    sequence, the rank runs its H/M query and K/M kv heads at their global
+    positions, and its partial output leaves summed over the ranks.
     """
+    tp = current_tensor_parallel() if cache is None else None
+    if tp is not None:
+        x = tp.enter(x)
+        n_heads, n_kv_heads = tp.heads(n_heads), tp.heads(n_kv_heads)
     B, S, _ = x.shape
     compute_dtype = x.dtype
 
@@ -335,6 +345,8 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
                                 sliding_window=sliding_window, block=block)
 
     out = o.reshape(B, S, n_heads * head_dim) @ p["wo"].to(compute_dtype)
+    if tp is not None:
+        out = tp.leave(out)
     return out, new_cache
 
 

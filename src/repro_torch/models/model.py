@@ -23,6 +23,7 @@ are plain JAX in the reference.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from functools import partial
@@ -33,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
-from ..parallel.ctx import current_moe_impl
+from ..parallel.ctx import (current_moe_impl, current_tensor_parallel,
+                            tensor_parallel_context)
 from . import layers as L
 from .moe import MoEConfig, init_moe, moe_grouped
 from .rglru import init_rglru, rglru_block
@@ -265,8 +267,10 @@ def _window(cfg: ModelConfig, btype: str) -> int:
 def _attn_half(cfg: ModelConfig, p, x, cache=None, flash_decode=None,
                btype: str = "attn_moe"):
     """ln1 → attention → residual: (x, new_cache)."""
+    tp = current_tensor_parallel()
     a, new_cache = L.attention(
-        p["attn"], L.apply_norm(cfg.norm, x, p, "ln1"),
+        p["attn"] if tp is None else tp.layer(p["attn"], "attn"),
+        L.apply_norm(cfg.norm, x, p, "ln1"),
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta, causal=cfg.causal,
         sliding_window=_window(cfg, btype), block=cfg.attn_block,
@@ -279,7 +283,11 @@ def _moe_half(cfg: ModelConfig, p, x, moe_impl: Optional[Callable] = None):
     ``parallel.ctx.moe_impl_context``'s, else the kernels."""
     h = L.apply_norm(cfg.norm, x, p, "ln2")
     impl = moe_impl or current_moe_impl() or default_moe_impl(cfg)
-    return x + impl(p["moe"], h, cfg.moe)
+    tp = current_tensor_parallel()
+    if tp is None:
+        return x + impl(p["moe"], h, cfg.moe)
+    moe = tp.layer(p["moe"], "moe")
+    return x + tp.moe(lambda r: impl(moe, r, cfg.moe), h)
 
 
 def _mlp_half(cfg: ModelConfig, p, x):
@@ -343,6 +351,19 @@ class _Lookup(torch.autograd.Function):
         return out.index_put_((tok,), acc[inv].to(ctx.dtype)), None
 
 
+def _tp_lookup(tp, table, tokens):
+    """The residual's embeddings under tensor parallelism: each rank looks
+    up the group's tokens in its vocabulary block (zeros for the others'),
+    summed over the ranks; a table the vocabulary does not split looks up
+    the rank's own tokens."""
+    if not tp.split_vocab:
+        return _Lookup.apply(table, tokens if tp.seq else tp.tokens(tokens))
+    local = tp.tokens(tokens) - tp.vocab_lo(table.shape[0])
+    inside = (local >= 0) & (local < table.shape[0])
+    x = _Lookup.apply(table, torch.where(inside, local, 0))
+    return tp.leave(x * inside[..., None].to(x.dtype))
+
+
 def embed_inputs(cfg: ModelConfig, params, batch):
     """The stack's input: ``features`` [B, S, feat_in] through ``feat_proj``
     (audio), else the token embeddings, with a vlm batch's ``patches``
@@ -351,6 +372,9 @@ def embed_inputs(cfg: ModelConfig, params, batch):
     if cfg.family == "audio":
         x = torch.einsum("bsf,fd->bsd", batch["features"].to(dt),
                          params["feat_proj"].to(dt))
+    elif current_tensor_parallel() is not None:
+        x = _tp_lookup(current_tensor_parallel(), params["embed"].to(dt),
+                       batch["tokens"])
     else:
         x = _Lookup.apply(params["embed"].to(dt), batch["tokens"])
         if cfg.family == "vlm" and "patches" in batch:
@@ -403,6 +427,18 @@ def _run_hybrid(cfg: ModelConfig, params, x, caches=None, moe_impl=None,
     return x, {"super": tuple(new_sup), "tail": new_tail}
 
 
+def _remat(fn, x):
+    """``checkpoint(fn, x)`` (non-reentrant). Its recompute runs where
+    autograd runs the backward (for CUDA tensors a thread of its own, where
+    this thread's ambient tensor parallelism is unset), so it enters the
+    forward's."""
+    tp = current_tensor_parallel()
+    if tp is None:
+        return checkpoint(fn, x, use_reentrant=False)
+    return checkpoint(fn, x, use_reentrant=False, context_fn=lambda: (
+        contextlib.nullcontext(), tensor_parallel_context(tp)))
+
+
 def _run_stack(cfg: ModelConfig, params, x, caches=None, moe_impl=None,
                flash_decode=None):
     """Apply all layers in a Python loop. caches: list of per-layer dicts (a
@@ -427,14 +463,11 @@ def _run_stack(cfg: ModelConfig, params, x, caches=None, moe_impl=None,
             or getattr(moe_impl, "self_remat", False))
         for bp in params["blocks"]:
             if split:
-                x = checkpoint(lambda h, bp=bp: _attn_half(cfg, bp, h)[0],
-                               x, use_reentrant=False)
+                x = _remat(lambda h, bp=bp: _attn_half(cfg, bp, h)[0], x)
                 x = _moe_half(cfg, bp, x, moe_impl)
             else:
-                x = checkpoint(
-                    lambda h, bp=bp: block_apply(cfg, btype, bp, h, None,
-                                                 moe_impl)[0],
-                    x, use_reentrant=False)
+                x = _remat(lambda h, bp=bp: block_apply(
+                    cfg, btype, bp, h, None, moe_impl)[0], x)
         return x, None
     new_caches = []
     for i, bp in enumerate(params["blocks"]):
@@ -485,20 +518,34 @@ def _ce_chunk(cfg: ModelConfig, x, labels, unembed):
     return torch.sum((lse - picked) * mask), torch.sum(mask)
 
 
-def loss_fn(cfg: ModelConfig, params, batch, moe_impl=None,
-            ce_chunk: int = 512):
-    """Next-token (or frame-label) cross entropy, fp32, vocab-pad masked.
+def _ce_chunk_vocab(cfg: ModelConfig, tp, x, labels, unembed):
+    """``_ce_chunk`` over the vocabulary blocks of tensor parallelism: the
+    rank's logits ``x @ unembed`` (its block), the max, the sum of exps and
+    the picked logit summed over the ranks; every rank then holds the
+    group's sums."""
+    logits = (x @ unembed.to(x.dtype)).float()
+    block = logits.shape[-1]
+    lo = tp.vocab_lo(block)
+    if cfg.padded_vocab != cfg.vocab:
+        pad = torch.arange(lo, lo + block, device=x.device) >= cfg.vocab
+        logits = torch.where(pad[None, None, :], -1e30, logits)
+    m = tp.vocab_max(torch.amax(logits, dim=-1))
+    local = labels.clamp(min=0) - lo
+    inside = (local >= 0) & (local < block)
+    picked = torch.gather(logits, -1, local.clamp(0, block - 1)[..., None])
+    stats = tp.vocab_sum(torch.stack([
+        torch.sum(torch.exp(logits - m[..., None]), dim=-1),
+        torch.where(inside, picked[..., 0], 0.0)]))
+    lse = m + torch.log(stats[0])
+    mask = (labels >= 0).float()
+    return torch.sum((lse - stats[1]) * mask), torch.sum(mask)
 
-    The MoE defaults to the ambient ``moe_impl_context``'s, else
-    :func:`train_moe_impl`. The unembedding and logsumexp run in sequence
-    chunks, each under ``checkpoint`` while autograd records, so the full
-    [B, S, V] logits never materialize.
-    """
-    x = final_hidden(cfg, params, batch, moe_impl or current_moe_impl()
-                     or train_moe_impl(cfg))
-    labels = batch["labels"]
-    unembed = _unembedding(cfg, params)
-    B, S, _ = x.shape
+
+def _chunked_ce(cfg: ModelConfig, x, labels, unembed, ce_chunk: int, ce):
+    """``ce(x_c, l_c, unembed) -> (nll, count)`` over sequence chunks of at
+    most ``ce_chunk``, each under ``checkpoint`` while autograd records;
+    the sums."""
+    S = x.shape[1]
     n = max(1, S // max(1, min(ce_chunk, S)))
     while S % n:
         n -= 1
@@ -509,11 +556,44 @@ def loss_fn(cfg: ModelConfig, params, batch, moe_impl=None,
         x_c, l_c = x[:, i * step:(i + 1) * step], labels[:, i * step:
                                                           (i + 1) * step]
         if torch.is_grad_enabled():
-            nll_c, cnt_c = checkpoint(_ce_chunk, cfg, x_c, l_c, unembed,
+            nll_c, cnt_c = checkpoint(ce, x_c, l_c, unembed,
                                       use_reentrant=False)
         else:
-            nll_c, cnt_c = _ce_chunk(cfg, x_c, l_c, unembed)
+            nll_c, cnt_c = ce(x_c, l_c, unembed)
         nll, cnt = nll + nll_c, cnt + cnt_c
+    return nll, cnt
+
+
+def loss_fn(cfg: ModelConfig, params, batch, moe_impl=None,
+            ce_chunk: int = 512):
+    """Next-token (or frame-label) cross entropy, fp32, vocab-pad masked.
+
+    The MoE defaults to the ambient ``moe_impl_context``'s, else
+    :func:`train_moe_impl`. The unembedding and logsumexp run in sequence
+    chunks, each under ``checkpoint`` while autograd records, so the full
+    [B, S, V] logits never materialize.
+
+    Under tensor parallelism the loss is the data group's: each rank takes
+    its vocabulary block's logits over the group's whole sequence, and the
+    group's statistics make the same loss on every rank. A vocabulary the
+    model axis does not split runs the plain cross entropy on the rank's
+    sequence chunk, its sums added over the ranks.
+    """
+    x = final_hidden(cfg, params, batch, moe_impl or current_moe_impl()
+                     or train_moe_impl(cfg))
+    labels = batch["labels"]
+    unembed = _unembedding(cfg, params)
+    tp = current_tensor_parallel()
+    if tp is None:
+        nll, cnt = _chunked_ce(cfg, x, labels, unembed, ce_chunk,
+                               partial(_ce_chunk, cfg))
+    elif tp.split_vocab:
+        nll, cnt = _chunked_ce(cfg, tp.enter(x), tp.tokens(labels), unembed,
+                               ce_chunk, partial(_ce_chunk_vocab, cfg, tp))
+    else:
+        nll, cnt = tp.vocab_sum(torch.stack(_chunked_ce(
+            cfg, tp.own_chunk(x), labels, unembed, ce_chunk,
+            partial(_ce_chunk, cfg))))
     return nll / torch.clamp(cnt, min=1.0)
 
 

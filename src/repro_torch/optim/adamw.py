@@ -21,17 +21,18 @@ such as the final norm scale, is not decayed. A hybrid stack follows its
 JAX layout: a 1-d leaf of a ``super`` layer (stacked over the super-blocks
 there) is decayed, the same leaf of a ``tail`` layer (unstacked) is not.
 
-ZeRO-1 (the zero1 and ep_dp modes over a process mesh,
-``launch.mesh.dist_mesh(dims)``): ``init_opt_state(params, rules, mesh)``
-keeps ``m``, ``v`` and ``master`` as this rank's block of each leaf under
-``rules.opt_state_spec`` (``parallel.sharding``), and
-``apply_updates(..., rules=, mesh=)`` updates only that block, then
-all-gathers the new param blocks over the axes the spec adds. AdamW is
-elementwise, so each block's values are bit-equal to the same elements of
-the replicated update of the same grads. The clip norm is that of the
-reduced grads: the same on every rank. A leaf whose param is itself a
-block (ep_dp's experts) adds its blocks' squared sums over the ranks that
-hold the others.
+A process mesh (``launch.mesh.dist_mesh(dims)``):
+``init_opt_state(params, rules, mesh)`` keeps ``m``, ``v`` and ``master``
+as this rank's block of each leaf under ``rules.opt_state_spec``
+(``parallel.sharding``): ZeRO-1's in the zero1 and ep_dp modes, the param's
+own block in tp_sp. ``apply_updates(..., rules=, mesh=)`` updates only
+that block, then all-gathers the new param blocks over the axes the state
+spec adds to the param's (none in tp_sp). AdamW is elementwise, so each
+block's values are bit-equal to the same elements of the replicated update
+of the same grads. The clip norm is that of the reduced grads: the same on
+every rank. A leaf whose param is itself a block (ep_dp's experts, tp_sp's
+split leaves) adds its blocks' squared sums over the ranks that hold the
+others.
 """
 
 from __future__ import annotations
@@ -99,9 +100,11 @@ def cast_params(params, dtype=torch.bfloat16):
 
 
 class Zero1:
-    """This rank's ZeRO-1 share of a param tree over a process ``mesh``:
-    per leaf (``tree_leaves`` order) its param spec, its optimizer-state
-    spec, and the state's spec relative to the param this rank holds."""
+    """This rank's share of a param tree's optimizer state over a process
+    ``mesh`` (ZeRO-1's in zero1 and ep_dp; in tp_sp the param's own
+    blocks): per leaf (``tree_leaves`` order) its param spec, its
+    optimizer-state spec, and the state's spec relative to the param this
+    rank holds."""
 
     def __init__(self, rules, mesh, params):
         self.mesh = mesh
@@ -129,8 +132,10 @@ class Zero1:
         return S.assemble(parts, spec, sub)
 
     def sharded_axes(self, i: int) -> tuple:
-        """The axes over which leaf ``i``'s param is itself split."""
-        return S.spec_axes(self.param_specs[i])
+        """The axes over which leaf ``i``'s param is itself split, in the
+        mesh's order."""
+        axes = S.spec_axes(self.param_specs[i])
+        return tuple(a for a in self.mesh.axis_names if a in axes)
 
 
 def init_opt_state(params, rules=None, mesh=None) -> dict:

@@ -7,9 +7,9 @@ this process runs (``comm.ranks``): every rank of the axis for
 :class:`VirtualComm`, its own rank for :class:`DistComm`. Each collective
 takes and returns such lists.
 
-* ``shard(x, dim)`` / ``unshard(xs, dim)`` — the shard_map boundary: an
-  input split along ``dim`` over the axis (``None``: replicated), and the
-  output assembled the same way;
+* ``shard(x, dim)`` / ``unshard(xs, dim)`` (:class:`VirtualComm` only) —
+  the shard_map boundary: an input split along ``dim`` over the axis
+  (``None``: replicated), and the output assembled the same way;
 * ``all_to_all(xs)`` — ``jax.lax.all_to_all(x, split_axis=0,
   concat_axis=0, tiled=True)``: rank r's block s goes to rank s's block r;
 * ``ppermute(xs, shift)`` — the ring's ``jax.lax.ppermute`` with the
@@ -24,20 +24,34 @@ group: NCCL for CUDA tensors, ``gloo`` for CPU tensors. A CUDA tensor on a
 copies it to a host buffer, moves that, and copies the result back, its
 counted bytes unchanged. That is how one card runs several processes,
 which NCCL refuses. A CPU tensor on an NCCL group raises. Its collectives
-are autograd functions whose backward is the inverse transfer.
+are autograd functions whose backward is the transfer's transpose.
 
-On a mesh of one model group (``launch.mesh.dist_mesh()``) every process
-holds the whole (replicated) tensors outside the boundary, as the
-reference's program outside shard_map sees global arrays, and the
-boundary's backward follows shard_map's transpose: a replicated input's
-grad is all-reduced over the group, a replicated output's cotangent is
-divided by ``ep``, and a split input or output is all-gathered or sliced.
-On a process mesh (``dist_mesh(dims)``) each process holds its own rows,
-and ``parallel.ep`` hands the program those rows as they are: the data
-parallel reduction (``launch.steps``) sums their grads.
+A ``DistComm`` process holds its own rows and blocks (a process mesh,
+``launch.mesh.dist_mesh(dims)``): ``parallel.ep`` hands the program those
+rows as they are. For tensor and sequence parallelism (``parallel.tp``)
+and FSDP it also has the collectives of a layer, each an autograd function
+with its transpose:
 
-Both count, in ``comm.stats``, the collectives of the program (not the
-boundary) and the bytes one rank sends to other ranks: a block that stays
+* ``all_gather_dim(x, dim)`` — every rank's block concatenated along
+  ``dim``; the backward reduce-scatters;
+* ``reduce_scatter_dim(x, dim)`` — this rank's block along ``dim`` of the
+  sum of every rank's ``x``; the backward all-gathers;
+* ``all_reduce_sum(x, partial_grads)`` — the sum of every rank's ``x``;
+  the backward is the identity, or with ``partial_grads`` an all-reduce.
+
+A tensor that every rank of the axis holds whole (a replicated residual,
+an all-gather's result) carries a partial share of its cotangent on each
+rank: the ranks' shares sum to it, as each rank's heads or vocabulary
+block adds its part of the grad. That is why the all-gather transposes to
+a reduce-scatter, and why the sum of a replicated tensor's partial values
+(the row-parallel output without sequence parallelism) transposes to an
+all-reduce. A sum that every rank consumes alike (the cross entropy's
+vocabulary statistics, under a loss that every rank seeds whole) has the
+whole cotangent on every rank, and transposes to the identity.
+
+Both count, in ``comm.stats``, the collectives of the forward program (a
+recompute's included; a backward's transfers, the transposes, are not
+counted) and the bytes one rank sends to other ranks: a block that stays
 on its rank (the all-to-all's own block, the ring's step 0) is not link
 traffic. ``DistComm`` also counts the data-parallel ``all_reduce`` and the
 ZeRO-1 ``all_gather``; its ``gather``, ``broadcast_object`` and
@@ -64,7 +78,7 @@ from ..device import resolve_device
 @dataclasses.dataclass
 class CommStats:
     """Collectives by kind (``all-to-all``, ``collective-permute``,
-    ``all-reduce``) and the bytes one rank sent to other ranks; a
+    ``all-reduce``, ``all-gather``, ``reduce-scatter``) and the bytes one rank sent to other ranks; a
     ``DistComm`` over gloo adds its transfers' host seconds by kind."""
     counts: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
@@ -80,6 +94,11 @@ class CommStats:
         self.counts.clear()
         self.bytes = 0
         self.seconds.clear()
+
+
+# ``reduce_scatter_single`` is the newer name of ``reduce_scatter_tensor``.
+_reduce_scatter = getattr(dist, "reduce_scatter_single", None) or getattr(
+    dist, "reduce_scatter_tensor")
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -221,20 +240,19 @@ class DistComm:
             dist.all_reduce(w, op=op, group=self.group)
             return w.to(x.device)
 
-    def _own(self, x, dim):
-        return torch.chunk(x, self.ep, dim)[self.rank]
+    def _scatter(self, x, dim):
+        """This rank's block along ``dim`` of the sum of every rank's
+        ``x`` (equal shapes)."""
+        with self._timed("reduce-scatter", x):
+            w = self._wire(x.movedim(dim, 0))
+            out = torch.empty((w.shape[0] // self.ep,) + tuple(w.shape[1:]),
+                              dtype=w.dtype, device=w.device,
+                              pin_memory=w.device.type == "cpu"
+                              and w.is_pinned())
+            _reduce_scatter(out, w, group=self.group)
+            return out.to(x.device).movedim(0, dim)
 
     # The program's interface.
-    def shard(self, x, dim):
-        if dim is None:
-            return [_ReduceGrad.apply(x, self)]
-        return [_Slice.apply(x, self, dim)]
-
-    def unshard(self, xs, dim):
-        if dim is None:
-            return _ScaleGrad.apply(xs[0], 1.0 / self.ep)
-        return _Gather.apply(xs[0], self, dim)
-
     def all_to_all(self, xs):
         self.stats.add("all-to-all", (self.ep - 1) * _nbytes(xs[0][0]))
         return [_AllToAll.apply(xs[0], self)]
@@ -251,6 +269,37 @@ class DistComm:
     def psum(self, xs):
         self.stats.add("all-reduce", _all_reduce_bytes(xs[0], self.ep))
         return [self._all_reduce(xs[0], dist.ReduceOp.SUM)]
+
+    # Tensor and sequence parallelism, FSDP (counted; autograd functions).
+    def all_gather_dim(self, x, dim: int):
+        """Every rank's ``x`` (equal shapes) concatenated along ``dim`` in
+        rank order; the backward reduce-scatters the cotangents."""
+        if self.ep == 1:
+            return x
+        self.stats.add("all-gather", (self.ep - 1) * _nbytes(x))
+        return _AllGatherDim.apply(x, self, dim)
+
+    def reduce_scatter_dim(self, x, dim: int):
+        """This rank's block along ``dim`` of the sum of every rank's
+        ``x``; the backward all-gathers the cotangents."""
+        if self.ep == 1:
+            return x
+        if x.shape[dim] % self.ep:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not "
+                             f"split over {self.ep} ranks")
+        self.stats.add("reduce-scatter",
+                       (self.ep - 1) * _nbytes(x) // self.ep)
+        return _ReduceScatterDim.apply(x, self, dim)
+
+    def all_reduce_sum(self, x, partial_grads: bool):
+        """The sum of every rank's ``x``. ``partial_grads``: each rank
+        holds a partial share of the sum's cotangent, and the backward
+        all-reduces them; else every rank holds the whole one, and the
+        backward is the identity."""
+        if self.ep == 1:
+            return x
+        self.stats.add("all-reduce", _all_reduce_bytes(x, self.ep))
+        return _AllReduceSum.apply(x, self, partial_grads)
 
     # Data parallelism and ZeRO-1 (counted; no autograd).
     def all_reduce(self, x):
@@ -317,23 +366,9 @@ class _PPermute(torch.autograd.Function):
         return ctx.comm._shift(g, -ctx.shift), None, None
 
 
-class _Slice(torch.autograd.Function):
-    """Boundary entry of a split input: this rank's block; the grad of the
-    whole tensor is the blocks' grads gathered."""
-
-    @staticmethod
-    def forward(ctx, x, comm, dim):
-        ctx.comm, ctx.dim = comm, dim
-        return comm._own(x, dim).contiguous()
-
-    @staticmethod
-    def backward(ctx, g):
-        return ctx.comm._gather(g, ctx.dim), None, None
-
-
-class _Gather(torch.autograd.Function):
-    """Boundary exit of a split output: the blocks gathered; every process
-    holds the same cotangent, of which this rank's block is its own."""
+class _AllGatherDim(torch.autograd.Function):
+    """The ranks' blocks along ``dim``; the whole's cotangent is the sum of
+    the ranks' shares, of which this rank's block is its own."""
 
     @staticmethod
     def forward(ctx, x, comm, dim):
@@ -342,32 +377,34 @@ class _Gather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return ctx.comm._own(g, ctx.dim).contiguous(), None, None
+        return ctx.comm._scatter(g, ctx.dim), None, None
 
 
-class _ReduceGrad(torch.autograd.Function):
-    """Boundary entry of a replicated input: its grad is summed over the
-    group."""
-
-    @staticmethod
-    def forward(ctx, x, comm):
-        ctx.comm = comm
-        return x.view_as(x)
+class _ReduceScatterDim(torch.autograd.Function):
+    """This rank's block of the ranks' sum; each addend's cotangent is the
+    whole sum's, the blocks' cotangents gathered."""
 
     @staticmethod
-    def backward(ctx, g):
-        return ctx.comm._all_reduce(g, dist.ReduceOp.SUM), None
-
-
-class _ScaleGrad(torch.autograd.Function):
-    """Boundary exit of a replicated output: every rank computed it, so
-    each takes 1/ep of the cotangent."""
-
-    @staticmethod
-    def forward(ctx, x, scale):
-        ctx.scale = scale
-        return x.view_as(x)
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm._scatter(x, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return g * ctx.scale, None
+        return ctx.comm._gather(g, ctx.dim), None, None
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """The ranks' sum; each addend's cotangent is the sum's: the ranks'
+    shares of it all-reduced, or the one every rank holds."""
+
+    @staticmethod
+    def forward(ctx, x, comm, partial_grads):
+        ctx.comm, ctx.partial = comm, partial_grads
+        return comm._all_reduce(x, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = ctx.comm._all_reduce(g, dist.ReduceOp.SUM)
+        return g, None, None

@@ -1,6 +1,6 @@
 """Ambient overrides the model reads — counterpart of ``repro.parallel.ctx``.
 
-Six context managers and readers on a ``threading.local``, as in the
+Context managers and readers on a ``threading.local``, as in the
 reference:
 
 * ``moe_impl_context(impl)`` / ``current_moe_impl()``: the MoE every
@@ -13,7 +13,14 @@ reference:
 * ``activation_sharding(spec)`` / ``constrain_activation(x)`` and
   ``head_sharding(spec)`` / ``constrain_heads(x)``: the reference's
   sharding constraints. In one process they place nothing and return their
-  input unchanged; real placement comes with the port's multi-card work.
+  input unchanged;
+* ``tensor_parallel_context(tp)`` / ``current_tensor_parallel()``: what
+  places the tp_sp mode across processes in their stead, a
+  :class:`repro_torch.parallel.tp.TensorParallel` (``launch.steps`` sets
+  it for a train step on a process mesh). ``models.model`` and
+  ``models.layers.attention`` read it: the embedding and the cross
+  entropy over the vocabulary blocks, the heads, the sequence-parallel
+  residual and the FSDP gathers of each layer.
 
 An explicit argument always wins over the ambient value.
 """
@@ -55,6 +62,15 @@ def head_sharding(spec):
 def constrain_heads(x, n_heads_axis=2):
     """``x`` unchanged: one process places nothing."""
     return x
+
+
+def tensor_parallel_context(tp):
+    """Ambient tensor and sequence parallelism of a process mesh."""
+    return _ambient("tp", tp)
+
+
+def current_tensor_parallel():
+    return getattr(_CTX, "tp", None)
 
 
 def flash_decode_context(impl):

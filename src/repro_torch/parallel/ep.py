@@ -31,6 +31,7 @@ gives the ring.
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 
 import numpy as np
 import torch
@@ -188,28 +189,36 @@ def _split_rule(epc: EPConfig, B: int, S: int, ep: int, n_dp: int):
 
 def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
                 bucket=None, topology=None, inter_bucket=None,
-                local_experts: bool = False):
+                mode: str = "tp_sp"):
     """Returns ``moe_impl(params, x, mc)`` running EP over the model axis.
 
-    On a mesh of virtual ranks or of one model group, ``params`` and ``x``
-    [B, S, d] are the whole tensors (on a ``DistComm`` group, every process
-    holds them). ``x`` is split as the reference's ``x_spec``: the batch
+    On a mesh of virtual ranks ``params`` and ``x`` [B, S, d] are the
+    whole tensors. ``x`` is split as the reference's ``x_spec``: the batch
     over the data groups when B > 1 (over every axis with ``dp_batch``),
     the sequence over ``model`` when S % ep == 0 and S > 1; otherwise every
     rank routes the whole group's rows (decode), and the redundant work is
-    done.
+    done. ``mode`` is not read there.
 
     On a process mesh (``launch.mesh.dist_mesh(dims)``) ``x`` is this
-    rank's own rows, its share of a batch split over every axis. With
-    ``dp_batch`` (ep_dp) the rank routes them, as the reference's ``x_spec``
-    over every axis does; without (zero1) an all-to-all over the model
-    group first gives each rank its sequence chunk of the group's rows, as
-    the reference's ``x_spec`` (data, model) does, and a second one brings
-    the results back. The router's grad is this rank's rows' alone (the
-    data-parallel reduction sums it). The experts are the whole replicated
-    leaves, of which each rank runs its block and gets the whole grad back;
-    with ``local_experts`` (ep_dp) they are this rank's block
-    ``[E / ep, ...]`` and so is their grad.
+    rank's own rows, as the reference's ``x_spec`` for ``mode`` places
+    them, and the rank routes them:
+
+    * ``tp_sp``: its sequence chunk of its data group's rows (the
+      sequence-parallel residual), or, where the sequence does not split
+      (S == 1 or S % ep != 0), the group's rows, which every rank of the
+      group routes: the redundant work is done. The experts are this
+      rank's block ``[E / ep, ...]`` (the param spec's ``model`` split).
+    * ``ep_dp`` (``dp_batch``): its rows of a batch split over every axis;
+      its own experts, as in tp_sp.
+    * ``zero1``: its rows of a batch split over every axis; an all-to-all
+      over the model group first gives each rank its sequence chunk of the
+      group's rows, as the reference's ``x_spec`` (data, model) does, and
+      a second one brings the results back. The experts are the whole
+      replicated leaves, of which the rank runs its block; their grad is
+      that block's, zero elsewhere (the data-parallel reduction sums it).
+
+    The router's grad is this rank's rows' alone: the data-parallel
+    reduction (``launch.steps.reduce_grads``) sums it.
 
     ``plan``: a host-known :class:`RoutingPlan` (``plan_from_dispatch`` on
     this batch's routing, or one covering it). In ``hyperparallel`` mode
@@ -223,15 +232,17 @@ def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
     """
     ep = mesh.shape[epc.axis]
     comm = mesh.comm
-    local = getattr(mesh, "local_rows", False)
+    local = mesh.local_rows
     if epc.axis != "model" or comm.ep != ep:
         raise ValueError(f"EP runs over the mesh's model axis, whose comm "
                          f"has {comm.ep} ranks, not over {epc.axis!r}")
     if epc.mode not in ("baseline", "hyperparallel"):
         raise ValueError(f"EP mode {epc.mode!r}: baseline or hyperparallel")
-    if local_experts and not local:
-        raise ValueError("local_experts= needs a process mesh, whose ranks "
-                         "hold their own experts")
+    if mode not in ("tp_sp", "zero1", "ep_dp"):
+        raise ValueError(f"mode {mode!r}: tp_sp, zero1 or ep_dp")
+    if local and (mode == "ep_dp") != epc.dp_batch:
+        raise ValueError("on a process mesh ep_dp and EPConfig.dp_batch go "
+                         "together")
     if (bucket is not None or inter_bucket is not None) and plan is None:
         raise ValueError(
             "make_moe_ep(bucket=.../inter_bucket=...) quantizes a routing "
@@ -324,22 +335,23 @@ def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
         return y.transpose(0, 1).reshape(n // ep, ep * s, d)
 
     def run_local(params, x, mc):
-        S = x.shape[1]
         w_in, w_down = params["w_in"], params["w_down"]
-        if local_experts:
-            if w_in.shape[0] * ep != mc.e_total:
-                raise ValueError(f"{w_in.shape[0]} local experts on each of "
-                                 f"{ep} ranks, not {mc.e_total}")
-            w_ins, w_downs = [w_in], [w_down]
-        else:
-            w_ins, w_downs = comm.shard(w_in, 0), comm.shard(w_down, 0)
-        if epc.dp_batch or ep == 1:
-            return run_ranks([x], [params["router"]], w_ins, w_downs, mc)[0]
+        if mode == "zero1":
+            e_loc = mc.e_total // ep
+            w_in, w_down = (w.narrow(0, comm.rank * e_loc, e_loc)
+                            for w in (w_in, w_down))
+        elif w_in.shape[0] * ep != mc.e_total:
+            raise ValueError(f"{w_in.shape[0]} local experts on each of "
+                             f"{ep} ranks, not {mc.e_total}")
+        run = partial(run_ranks, routers=[params["router"]], w_ins=[w_in],
+                      w_downs=[w_down], mc=mc)
+        if mode != "zero1" or ep == 1:
+            return run([x])[0]
+        S = x.shape[1]
         if S % ep or S == 1:
             raise ValueError(f"zero1 splits the sequence over model: "
                              f"{S} tokens over {ep} ranks")
-        return seq_rows(run_ranks([seq_chunks(x)], [params["router"]],
-                                  w_ins, w_downs, mc)[0])
+        return seq_rows(run([seq_chunks(x)])[0])
 
     def moe_impl(params, x, mc: MoEConfig):
         if mc.e_total % ep:

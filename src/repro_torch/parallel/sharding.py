@@ -360,24 +360,26 @@ def jax_leaves(params) -> list:
     return out
 
 
-def _is_experts(path, shape, stacked) -> bool:
-    return path[-1] in ("w_in", "w_down") and len(shape) - stacked == 3
-
-
-def expert_leaves(params) -> list:
-    """Per leaf of ``params`` (``adamw.tree_leaves`` order): whether it is
-    a MoE layer's experts (``w_in``/``w_down`` of ``[E, ...]``)."""
-    return [_is_experts(*leaf) for leaf in jax_leaves(params)]
+def _whole_leaves(rules: ShardingRules, params) -> list:
+    """``jax_leaves`` of the whole tree of which ``params`` are the blocks a
+    rank of a process mesh holds: the tree of ``rules.cfg``, on the meta
+    device (once a rules object)."""
+    whole = rules.__dict__.get("_whole_leaves")
+    if whole is None:
+        from ..models.model import init_params
+        whole = jax_leaves(init_params(rules.cfg, device="meta"))
+        rules._whole_leaves = whole
+    own = jax_leaves(params)
+    if [p for p, _, _ in own] != [p for p, _, _ in whole]:
+        raise ValueError(f"these params are not blocks of {rules.cfg.name}'s "
+                         f"tree")
+    return whole
 
 
 def _port_specs(rules, params, fn, own) -> list:
     specs = []
-    for path, shape, stacked in jax_leaves(params):
-        if own and rules.mode == "ep_dp" and _is_experts(path, shape,
-                                                         stacked):
-            # This rank's experts: the leaf has model_n times as many.
-            e = int(stacked)
-            shape = shape[:e] + (shape[e] * rules.model_n,) + shape[e + 1:]
+    leaves = _whole_leaves(rules, params) if own else jax_leaves(params)
+    for path, shape, stacked in leaves:
         spec = fn(path, shape)
         if stacked:
             if spec[0] is not None:
@@ -392,8 +394,9 @@ def _port_specs(rules, params, fn, own) -> list:
 
 def param_specs(rules: ShardingRules, params, own: bool = False) -> list:
     """Each port leaf's param spec, in ``adamw.tree_leaves`` order.
-    ``own``: ``params`` are those a rank of a process mesh holds (ep_dp:
-    its own experts), not the whole tree."""
+    ``own``: ``params`` are the blocks a rank of a process mesh holds (its
+    experts in ep_dp, its block of every split leaf in tp_sp), not the whole
+    tree; the specs are those of the whole leaves of ``rules.cfg``."""
     return _port_specs(rules, params, rules.param_spec, own)
 
 
@@ -411,8 +414,10 @@ def relative_spec(spec, within) -> tuple:
 
 def own_params(rules: ShardingRules, params, mesh):
     """This rank's params of the whole tree ``params`` on a process mesh:
-    each leaf split by its param spec (ep_dp's experts) replaced by a copy
-    of the rank's block, the others kept as they are."""
+    each leaf split by its param spec (ep_dp's experts; in tp_sp the
+    model's heads, vocabulary and experts, and with FSDP the ``data``
+    split) replaced by a copy of the rank's block, the others kept as they
+    are."""
     specs = iter(param_specs(rules, params))
 
     def own(tree):

@@ -520,10 +520,55 @@ def test_dist_train_phase_runs_on_the_cpu():
     assert set(launches) == set(chip_smoke.COUNTERS)
 
 
+def test_dist_tp_phase_runs_on_the_cpu():
+    """Phase 20 at the smoke config's widths on the CPU: ``launch.train
+    --nproc 4 --backend gloo --mode tp_sp`` on mesh 2x2, without then with
+    FSDP, each within LOSS_TOL / GNORM_TOL of the one-process tp_sp run
+    over virtual ranks, each process's params and optimizer state its spec
+    blocks (fewer with FSDP), and the FSDP run's checkpoint restored here
+    to every rank's blocks (launches are checked on the card only)."""
+    out, launches = chip_smoke.run_dist_tp(smoke=True, dev="cpu", seq=32)
+    assert out["phase"] == "dist_tp"
+    assert set(out["runs"]) == set(chip_smoke.DIST_TP_RUNS)
+    for row in out["runs"].values():
+        assert row["loss_rel_gap"] <= chip_smoke.LOSS_TOL
+        assert row["grad_leaf_norm_rel_gap_max"] <= chip_smoke.GNORM_TOL
+        assert row["opt_state_bytes_per_process"] == [
+            row["opt_state_bytes_by_spec"]] * chip_smoke.DIST_PROCS
+        assert row["param_bytes_per_process"] == [
+            row["param_bytes_by_spec"]] * chip_smoke.DIST_PROCS
+        assert len(row["losses"]) == chip_smoke.DIST_STEPS
+        assert {"all-gather", "reduce-scatter"} <= set(
+            row["collectives_per_rank_per_step"])
+    plain, fsdp = (out["runs"][k] for k in chip_smoke.DIST_TP_RUNS)
+    assert fsdp["param_bytes_by_spec"] < plain["param_bytes_by_spec"]
+    restore = fsdp["restore"]
+    assert restore["blocks_checked"] > 0 and not restore["blocks_unequal"]
+    assert set(launches) == set(chip_smoke.COUNTERS)
+
+
+def test_dist_expected_bytes_at_full_width():
+    """Phase 20's spec blocks at granite's full width cut to 2 layers: a
+    process holds 195.58 M params in tp_sp (half of the 391.17 M) and
+    135.81 M with FSDP, and 12 bytes of fp32 AdamW state each (zero1's
+    ZeRO-1 state beside it)."""
+    cfg = chip_smoke.dist_config()
+    n_tp, b_tp = chip_smoke.dist_expected_params(cfg, "tp_sp", False)
+    n_fs, b_fs = chip_smoke.dist_expected_params(cfg, "tp_sp", True)
+    assert (n_tp, n_fs) == (195_583_488, 135_814_656)
+    assert (b_tp, b_fs) == (2 * n_tp, 2 * n_fs)          # bf16
+    assert chip_smoke.dist_expected_opt_bytes(cfg, "tp_sp", False) == \
+        12 * n_tp
+    assert chip_smoke.dist_expected_opt_bytes(cfg, "tp_sp", True) == \
+        12 * n_fs
+    assert chip_smoke.dist_expected_opt_bytes(cfg, "zero1") < 12 * n_fs
+
+
 def test_dist_capacity_is_the_ring_chunk_of_a_ranks_rows():
-    """Phase 3 checks the kernels at phase 19's ring chunk: a rank's
-    DIST_BATCH x TRAIN_SEQ / DIST_PROCS tokens (one 4,096-token row, in
-    zero1's sequence chunks as in ep_dp's rows) at ep = DIST_MESH[-1]."""
+    """Phase 3 checks the kernels at phases 19 and 20's ring chunk: a
+    rank's DIST_BATCH x TRAIN_SEQ / DIST_PROCS tokens (one 4,096-token row,
+    in zero1's sequence chunks as in ep_dp's rows; in tp_sp two rows'
+    2,048-token chunks) at ep = DIST_MESH[-1]."""
     from repro_torch.parallel.ep import _pair_capacity
     cfg = chip_smoke.get_config(chip_smoke.ARCH)
     tokens = chip_smoke.DIST_BATCH * chip_smoke.TRAIN_SEQ // (

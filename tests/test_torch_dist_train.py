@@ -376,15 +376,17 @@ def _jax_state_like(state):
 
 def test_launcher_refuses_what_the_slice_does_not_cover(tmp_path):
     """NCCL with more ranks than cards raises (never switching to gloo),
-    and so does tp_sp across processes; both before any process starts."""
+    and so does tp_sp across processes for a family other than moe (the
+    default mode, and named); both before any process starts."""
     base = ["--smoke", "--steps", "1", "--seq", "16", "--global-batch", "4"]
     if torch.cuda.device_count() < 2:
         with pytest.raises(RuntimeError, match="one rank a card"):
             ttrain.main(base + ["--nproc", "2", "--mesh", "1x2", "--mode",
                                 "zero1", "--backend", "nccl"])
-    with pytest.raises(ValueError, match="ROADMAP"):
-        ttrain.main(base + ["--nproc", "4", "--mesh", "2x2", "--device",
-                            "cpu"])
+    for mode in ([], ["--mode", "tp_sp"]):
+        with pytest.raises(ValueError, match=r"ROADMAP Queue 1 · 1 \(d\)"):
+            ttrain.main(base + ["--arch", "llama3_2-3b", "--nproc", "4",
+                                "--mesh", "2x2", "--device", "cpu"] + mode)
     with pytest.raises(SystemExit):
         ttrain.main(base + ["--nproc", "4", "--mesh", "1x2", "--mode",
                             "zero1", "--device", "cpu"])

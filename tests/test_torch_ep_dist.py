@@ -1,11 +1,16 @@
 """The port's EP over ``torch.distributed``: 4 ``gloo`` processes, one rank
 each (``DistComm``: ``all_to_all_single`` for the baseline,
 ``batch_isend_irecv`` for the ring, each an autograd function whose
-backward is the inverse transfer), on mesh 1x4 in both modes. Each rank's
-forward and grads of x, the router (all-reduced over the group in the
-backward, as shard_map's transpose does for a replicated input), ``w_in``
-and ``w_down`` must agree within 1e-6 with the one-process ``VirtualComm``
-run and within 1e-5 with the JAX ``make_moe_ep`` on a forced-host mesh."""
+backward is the inverse transfer), on the process mesh 1x4
+(``dist_mesh((1, 4))``) in both modes, each rank holding its rows as tp_sp
+places them: its sequence chunk (``seq``), or for a one-token decode batch
+the group's rows, which every rank routes (its cotangent shared among the
+ranks, each taking 1/4), and its block of the experts. Assembled over the
+ranks (chunks concatenated, a replicated input's and the router's grads
+summed, the experts' blocks stacked), the forward and the grads of x, the
+router, ``w_in`` and ``w_down`` must agree within 1e-6 with the
+one-process ``VirtualComm`` run and within 1e-5 with the JAX
+``make_moe_ep`` on a forced-host mesh."""
 
 import os
 import subprocess
@@ -46,17 +51,29 @@ def _inputs():
 
 
 def _run(mesh, mode, case):
-    """(y, grads..., collectives) of one case on ``mesh``'s comm."""
+    """(y, grads..., collectives) of one case on ``mesh``'s comm: the whole
+    tensors on virtual ranks, this rank's on a process mesh."""
     p, xs = _inputs()
-    params = {k: torch.from_numpy(v).requires_grad_(True)
-              for k, v in p.items()}
-    x = torch.from_numpy(xs[case][0]).requires_grad_(True)
+    x, g = xs[case]
+    if mesh.local_rows:
+        r, m = mesh.comm.rank, mesh.comm.ep
+        e = MC.e_total // m
+        p = dict(p, w_in=p["w_in"][r * e:(r + 1) * e],
+                 w_down=p["w_down"][r * e:(r + 1) * e])
+        if case == "seq":
+            s = x.shape[1] // m
+            x, g = x[:, r * s:(r + 1) * s], g[:, r * s:(r + 1) * s]
+        else:
+            g = g / np.float32(m)
+    params = {k: torch.from_numpy(np.ascontiguousarray(v))
+              .requires_grad_(True) for k, v in p.items()}
+    x = torch.from_numpy(np.ascontiguousarray(x)).requires_grad_(True)
     impl = EP.make_moe_ep(mesh, EP.EPConfig(mode=mode, capacity_factor=2.0,
                                             use_pallas=False))
     mesh.comm.stats.reset()
     y = impl(params, x, MC)
     stats = (dict(mesh.comm.stats.counts), mesh.comm.stats.bytes)
-    (y * torch.from_numpy(xs[case][1])).sum().backward()
+    (y * torch.from_numpy(np.ascontiguousarray(g))).sum().backward()
     out = [y.detach(), x.grad] + [params[k].grad
                                   for k in ("router", "w_in", "w_down")]
     return dict(zip(NAMES, (t.numpy() for t in out))), stats
@@ -66,7 +83,7 @@ def _worker(rank, init, out_dir):
     dist.init_process_group("gloo", init_method=init, world_size=WORLD,
                             rank=rank)
     try:
-        mesh = dist_mesh()
+        mesh = dist_mesh((1, WORLD))
         res = {}
         for mode in MODES:
             for case in CASES:
@@ -129,20 +146,37 @@ def runs(tmp_path_factory):
         return ranks, dict(z)
 
 
+def _assembled(ranks, mode, case) -> dict:
+    """The whole y and grads from the ranks': sequence chunks concatenated
+    (``seq``) or one rank's replicated y and the ranks' shares of dx summed
+    (``decode``), the router's grads summed, the experts' blocks stacked."""
+    def of(k):
+        return [r[f"{mode}/{case}/{k}"] for r in ranks]
+    seq = case == "seq"
+    if not seq:
+        for y in of("y"):
+            np.testing.assert_array_equal(y, of("y")[0])
+    return {"y": np.concatenate(of("y"), 1) if seq else of("y")[0],
+            "dx": np.concatenate(of("dx"), 1) if seq else sum(of("dx")),
+            "drouter": sum(of("drouter")),
+            "dw_in": np.concatenate(of("dw_in")),
+            "dw_down": np.concatenate(of("dw_down"))}
+
+
 @pytest.mark.parametrize("case", list(CASES))
 @pytest.mark.parametrize("mode", MODES)
 def test_gloo_ranks_equal_the_virtual_ranks(runs, mode, case):
-    """Every process holds the whole y and grads (the program outside the
-    EP boundary is replicated over the group), equal to the virtual
-    ranks' within 1e-6, and moves the same collectives and bytes."""
+    """The processes' y and grads, assembled, equal the virtual ranks'
+    within 1e-6, and each process moves the collectives and bytes of one
+    virtual rank."""
     ranks, _ = runs
     want, (counts, nbytes) = _run(make_test_mesh(1, WORLD, device="cpu"),
                                   mode, case)
+    got = _assembled(ranks, mode, case)
+    for k in NAMES:
+        np.testing.assert_allclose(got[k], want[k], rtol=VIRTUAL_TOL,
+                                   atol=VIRTUAL_TOL, err_msg=k)
     for got in ranks:
-        for k in NAMES:
-            np.testing.assert_allclose(got[f"{mode}/{case}/{k}"], want[k],
-                                       rtol=VIRTUAL_TOL, atol=VIRTUAL_TOL,
-                                       err_msg=k)
         assert int(got[f"{mode}/{case}/bytes"]) == nbytes
         assert {k.rsplit("/", 1)[1]: int(v) for k, v in got.items()
                 if k.startswith(f"{mode}/{case}/count/")} == counts
@@ -151,11 +185,10 @@ def test_gloo_ranks_equal_the_virtual_ranks(runs, mode, case):
 @pytest.mark.parametrize("mode", MODES)
 def test_gloo_ranks_equal_jax(runs, mode):
     ranks, ref = runs
-    for got in ranks:
-        for k in NAMES:
-            np.testing.assert_allclose(got[f"{mode}/seq/{k}"],
-                                       ref[f"{mode}/{k}"], rtol=JAX_TOL,
-                                       atol=JAX_TOL, err_msg=k)
+    got = _assembled(ranks, mode, "seq")
+    for k in NAMES:
+        np.testing.assert_allclose(got[k], ref[f"{mode}/{k}"], rtol=JAX_TOL,
+                                   atol=JAX_TOL, err_msg=k)
 
 
 def test_dist_comm_refuses_a_device_its_backend_does_not_serve(tmp_path):

@@ -81,12 +81,13 @@ assert not bad, bad
     "repro_torch.tools.selector_error", "repro_torch.examples.quickstart",
     "repro_torch.examples.schedule_explorer",
     "repro_torch.examples.serve_decode",
-    "repro_torch.examples.train_moe_e2e"])
+    "repro_torch.examples.train_moe_e2e", "repro_torch.parallel.tp"])
 def test_fusion_and_elastic_modules_import_alone(module):
     """Each module of the fusion/elastic slice, of the online serving
     slice, of EP, of checkpointing, of the model families, of the shapes,
-    roofline and dry run, and of the one-card tools (hill-climb, the
-    benchmark twins and runner, selector_error, ctx, the examples),
+    roofline and dry run, of the one-card tools (hill-climb, the
+    benchmark twins and runner, selector_error, ctx, the examples) and of
+    tensor parallelism across processes (tp),
     imported on its own in a fresh interpreter, pulls in neither JAX, the
     JAX package, msgpack nor ml_dtypes."""
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
