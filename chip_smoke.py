@@ -313,8 +313,23 @@ Phases, each printing one JSON line:
    phase 19's launches, all on tensor cores; rank 0's checkpoint (the
    FSDP run's) restoring every rank's blocks. Printed: the step medians,
    the collectives and bytes a rank a step by kind, ``comm_s_per_step``
-   and each process's peak. The path ``dist_tp`` of the ``kernels`` line
-   sums the processes' launches.
+   and each process's peak. (b) The other families in tp_sp
+   (``run_dist_families``): DIST_FAMILIES at full width cut in depth
+   (gemma-2b, mamba2-1.3b, recurrentgemma-2b at one super-block and its
+   2-layer tail, internvl2-26b with FSDP and its 256 patches a row,
+   hubert-xlarge on frames), one spawn of DIST_PROCS processes for all,
+   DIST_FAMILY_STEPS steps each of ``make_steps(mode="tp_sp")`` on each
+   rank's block of the batch (``sharding.batch_block``). Gates: step 0's
+   loss within LOSS_TOL and each reduced grad leaf's norm within GNORM_TOL
+   of a one-process bf16 run over the data groups (mamba2's ``A_log`` to
+   the size of its grad's terms); finite losses; params and optimizer
+   state the bytes of their spec blocks; no kernel launch. Printed beside
+   them: the step times, collectives, bytes and ``comm_s_per_step`` a rank,
+   peaks allocated and reserved (the processes' allocators grow segments
+   in place), this process's and the card's memory before the spawn, and
+   the one-process bf16 run's own gap from an fp32 run. The
+   path ``dist_tp`` of the ``kernels`` line sums the processes' launches;
+   the line also has the whole script's seconds so far.
 
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
@@ -325,6 +340,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -559,6 +575,16 @@ DIST_MODES = ("zero1", "ep_dp")
 # Phase 20: phase 19's setup in mode tp_sp, without then with FSDP (the
 # run's name -> make_steps' fsdp=), the last one checkpointed.
 DIST_TP_RUNS = {"tp_sp": False, "tp_sp_fsdp": True}
+# Phase 20 (b): the other families in tp_sp across DIST_PROCS processes (one
+# spawn for all), at full width cut in depth: arch -> (layers, fsdp=);
+# recurrentgemma keeps one super-block and its full config's 2-layer tail
+# (26 = 8 x 3 + 2), internvl2 its default FSDP. DIST_FAMILY_STEPS steps of
+# DIST_BATCH x TRAIN_SEQ tokens (internvl2: its 256 patches before them;
+# hubert: frames), the first a warm-up.
+DIST_FAMILIES = {"gemma-2b": (2, False), "mamba2-1.3b": (2, False),
+                 "recurrentgemma-2b": (5, False),
+                 "internvl2-26b": (2, True), "hubert-xlarge": (2, False)}
+DIST_FAMILY_STEPS = 2
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -2448,6 +2474,7 @@ def _free(dev="cuda") -> None:
     arch's peak is its own."""
     if torch.device(dev).type == "cuda":
         torch.cuda.synchronize()
+        gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
 
@@ -3700,8 +3727,9 @@ def run_dist_tp(smoke=False, dev="cuda", seq=TRAIN_SEQ):
     """Phase 20: tp_sp across processes, phase 19's setup run in mode
     tp_sp without and with FSDP (``DIST_TP_RUNS``), each held to the one
     one-process tp_sp run over virtual ranks at the same mesh (FSDP and
-    the residual's placement change no value there). Returns the phase's
-    line and the launches of path dist_tp (every process's, summed)."""
+    the residual's placement change no value there), then (b) the other
+    families (``run_dist_families``). Returns the phase's line and the
+    launches of path dist_tp (every process's, summed)."""
     t_phase = time.perf_counter()
     pcfg = dist_config(smoke)
     total = {k: 0 for k in COUNTERS}
@@ -3719,14 +3747,339 @@ def run_dist_tp(smoke=False, dev="cuda", seq=TRAIN_SEQ):
             runs[name] = row
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    _free(dev)
+    t_fam = time.perf_counter()
+    families, fam_launches = run_dist_families(smoke, dev, seq)
+    families["seconds"] = time.perf_counter() - t_fam
+    for k in COUNTERS:
+        total[k] += fam_launches[k]
     out = {"phase": "dist_tp", "arch": ARCH, "n_layers": DIST_LAYERS,
            "processes": DIST_PROCS, "mesh": list(DIST_MESH),
            "backend": "gloo (host-staged: one card)", "device": dev,
            "seq": seq, "global_batch": DIST_BATCH, "steps": DIST_STEPS,
            "capacity_factor": EP_CF, "loss_tol": LOSS_TOL,
-           "grad_norm_tol": GNORM_TOL, "runs": runs,
+           "grad_norm_tol": GNORM_TOL, "runs": runs, "families": families,
            "seconds": time.perf_counter() - t_phase}
     return out, total
+
+
+def dist_family_config(arch, smoke=False):
+    """Phase 20 (b)'s model of ``arch``: full width (the smoke config's with
+    ``smoke``) cut to its DIST_FAMILIES layers."""
+    base = get_smoke_config(arch) if smoke else get_config(arch)
+    return dataclasses.replace(base, n_layers=DIST_FAMILIES[arch][0])
+
+
+def dist_family_batch(cfg, seq, step, dev):
+    """The global batch of ``step``: DIST_BATCH x ``seq`` tokens of the
+    synthetic stream, or (vlm, audio) ``av_batch``'s tokens and patches or
+    frames with labels, drawn from the step."""
+    if cfg.family in ("vlm", "audio"):
+        return av_batch(cfg, DIST_BATCH, seq, dev, seed=step, labels=True)
+    return SyntheticStream(DataConfig(
+        vocab=cfg.vocab, seq_len=seq, global_batch=DIST_BATCH)).batch(
+        step, dev)
+
+
+def _family_params(cfg, dev):
+    return adamw.cast_params(M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        cfg.compute_dtype)
+
+
+def _ssd_probe(terms):
+    """``models.ssm._ssd_chunked`` with a probe s (ones) on each call's log
+    decay la = dt·A: it runs on x/s and dt·s, so dt·x and, with the D term
+    put back, its output keep their values, and ∂L/∂s is c = ∂L/∂la · la,
+    whose sum over rows and positions is ``A_log``'s grad (ROADMAP §3,
+    ``tests/_torch_families.ssd_gradient_terms``). Appends each call's s."""
+    from repro_torch.models import ssm as ssm_mod
+    orig = ssm_mod._ssd_chunked
+
+    def probed(x, dt, A, B_, C_, D, chunk):
+        s = torch.ones(dt.shape, dtype=dt.dtype, device=dt.device,
+                       requires_grad=True)
+        terms.append(s)
+        y, st = orig(x / s[..., None], dt * s, A, B_, C_, D, chunk)
+        return y + (x - x / s[..., None]) * D[None, None, :, None], st
+    return probed
+
+
+def dist_family_virtual(cfg, dev, seq, fp32=False):
+    """Phase 20 (b)'s yardstick: step 0 in one process over DIST_MESH
+    virtual ranks, each data group's program on its rows in turn (the
+    model axis places nothing for these families in one process), on the
+    processes' params and inputs, in their dtype or with ``fp32`` in fp32:
+    the mean of the groups' losses and each leaf's grad norm (before
+    clipping) of the mean of their grads (summed in fp32). An ssm's
+    ``A_log`` grad is a cancelling sum of terms c (each layer's,
+    ``_ssd_probe``; its run without remat, which changes no value):
+    ``a_log_scale`` is the norm over the heads of Σ|c|, the size its gap is
+    held to, as ROADMAP §3's rule holds it."""
+    from repro_torch.models import ssm as ssm_mod
+    dt = torch.float32 if fp32 else cfg.compute_dtype
+    params = adamw.tree_map(lambda t: t.to(dt), _family_params(cfg, dev))
+    batch = {k: v.to(dt) if v.is_floating_point() else v
+             for k, v in dist_family_batch(cfg, seq, 0, dev).items()}
+    ssm = cfg.family == "ssm"
+    cfg = dataclasses.replace(cfg, dtype="float32" if fp32 else cfg.dtype,
+                              remat=cfg.remat and not ssm)
+    groups = DIST_MESH[0]
+    rows = DIST_BATCH // groups
+    loss, grads, abs_terms = 0.0, None, None
+    orig = ssm_mod._ssd_chunked
+    for g in range(groups):
+        part = {k: v[g * rows:(g + 1) * rows] for k, v in batch.items()}
+        terms = []
+        if ssm:
+            ssm_mod._ssd_chunked = _ssd_probe(terms)
+        try:
+            leaves = adamw.tree_leaves(params)
+            for p in leaves:
+                p.requires_grad_(True)
+            lv = M.loss_fn(cfg, params, part)
+            gr = torch.autograd.grad(lv, leaves + terms, allow_unused=True)
+        finally:
+            ssm_mod._ssd_chunked = orig
+        loss += float(lv.detach()) / groups
+        gl = [torch.zeros_like(p) if t is None else t.float() / groups
+              for p, t in zip(leaves, gr)]
+        grads = gl if grads is None else [a + b for a, b in zip(grads, gl)]
+        c = [t.abs().sum((0, 1)) / groups for t in gr[len(leaves):]]
+        abs_terms = c if abs_terms is None else [
+            a + b for a, b in zip(abs_terms, c)]
+        del gr, gl, lv
+    out = {"loss": loss, "grad_leaf_norms": [float(t.norm())
+                                             for t in grads],
+           "a_log_scale": [float(t.norm()) for t in abs_terms]}
+    del params, grads, batch
+    _free(dev)
+    return out
+
+
+def _dist_family_rank(rank, init, out_dir, smoke, dev, seq):
+    """One process of phase 20 (b): every DIST_FAMILIES run in turn, each
+    DIST_FAMILY_STEPS steps of ``make_steps(mode="tp_sp")`` on its block of
+    the params and of each step's batch (``sharding.batch_block``); its
+    record to ``out_dir``."""
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=init,
+                            world_size=DIST_PROCS, rank=rank)
+    try:
+        dev = torch.device(dev)
+        if dev.type == "cuda":
+            dev = torch.device("cuda", 0)     # every rank on the one card
+            torch.cuda.set_device(dev)
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // DIST_PROCS))
+        mesh = dist_mesh(DIST_MESH)
+        out = {}
+        for arch, (_, fsdp) in DIST_FAMILIES.items():
+            cfg = dist_family_config(arch, smoke)
+            fns = steps_mod.make_steps(
+                cfg, mesh, opt=adamw.OptConfig(
+                    lr=1e-3, warmup_steps=2, total_steps=DIST_FAMILY_STEPS),
+                mode="tp_sp", fsdp=fsdp)
+            params = sharding.own_params(fns.rules, _family_params(cfg, dev),
+                                         mesh)
+            state = adamw.init_opt_state(params, fns.rules, mesh)
+            _free(dev)
+            reset_launches()
+            log = []
+            for step in range(DIST_FAMILY_STEPS):
+                batch = sharding.batch_block(
+                    fns.rules, dist_family_batch(cfg, seq, step, dev), mesh)
+                mesh.comm.stats.reset()
+                _sync(dev)
+                t = time.perf_counter()
+                params, state, m = fns.train_step(params, state, batch)
+                _sync(dev)
+                stats = mesh.comm.stats
+                log.append({"loss": float(m["loss"]),
+                            "grad_norm": float(m["grad_norm"]),
+                            "grad_leaf_norms": m["grad_leaf_norms"].tolist(),
+                            "step_ms": 1e3 * (time.perf_counter() - t),
+                            "collectives": dict(stats.counts),
+                            "comm_bytes": stats.bytes,
+                            "comm_seconds": dict(stats.seconds)})
+            out[arch] = {
+                "log": log, "launches": read_launches(),
+                "param_bytes": tree_bytes(params),
+                "opt_state_bytes": sum(tree_bytes(state[k])
+                                       for k in ("m", "v", "master")),
+                "peak_bytes": _peak(dev),
+                "peak_reserved_bytes": (torch.cuda.max_memory_reserved()
+                                        if dev.type == "cuda" else None)}
+            del params, state, fns, batch, m
+            _free(dev)
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_family_gaps(cfg, got, want) -> dict:
+    """Step 0 of a phase 20 (b) run (``got``: rank 0's record) against its
+    yardsticks (``want``): the loss's relative gap and each reduced grad
+    leaf's norm's gap from the one-process bf16 run's, relative to that
+    norm (an ssm layer's ``A_log``: to the size of its grad's terms), the
+    largest three named with the fp32 run's norm beside them; and the same
+    gaps of the one-process bf16 run from the fp32 one, what bf16 itself
+    resolves (mamba2's SSD runs in bf16, as the reference's does)."""
+    names = [f"{i}:{'/'.join(map(str, p))}" for i, (p, _, _) in enumerate(
+        sharding.jax_leaves(M.init_params(cfg, device="meta")))]
+    w16, w32 = want["bf16"], want["fp32"]
+
+    def scales(w):
+        out, a_log = list(w["grad_leaf_norms"]), iter(w["a_log_scale"])
+        for i, n in enumerate(names):
+            if n.endswith("/A_log"):
+                out[i] = next(a_log)
+        return out
+
+    def rel(a, b, c):
+        return abs(a - b) / max(c, 1e-30)
+
+    def leaf_gaps(a, b, c):
+        return [rel(*x) for x in zip(a["grad_leaf_norms"],
+                                     b["grad_leaf_norms"], c, strict=True)]
+    gaps = leaf_gaps(got, w16, scales(w16))
+    own = leaf_gaps(w16, w32, scales(w32))
+    worst = sorted(range(len(names)), key=lambda i: -gaps[i])[:3]
+    return {"yardstick_loss": w16["loss"],
+            "loss_rel_gap": rel(got["loss"], w16["loss"], abs(w16["loss"])),
+            "grad_leaf_norm_rel_gap_max": max(gaps),
+            "grad_leaf_norms": {names[i]: {
+                "processes": got["grad_leaf_norms"][i],
+                "bf16": w16["grad_leaf_norms"][i],
+                "fp32": w32["grad_leaf_norms"][i], "gap": gaps[i]}
+                for i in worst},
+            "bf16_vs_fp32": {
+                "loss_rel_gap": rel(w16["loss"], w32["loss"],
+                                    abs(w32["loss"])),
+                "grad_leaf_norm_rel_gap_max": max(own),
+                "worst_leaf": names[max(range(len(own)),
+                                        key=own.__getitem__)]}}
+
+
+def dist_family_runs(smoke=False, dev="cuda", seq=TRAIN_SEQ):
+    """Phase 20 (b)'s runs: each DIST_FAMILIES model's yardsticks in this
+    process (``dist_family_virtual``, fp32 and the processes' bf16), then
+    one spawn of DIST_PROCS processes trains them all in turn, each with
+    expandable allocator segments. Returns ({arch: (yardsticks, each
+    process's record)}, the spawn's seconds, this process's and the card's
+    memory before the spawn)."""
+    import torch.multiprocessing as mp
+    want = {}
+    for arch in DIST_FAMILIES:
+        cfg = dist_family_config(arch, smoke)
+        want[arch] = {"bf16": dist_family_virtual(cfg, dev, seq),
+                      "fp32": dist_family_virtual(cfg, dev, seq, fp32=True)}
+    # The yardsticks' cached segments, which their live leaves pinned at
+    # each run's own _free, go back to the card before the processes start.
+    _free(dev)
+    held = _device_memory(dev)
+    print(json.dumps({"phase 20 (b) memory before the spawn": held}),
+          file=sys.stderr, flush=True)
+    d = tempfile.mkdtemp()
+    conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
+    # The four processes share the one card and reach their peaks together:
+    # segments that grow in place keep what each reserves near its peak.
+    os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        t = time.perf_counter()
+        mp.start_processes(_dist_family_rank, args=(
+            f"file://{os.path.join(d, 'init')}", d, smoke, dev, seq),
+            nprocs=DIST_PROCS, join=True, start_method="spawn")
+        wall = time.perf_counter() - t
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DIST_PROCS)]
+    finally:
+        if conf is None:
+            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
+        else:
+            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
+        shutil.rmtree(d, ignore_errors=True)
+    return {a: (want[a], [r[a] for r in ranks]) for a in DIST_FAMILIES}, \
+        wall, held
+
+
+def _device_memory(dev):
+    """This process's allocated and reserved bytes and the card's free and
+    total bytes (``torch.cuda.mem_get_info``), or None on the CPU."""
+    if torch.device(dev).type != "cuda":
+        return None
+    free, total = torch.cuda.mem_get_info()
+    storages = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            storages[st.data_ptr()] = st.nbytes()
+    return {"allocated_bytes": torch.cuda.memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved(),
+            "live_tensor_storages": len(storages),
+            "live_tensor_bytes": sum(storages.values()),
+            "device_free_bytes": free, "device_total_bytes": total}
+
+
+def run_dist_families(smoke=False, dev="cuda", seq=TRAIN_SEQ):
+    """Phase 20 (b): ``dist_family_runs`` and its gates: step 0's loss
+    within LOSS_TOL and each reduced grad leaf's norm within GNORM_TOL of
+    the one-process bf16 run's (``dist_family_gaps``); finite losses; each
+    process's params and optimizer state the bytes of its spec blocks; no
+    kernel launch (cuBLAS and plain ops). Returns the runs' rows and their
+    launches (every process's, summed)."""
+    runs, wall, held = dist_family_runs(smoke, dev, seq)
+    rows, total, failed = {}, {k: 0 for k in COUNTERS}, []
+    for arch, (want, recs) in runs.items():
+        cfg = dist_family_config(arch, smoke)
+        fsdp = DIST_FAMILIES[arch][1]
+        log = recs[0]["log"]
+        gaps = dist_family_gaps(cfg, log[0], want)
+        n_params, param_bytes = dist_expected_params(cfg, "tp_sp", fsdp)
+        opt_bytes = dist_expected_opt_bytes(cfg, "tp_sp", fsdp)
+        launches = [r["launches"] for r in recs]
+        step_ms = [m["step_ms"] for m in log]
+        row = {
+            "n_layers": cfg.n_layers, "fsdp": fsdp,
+            "losses": [m["loss"] for m in log],
+            "grad_norms": [m["grad_norm"] for m in log],
+            "step_ms": step_ms,
+            "step_ms_after_warmup": step_ms[1:], **gaps,
+            "collectives_per_rank_per_step": log[-1]["collectives"],
+            "comm_bytes_per_rank_per_step": log[-1]["comm_bytes"],
+            "comm_s_per_step": [m["comm_seconds"] for m in log[1:]],
+            "peak_bytes_per_process": [r["peak_bytes"] for r in recs],
+            "peak_reserved_bytes_per_process": [r["peak_reserved_bytes"]
+                                                for r in recs],
+            "params_per_process_by_spec": n_params,
+            "param_bytes_per_process": [r["param_bytes"] for r in recs],
+            "param_bytes_by_spec": param_bytes,
+            "opt_state_bytes_per_process": [r["opt_state_bytes"]
+                                            for r in recs],
+            "opt_state_bytes_by_spec": opt_bytes,
+            "launches_per_process": launches}
+        why = []
+        if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
+                   for r in recs for m in r["log"]):
+            why.append("non-finite metrics")
+        if gaps["loss_rel_gap"] > LOSS_TOL or \
+                gaps["grad_leaf_norm_rel_gap_max"] > GNORM_TOL:
+            why.append("beyond the yardstick")
+        if any(b != opt_bytes for b in row["opt_state_bytes_per_process"]) \
+                or any(b != param_bytes
+                       for b in row["param_bytes_per_process"]):
+            why.append("params or optimizer state not the spec's blocks")
+        if any(any(r.values()) for r in launches):
+            why.append("kernel launches")
+        if why:
+            failed.append((arch, why, row))
+        for k in COUNTERS:
+            total[k] += sum(r.get(k, 0) for r in launches)
+        rows[arch] = row
+    if failed:
+        raise AssertionError(f"phase 20 (b): {failed}")
+    return {"runs": rows, "steps": DIST_FAMILY_STEPS, "spawn_wall_s": wall,
+            "parent_memory_before_spawn": held}, total
 
 
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
@@ -3752,6 +4105,7 @@ def swiglu_add_entry(name, spec, checks, bench_out, by_path):
 def main() -> int:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
+    t_script = time.perf_counter()
     # Phase 15 runs under use_deterministic_algorithms, which accepts cuBLAS
     # only with this variable set. cuBLAS reads it once, when the first
     # handle is made, so it is set before any phase; ":4096:8" (32 MiB) is
@@ -3840,6 +4194,7 @@ def main() -> int:
     path_launches["dist_train"] = dist_launches
     _free()
     tp_out, tp_launches = run_dist_tp()
+    tp_out["script_seconds"] = time.perf_counter() - t_script
     emit(tp_out)
     path_launches["dist_tp"] = tp_launches
 

@@ -22,11 +22,14 @@ rules, mesh)``):
 
 * zero1 and ep_dp: the rank's rows of a batch split over every axis; the
   params replicated, but ep_dp's experts, which are the rank's own;
-* tp_sp (the MoE family, with ``ep=``): the rank's sequence chunk of its
-  data group's rows; its heads, vocabulary block and experts over
-  ``model`` and, with FSDP, its block of the attention and expert matrices
-  over ``data``, placed by an ambient ``parallel.tp.TensorParallel``
-  (``seq_parallel=False``: the residual replicated over ``model``).
+* tp_sp (every family; the MoE with ``ep=``): the rank's sequence chunk
+  of its data group's rows (a vlm's patches whole, an audio encoder's
+  frames chunked); its heads, vocabulary block, experts and MLP, SSM and
+  RG-LRU channels over ``model`` and, with FSDP, its block of the layer
+  matrices over ``data``, placed by an ambient
+  ``parallel.tp.TensorParallel`` (``seq_parallel=False``: the residual
+  replicated over ``model``). ``parallel.sharding.batch_block`` cuts a
+  rank's block from a whole batch.
 
 After the backward :func:`reduce_grads` sums each grad over the ranks that
 hold other rows for its block and takes the mean over the batch's shares.
@@ -50,17 +53,6 @@ from ..parallel.tp import TensorParallel
 from .dropless import make_moe_dropless
 
 MODES = ("tp_sp", "zero1", "ep_dp")
-
-
-def tp_sp_family_error(cfg) -> Optional[str]:
-    """Why tp_sp across processes does not take ``cfg`` (``None``: it
-    does)."""
-    if cfg.family == "moe":
-        return None
-    return (f"tp_sp across processes runs the moe family; {cfg.name} is "
-            f"{cfg.family}, whose GLU or in_proj columns need a split of "
-            f"their own (ROADMAP Queue 1 · 1 (d)); train it across "
-            f"processes in zero1 or ep_dp")
 
 
 @dataclasses.dataclass
@@ -137,8 +129,6 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
                          "(launch.mesh.dist_mesh(dims)); pass mesh= too")
     tp = None
     if dist_step and rules.mode == "tp_sp":
-        if math.prod(mesh.shape.values()) > 1 and tp_sp_family_error(cfg):
-            raise ValueError(tp_sp_family_error(cfg))
         tp = TensorParallel(mesh, rules, seq=seq_parallel)
     if dist_step and dropless is not None:
         raise ValueError("the dropless path trains in one process; across "

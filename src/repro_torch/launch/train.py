@@ -38,9 +38,9 @@ of the batch and of the params by the ``--mode``'s rules
 the grads are summed over the ranks that hold other rows and averaged, and
 each rank keeps its block of the optimizer state (ZeRO-1 in zero1 and
 ep_dp); rank 0 prints and writes the checkpoint. ``--mode tp_sp`` (the
-default) splits the heads, the vocabulary, the experts and the residual's
-sequence over the model axis (``parallel.tp``); it trains the MoE family,
-and any other family raises ``ValueError`` before a process starts.
+default) splits the heads, the vocabulary, the experts, the MLP's, SSM's
+and RG-LRU's channels and the residual's sequence over the model axis
+(``parallel.tp``), for every family the launcher trains.
 ``main(fsdp=True)`` adds FSDP over ``data`` (the reference's launcher has
 no flag for it either: its default turns it on above 10 B parameters).
 ``--backend nccl``, the default on the card, puts rank r on ``cuda:r`` and
@@ -53,6 +53,9 @@ layers takes most of a card in one process, and at 2 layers four
 processes fit.
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
         --nproc 4 --mesh 2x2 --mode tp_sp --global-batch 4 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --nproc 4 --mesh 2x2 --mode tp_sp --global-batch 4 --seq 16 \
+        --steps 2 --arch recurrentgemma-2b
     PYTHONPATH=src python -m repro_torch.launch.train --nproc 4 --mesh 2x2 \
         --mode zero1 --backend gloo --n-layers 2 --seq 4096 \
         --global-batch 4 --steps 3
@@ -189,8 +192,7 @@ def main(argv=None, *, inject_fault=None, fsdp=None) -> TrainRun:
     ap.add_argument("--nproc", type=int, default=0,
                     help="train in N processes, one rank each, over "
                          "torch.distributed (--mesh of N ranks; --mode "
-                         "tp_sp for the moe family, zero1 or ep_dp); "
-                         "default: one process")
+                         "tp_sp, zero1 or ep_dp); default: one process")
     ap.add_argument("--backend", default=None, choices=["nccl", "gloo"],
                     help="with --nproc: nccl (the default on the card, "
                          "rank r on cuda:r, one card a rank) or gloo (the "
@@ -266,9 +268,6 @@ def _check_processes(ap, args, cfg, dims, dropless) -> None:
     if dims is None or math.prod(dims) != args.nproc:
         ap.error(f"--nproc {args.nproc} needs a --mesh of {args.nproc} "
                  f"ranks")
-    if (args.mode or "tp_sp") == "tp_sp" and args.nproc > 1 and (
-            St.tp_sp_family_error(cfg)):
-        raise ValueError(St.tp_sp_family_error(cfg))
     if dropless is not None:
         ap.error("--dropless trains in one process")
     if args.global_batch % args.nproc:

@@ -249,12 +249,19 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     ``p`` holds the rank's column blocks of ``wq``/``wk``/``wv`` and row
     block of ``wo``: the residual ``x`` enters as the group's whole
     sequence, the rank runs its H/M query and K/M kv heads at their global
-    positions, and its partial output leaves summed over the ranks.
+    positions, and its partial output leaves summed over the ranks. Where
+    the kv heads do not split (``K % M``), ``wk``/``wv`` arrive whole
+    (``TensorParallel.layer``), every rank computes all K kv heads, and
+    each of its query heads reads its group's.
     """
     tp = current_tensor_parallel() if cache is None else None
+    kv_sel = None
     if tp is not None:
         x = tp.enter(x)
-        n_heads, n_kv_heads = tp.heads(n_heads), tp.heads(n_kv_heads)
+        kv_sel = tp.kv_select(n_heads, n_kv_heads)
+        n_heads = tp.heads(n_heads)
+        if kv_sel is None:
+            n_kv_heads = tp.heads(n_kv_heads)
     B, S, _ = x.shape
     compute_dtype = x.dtype
 
@@ -283,6 +290,9 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
         cos, sin = rope_tables(positions, head_dim, rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+    if kv_sel is not None:
+        sel = kv_sel.to(x.device)
+        k, v = k.index_select(2, sel), v.index_select(2, sel)
 
     new_cache = None
     if cache is not None:
@@ -380,11 +390,21 @@ def glu_act(h, act: str):
 
 def mlp(p, x, act: str):
     """The dense FFN: x·w_in → GLU (or tanh-approximated GELU) → ·w_down,
-    plain ``torch.matmul`` in x's dtype."""
+    plain ``torch.matmul`` in x's dtype.
+
+    Under an ambient ``parallel.tp.TensorParallel`` ``p`` holds the rank's
+    column block of ``w_in`` and row block of ``w_down``: the residual
+    enters as the group's whole sequence, a GLU's block is exchanged into
+    the rank's gate and up blocks (``glu_pair``; GELU's lines up as it
+    is), and the partial output leaves summed over the ranks."""
+    tp = current_tensor_parallel()
+    if tp is not None:
+        x = tp.enter(x)
     dt = x.dtype
     h = x @ p["w_in"].to(dt)
     if act in ("swiglu", "geglu"):
-        h = glu_act(h, act)
+        h = glu_act(h if tp is None else tp.glu_pair(h), act)
     else:
         h = F.gelu(h, approximate="tanh")
-    return h @ p["w_down"].to(dt)
+    out = h @ p["w_down"].to(dt)
+    return out if tp is None else tp.leave(out)

@@ -267,10 +267,8 @@ def _window(cfg: ModelConfig, btype: str) -> int:
 def _attn_half(cfg: ModelConfig, p, x, cache=None, flash_decode=None,
                btype: str = "attn_moe"):
     """ln1 → attention → residual: (x, new_cache)."""
-    tp = current_tensor_parallel()
     a, new_cache = L.attention(
-        p["attn"] if tp is None else tp.layer(p["attn"], "attn"),
-        L.apply_norm(cfg.norm, x, p, "ln1"),
+        _part(p, "attn"), L.apply_norm(cfg.norm, x, p, "ln1"),
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta, causal=cfg.causal,
         sliding_window=_window(cfg, btype), block=cfg.attn_block,
@@ -286,13 +284,21 @@ def _moe_half(cfg: ModelConfig, p, x, moe_impl: Optional[Callable] = None):
     tp = current_tensor_parallel()
     if tp is None:
         return x + impl(p["moe"], h, cfg.moe)
-    moe = tp.layer(p["moe"], "moe")
+    moe = _part(p, "moe")
     return x + tp.moe(lambda r: impl(moe, r, cfg.moe), h)
+
+
+def _part(p, part: str):
+    """A layer's ``part`` params, placed by the ambient tensor
+    parallelism's ``layer`` (its FSDP and whole-leaf gathers)."""
+    tp = current_tensor_parallel()
+    return p[part] if tp is None else tp.layer(p[part], part)
 
 
 def _mlp_half(cfg: ModelConfig, p, x):
     """ln2 → MLP → residual."""
-    return x + L.mlp(p["mlp"], L.apply_norm(cfg.norm, x, p, "ln2"), cfg.act)
+    return x + L.mlp(_part(p, "mlp"), L.apply_norm(cfg.norm, x, p, "ln2"),
+                     cfg.act)
 
 
 def block_apply(cfg: ModelConfig, btype: str, p, x, cache=None,
@@ -305,11 +311,12 @@ def block_apply(cfg: ModelConfig, btype: str, p, x, cache=None,
         return _mlp_half(cfg, p, x), new_cache
     if btype == "ssm":
         y, new_cache = ssm_forward(
-            p["ssm"], L.apply_norm(cfg.norm, x, p, "ln1"), cfg.ssm, cache)
+            _part(p, "ssm"), L.apply_norm(cfg.norm, x, p, "ln1"), cfg.ssm,
+            cache)
         return x + y, new_cache
     if btype == "rglru":
         y, new_cache = rglru_block(
-            p["rglru"], L.apply_norm(cfg.norm, x, p, "ln1"), cache)
+            _part(p, "rglru"), L.apply_norm(cfg.norm, x, p, "ln1"), cache)
         return _mlp_half(cfg, p, x + y), new_cache
     raise ValueError(btype)
 
@@ -351,33 +358,65 @@ class _Lookup(torch.autograd.Function):
         return out.index_put_((tok,), acc[inv].to(ctx.dtype)), None
 
 
-def _tp_lookup(tp, table, tokens):
+def _tp_lookup(tp, table, tokens, patches=None):
     """The residual's embeddings under tensor parallelism: each rank looks
     up the group's tokens in its vocabulary block (zeros for the others'),
     summed over the ranks; a table the vocabulary does not split looks up
-    the rank's own tokens."""
+    the rank's own tokens. A vlm batch's ``patches`` [b, P, d] (every rank
+    holds its group's whole) go before the tokens over the group's whole
+    sequence, of which the rank keeps its chunk: in the ranks' sum they
+    are rank 0's addend, the others add zeros."""
     if not tp.split_vocab:
-        return _Lookup.apply(table, tokens if tp.seq else tp.tokens(tokens))
+        if patches is None:
+            return _Lookup.apply(table,
+                                 tokens if tp.seq else tp.tokens(tokens))
+        return tp.local(torch.cat(
+            [patches, _Lookup.apply(table, tp.tokens(tokens))], dim=1))
     local = tp.tokens(tokens) - tp.vocab_lo(table.shape[0])
     inside = (local >= 0) & (local < table.shape[0])
     x = _Lookup.apply(table, torch.where(inside, local, 0))
-    return tp.leave(x * inside[..., None].to(x.dtype))
+    x = x * inside[..., None].to(x.dtype)
+    if patches is not None:
+        x = torch.cat([patches if tp.rank == 0 else
+                       torch.zeros_like(patches), x], dim=1)
+    return tp.leave(x)
+
+
+def _n_patches(cfg: ModelConfig, batch) -> int:
+    """The patch-prefix length of a vlm batch (0 without patches)."""
+    if cfg.family == "vlm" and "patches" in batch:
+        return batch["patches"].shape[1]
+    return 0
 
 
 def embed_inputs(cfg: ModelConfig, params, batch):
     """The stack's input: ``features`` [B, S, feat_in] through ``feat_proj``
     (audio), else the token embeddings, with a vlm batch's ``patches``
-    [B, P, d] before them."""
+    [B, P, d] before them.
+
+    Under tensor parallelism the residual: the rank's ``features`` (its
+    frame chunk; without sequence parallelism gathered over the group's
+    sequence first), or the vocabulary-parallel lookup, with the patches
+    before the tokens and the rank's chunk of the P + S positions."""
     dt = cfg.compute_dtype
+    tp = current_tensor_parallel()
     if cfg.family == "audio":
-        x = torch.einsum("bsf,fd->bsd", batch["features"].to(dt),
-                         params["feat_proj"].to(dt))
-    elif current_tensor_parallel() is not None:
-        x = _tp_lookup(current_tensor_parallel(), params["embed"].to(dt),
-                       batch["tokens"])
+        f = batch["features"]
+        if tp is not None and not tp.seq:
+            f = tp.tokens(f)
+        x = torch.einsum("bsf,fd->bsd", f.to(dt), params["feat_proj"].to(dt))
+    elif tp is not None:
+        P = _n_patches(cfg, batch)
+        if tp.seq and P % tp.m:
+            # The rank's tokens are its chunk of S, which M divides.
+            raise ValueError(f"{P} patches and the tokens (P + S) do not "
+                             f"split over the {tp.m} ranks of the model "
+                             f"axis")
+        x = _tp_lookup(tp, params["embed"].to(dt), batch["tokens"],
+                       batch["patches"].to(dt) if P else None)
     else:
         x = _Lookup.apply(params["embed"].to(dt), batch["tokens"])
-        if cfg.family == "vlm" and "patches" in batch:
+        if _n_patches(cfg, batch):
             x = torch.cat([batch["patches"].to(dt), x], dim=1)
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype)
@@ -408,8 +447,7 @@ def _run_hybrid(cfg: ModelConfig, params, x, caches=None, moe_impl=None,
     new_sup = [[] for _ in range(pat)]
     for g in range(n_super):
         if remat:
-            x = checkpoint(lambda h, g=g: super_block(h, g)[0], x,
-                           use_reentrant=False)
+            x = _remat(lambda h, g=g: super_block(h, g)[0], x)
             continue
         cs = (None if caches is None
               else [caches["super"][pos][g] for pos in range(pat)])
@@ -495,12 +533,16 @@ def forward(cfg: ModelConfig, params, batch, moe_impl=None):
 
 def final_hidden(cfg: ModelConfig, params, batch, moe_impl=None):
     """Forward to the final (pre-unembedding) hidden states; a vlm batch's
-    patch region is cut off."""
+    patch region is cut off. Under tensor parallelism the residual's
+    layout, but for a batch with patches: its token region over the
+    group's whole sequence (the patches cut off after ``enter``)."""
     x = embed_inputs(cfg, params, batch)
     x, _ = _run_stack(cfg, params, x, None, moe_impl)
     x = L.apply_norm(cfg.norm, x, params, "ln_f")
-    if cfg.family == "vlm" and "patches" in batch:
-        x = x[:, batch["patches"].shape[1]:]
+    P = _n_patches(cfg, batch)
+    if P:
+        tp = current_tensor_parallel()
+        x = (x if tp is None else tp.enter(x))[:, P:]
     return x
 
 
@@ -584,16 +626,20 @@ def loss_fn(cfg: ModelConfig, params, batch, moe_impl=None,
     labels = batch["labels"]
     unembed = _unembedding(cfg, params)
     tp = current_tensor_parallel()
+    # Under tensor parallelism a batch with patches comes back whole over
+    # the group's sequence (``final_hidden``), the others as the residual.
+    whole = bool(_n_patches(cfg, batch))
     if tp is None:
         nll, cnt = _chunked_ce(cfg, x, labels, unembed, ce_chunk,
                                partial(_ce_chunk, cfg))
     elif tp.split_vocab:
-        nll, cnt = _chunked_ce(cfg, tp.enter(x), tp.tokens(labels), unembed,
-                               ce_chunk, partial(_ce_chunk_vocab, cfg, tp))
+        nll, cnt = _chunked_ce(cfg, x if whole else tp.enter(x),
+                               tp.tokens(labels), unembed, ce_chunk,
+                               partial(_ce_chunk_vocab, cfg, tp))
     else:
         nll, cnt = tp.vocab_sum(torch.stack(_chunked_ce(
-            cfg, tp.own_chunk(x), labels, unembed, ce_chunk,
-            partial(_ce_chunk, cfg))))
+            cfg, tp.seq_chunk(x) if whole else tp.own_chunk(x), labels,
+            unembed, ce_chunk, partial(_ce_chunk, cfg))))
     return nll / torch.clamp(cnt, min=1.0)
 
 

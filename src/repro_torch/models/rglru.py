@@ -13,6 +13,12 @@ whole-tensor ops), where the reference calls ``jax.lax.associative_scan``;
 a one-token decode step is the single update. The gates read x in fp32,
 and their weights and Λ are kept in fp32 for serving, as the reference
 reads them.
+
+Under an ambient ``parallel.tp.TensorParallel`` (training) a rank holds
+its block of the w channels (``in_x``/``in_y`` columns, the conv, the gate
+columns and biases, Λ, ``out`` rows): the conv and the scan run on its
+channels, and the gates, which read every channel of the conv'd branch,
+read it all-gathered over ``model``.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.ctx import current_tensor_parallel
 from .layers import randn
 
 C_RGLRU = 8.0
@@ -52,11 +59,14 @@ def init_rglru(gen: torch.Generator, d_model: int, lru_width: int,
     }
 
 
-def _gates(x, p):
-    """(a, gated input) of the recurrence, fp32 [B, L, W]."""
+def _gates(x, p, whole=None):
+    """(a, gated input) of the recurrence, fp32 [B, L, W]; ``whole``: the
+    branch's every channel, which the gates read where ``x`` is a block of
+    them (their weights the block's columns)."""
     xf = x.float()
-    r = torch.sigmoid(xf @ p["gate_a"].float() + p["gate_a_b"])
-    i = torch.sigmoid(xf @ p["gate_x"].float() + p["gate_x_b"])
+    src = xf if whole is None else whole.float()
+    r = torch.sigmoid(src @ p["gate_a"].float() + p["gate_a_b"])
+    i = torch.sigmoid(src @ p["gate_x"].float() + p["gate_x_b"])
     log_a = -C_RGLRU * F.softplus(p["lam"])[None, None, :] * r
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
@@ -77,9 +87,9 @@ def linear_scan(a, b):
     return a, b
 
 
-def _rglru_core(x, p, h0=None):
+def _rglru_core(x, p, h0=None, whole=None):
     """x: [B, L, W] → (h [B, L, W] in x's dtype, h_last [B, W] fp32)."""
-    a, gated = _gates(x, p)
+    a, gated = _gates(x, p, whole)
     if x.shape[1] == 1 and h0 is not None:
         h = a[:, 0] * h0 + gated[:, 0]
         return h[:, None].to(x.dtype), h
@@ -94,6 +104,9 @@ def rglru_block(p, x, state=None, conv_width: int = 4):
     """The Griffin recurrent block. x: [B, L, d] → (y, new_state);
     ``state`` = dict(conv [B, W-1, w], h [B, w] fp32) for serving."""
     from .ssm import _causal_conv
+    tp = current_tensor_parallel() if state is None else None
+    if tp is not None:
+        x = tp.enter(x)
     dt = x.dtype
     branch = x @ p["in_x"].to(dt)
     gate = F.gelu(x @ p["in_y"].to(dt), approximate="tanh")
@@ -101,8 +114,11 @@ def rglru_block(p, x, state=None, conv_width: int = 4):
     branch, conv_tail = _causal_conv(branch, p["conv_w"].to(dt),
                                      p["conv_b"].to(dt), conv_state)
     h0 = state["h"] if state is not None else None
-    h, h_last = _rglru_core(branch, p, h0)
+    h, h_last = _rglru_core(branch, p, h0,
+                            None if tp is None else tp.gather_cols(branch))
     y = (h * gate) @ p["out"].to(dt)
+    if tp is not None:
+        return tp.leave(y), None
     new_state = ({"conv": conv_tail, "h": h_last}
                  if state is not None else None)
     return y, new_state

@@ -14,6 +14,16 @@ Decode keeps the recurrent state S ∈ [B, H, N, P]:
 As in the reference, a prompt's length L must be a multiple of
 ``min(chunk, L)``: a longer prompt that is not a multiple of the chunk
 raises ``ValueError`` (the reference asserts; nothing is padded).
+
+Under an ambient ``parallel.tp.TensorParallel`` (training) a rank runs
+H/M heads. Its contiguous ``in_proj`` block cuts across z ‖ x ‖ B ‖ C ‖ dt,
+so the projection's columns are all-gathered over ``model`` and the rank
+takes z, x and dt of its heads and all of B and C (one group, which every
+head reads); the conv weights arrive whole (``TensorParallel.layer``) and
+the rank takes its channels; ``A_log``, ``D`` and ``dt_bias`` are sliced
+to its heads. The gated RMSNorm's mean of squares over all of ``d_in`` is
+the ranks' sums of squares summed over ``model``; ``out_proj``'s row block
+gives the rank's partial output.
 """
 
 from __future__ import annotations
@@ -23,6 +33,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from ..parallel.ctx import current_tensor_parallel
 from .layers import randn
 
 
@@ -148,6 +159,9 @@ def ssm_forward(p, x, sc: SSMConfig, state=None):
     a prompt (L > 1) fills it, a one-token step updates it. Without a state
     no state is returned.
     """
+    tp = current_tensor_parallel() if state is None else None
+    if tp is not None:
+        x = tp.enter(x)
     Bsz, L, d_model = x.shape
     H = sc.n_heads(d_model)
     P, N = sc.head_dim, sc.d_state
@@ -155,18 +169,34 @@ def ssm_forward(p, x, sc: SSMConfig, state=None):
     dt_f = x.dtype
 
     zxbcdt = x @ p["in_proj"].to(dt_f)
+    if tp is not None and tp.splits("ssm", "in_proj"):
+        zxbcdt = tp.gather_cols(zxbcdt)
     z, xs, B_, C_, dt = torch.split(zxbcdt, [d_in, d_in, N, N, H], dim=-1)
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    dt_bias, A_log, D = p["dt_bias"], p["A_log"], p["D"]
+    if tp is not None:
+        # The rank's heads: their channels of z and x, their dt.
+        lo, hi = tp.channels(d_in)
+        h_lo, h_hi = tp.channels(H)
+        z, xs, dt = z[..., lo:hi], xs[..., lo:hi], dt[..., h_lo:h_hi]
+        cols = torch.cat([torch.arange(lo, hi),
+                          torch.arange(d_in, d_in + 2 * N)]).to(x.device)
+        conv_w, conv_b = conv_w[:, cols], conv_b[cols]
+        dt_bias, A_log, D = (t[h_lo:h_hi] for t in (dt_bias, A_log, D))
+        H, d_loc = h_hi - h_lo, hi - lo
+    else:
+        d_loc = d_in
 
     conv_in = torch.cat([xs, B_, C_], dim=-1)
     conv_state = state["conv"] if state is not None else None
-    conv_out, conv_tail = _causal_conv(conv_in, p["conv_w"].to(dt_f),
-                                       p["conv_b"].to(dt_f), conv_state)
+    conv_out, conv_tail = _causal_conv(conv_in, conv_w.to(dt_f),
+                                       conv_b.to(dt_f), conv_state)
     conv_out = F.silu(conv_out)
-    xs, B_, C_ = torch.split(conv_out, [d_in, N, N], dim=-1)
+    xs, B_, C_ = torch.split(conv_out, [d_loc, N, N], dim=-1)
 
     xh = xs.reshape(Bsz, L, H, P)
-    dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])  # [B,L,H]
-    A = -torch.exp(p["A_log"])                                 # [H] < 0
+    dt = F.softplus(dt.float() + dt_bias[None, None, :])       # [B,L,H]
+    A = -torch.exp(A_log)                                      # [H] < 0
 
     new_state = None
     if state is not None and L == 1:
@@ -176,23 +206,31 @@ def ssm_forward(p, x, sc: SSMConfig, state=None):
                            xh[:, 0])
         S = state["ssm"] * a[..., None, None].to(dt_f) + dBx
         y = torch.einsum("bn,bhnp->bhp", C_[:, 0], S)
-        y = y + xh[:, 0] * p["D"].to(dt_f)[None, :, None]
+        y = y + xh[:, 0] * D.to(dt_f)[None, :, None]
         y = y[:, None]                                         # [B,1,H,P]
         new_state = {"conv": conv_tail, "ssm": S}
     else:
         y, S_final = _ssd_chunked(xh, dt.to(dt_f), A.to(dt_f), B_, C_,
-                                  p["D"].to(dt_f), min(sc.chunk, L))
+                                  D.to(dt_f), min(sc.chunk, L))
         if state is not None:
             # Prefill: hand the final recurrent and conv state to decode.
             new_state = {"conv": conv_tail, "ssm": S_final}
 
-    y = y.reshape(Bsz, L, d_in)
+    y = y.reshape(Bsz, L, d_loc)
     # Gated RMSNorm (Mamba2's norm before the out-projection).
     y = y * F.silu(z)
-    var = torch.mean(torch.square(y.float()), dim=-1, keepdim=True)
+    norm_w = p["norm_w"]
+    if tp is None:
+        var = torch.mean(torch.square(y.float()), dim=-1, keepdim=True)
+    else:
+        var = tp.psum(torch.sum(torch.square(y.float()), dim=-1,
+                                keepdim=True)) / d_in
+        if not tp.splits("ssm", "norm_w"):
+            norm_w = norm_w[lo:hi]
     y = (y.float() * torch.rsqrt(var + 1e-6)).to(dt_f)
-    y = y * (1.0 + p["norm_w"].to(dt_f))[None, None, :]
-    return y @ p["out_proj"].to(dt_f), new_state
+    y = y * (1.0 + norm_w.to(dt_f))[None, None, :]
+    out = y @ p["out_proj"].to(dt_f)
+    return (out, new_state) if tp is None else (tp.leave(out), None)
 
 
 def ssd_reference(x, dt, A, B, C, D):

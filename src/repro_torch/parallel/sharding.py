@@ -412,6 +412,16 @@ def relative_spec(spec, within) -> tuple:
     return tuple(None if w is not None else e for e, w in zip(spec, within))
 
 
+def batch_block(rules: ShardingRules, batch: dict, mesh) -> dict:
+    """This rank's block of a whole ``batch`` dict on a process mesh: each
+    entry's block by ``rules.batch_spec`` (``tokens``/``labels`` and audio
+    ``features`` split over the sequence in tp_sp, a vlm's ``patches``
+    whole over ``model``)."""
+    specs = rules.batch_spec(batch)
+    return {k: local_block(v, specs[k], mesh, mesh.coords)
+            for k, v in batch.items()}
+
+
 def own_params(rules: ShardingRules, params, mesh):
     """This rank's params of the whole tree ``params`` on a process mesh:
     each leaf split by its param spec (ep_dp's experts; in tp_sp the

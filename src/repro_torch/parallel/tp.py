@@ -5,11 +5,15 @@ of the reference's tp_sp mode (``repro.launch.steps.make_steps(mode=
 them).
 
 A :class:`TensorParallel` holds a process mesh's model group, over which the
-heads, the vocabulary, the experts and, with sequence parallelism, the
-residual's sequence are split, and with FSDP its data column, over which
-the attention and expert matrices' ``d`` is split. ``launch.steps`` sets it
+heads, the vocabulary, the experts, the MLP's and the recurrent blocks'
+channels and, with sequence parallelism, the residual's sequence are
+split, and with FSDP its data column, over which the layer matrices' ``d``
+is split. Each rank keeps exactly the blocks of the reference's specs:
+where a block does not line up with the computation, activations or small
+weights move over ``model``, never a large weight. ``launch.steps`` sets it
 around a train step (``parallel.ctx.tensor_parallel_context``), and the
-model reads it (``models.model``, ``models.layers.attention``):
+model reads it (``models.model``, ``models.layers``, ``models.ssm``,
+``models.rglru``):
 
 * the residual between blocks is this rank's sequence chunk of its data
   group's rows, ``[B/D, S/M, d]`` (``seq``: Megatron's sequence
@@ -17,51 +21,72 @@ model reads it (``models.model``, ``models.layers.attention``):
   ``model``;
 * ``enter(x)``: a block's input as the group's whole sequence (an
   all-gather over ``model``, whose transpose is a reduce-scatter);
-  ``leave(y)``: a block's partial sums (the row-parallel ``wo``, the
+  ``leave(y)``: a block's partial sums (a row-parallel output, the
   embedding's vocabulary blocks) back to the residual, reduce-scattered
   over the sequence or, without ``seq``, all-reduced;
-* ``heads(n)``: a rank's heads, a contiguous block, so GQA's grouping holds;
+* ``heads(n)``: a rank's heads, a contiguous block, so GQA's grouping
+  holds; ``kv_select``: where the kv heads do not split (``n_kv_heads %
+  M``, gemma's one), the kv head of each of the rank's query heads, every
+  rank computing all of them from ``wk``/``wv`` gathered whole;
+* ``glu_pair(h)``: the GLU's ``x @ w_in`` block (``w_in`` is gate ‖ up,
+  split contiguously, so at M = 2 rank 0 holds every gate column) as the
+  rank's gate block and up block, by one all-to-all (M = 2) or an
+  all-gather and a slice;
+* ``gather_cols(y)``: a projection's or a branch's channel blocks whole
+  (the SSM's ``in_proj``, whose block cuts across z ‖ x ‖ B ‖ C ‖ dt; the
+  RG-LRU's conv'd branch, which its gates read whole); ``psum(x)``: a
+  statistic each rank reads for its own channels, summed over the ranks
+  (the SSM's gated RMSNorm);
 * ``moe(fn, h)``: the EP program (``parallel.ep``, mode tp_sp) on the
   rank's rows; without ``seq`` on the rank's chunk of the replicated
   residual, the outputs all-gathered;
 * ``layer(p, part)``: a layer's FSDP leaves all-gathered over ``data``
-  (their grads reduce-scattered), called inside the function remat
-  checkpoints, so the recompute gathers again and one layer's whole
-  weights are live at a time;
-* ``tokens(t)``: a batch's tokens or labels over the group's whole
+  (their grads reduce-scattered) and the small leaves the rank reads whole
+  all-gathered over ``model`` (the shared kv heads' ``wk``/``wv``, the
+  SSM's conv), called inside the function remat checkpoints, so the
+  recompute gathers again and one layer's whole weights are live at a
+  time;
+* ``tokens(t)``: a batch's tokens, labels or frames over the group's whole
   sequence; ``vocab_max``/``vocab_sum``: the cross entropy's statistics
   over the vocabulary blocks.
 
 A tensor replicated over ``model`` carries a partial share of its
-cotangent on each rank (``parallel.comm``): each rank's heads, vocabulary
-block or sequence chunk adds its part, and the transposes of the
-collectives sum them where a block's grad is taken. A param's grad is so
-complete on each rank for its block where the spec splits it over
+cotangent on each rank (``parallel.comm``): each rank's heads, channels,
+vocabulary block or sequence chunk adds its part, and the transposes of
+the collectives sum them where a block's grad is taken. A param's grad is
+so complete on each rank for its block where the spec splits it over
 ``model``, and a partial sum elsewhere, which ``launch.steps.reduce_grads``
 adds over the model group.
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..parallel.sharding import jax_leaves, spec_axes
 
+# The parts of a layer's params that ``TensorParallel.layer`` places.
+PARTS = ("attn", "moe", "mlp", "ssm", "rglru")
 
-def _fsdp_dims(rules) -> dict:
-    """(part, name) of each layer leaf FSDP splits -> the dim it splits
-    over ``data`` (``attn``'s projections, ``moe``'s experts)."""
-    if not rules.fsdp:
-        return {}
+
+def _layer_specs(rules) -> dict:
+    """(part, name) of each layer leaf -> its spec without the layer entry
+    (a stacked leaf's; a hybrid tail's is unstacked and has none)."""
     from ..models.model import init_params
     out = {}
     for path, shape, stacked in jax_leaves(init_params(rules.cfg,
                                                        device="meta")):
-        if not stacked:
+        if len(path) < 2 or path[-2] not in PARTS:
             continue
-        spec = rules.param_spec(path, shape)[1:]
-        for dim, entry in enumerate(spec):
-            if "data" in spec_axes((entry,)):
-                out[tuple(path[-2:])] = dim
+        spec = rules.param_spec(path, shape)
+        out[tuple(path[-2:])] = spec[1:] if stacked else spec
     return out
+
+
+def _dims(specs: dict, axis: str) -> dict:
+    """(part, name) -> the dim its spec splits over ``axis``."""
+    return {k: dim for k, spec in specs.items()
+            for dim, entry in enumerate(spec) if axis in spec_axes((entry,))}
 
 
 class TensorParallel:
@@ -77,19 +102,38 @@ class TensorParallel:
         self.comm = mesh.comm
         self.m, self.rank = self.comm.ep, self.comm.rank
         self.seq = seq
-        for what, n in (("n_heads", cfg.n_heads),
-                        ("n_kv_heads", cfg.n_kv_heads)):
+        types = set(cfg.layer_types())
+        need = {"n_heads": cfg.n_heads}
+        if types & {"attn", "local_attn", "rglru"}:
+            need["d_ff"] = cfg.d_ff          # the MLP's channels
+        if "ssm" in types:
+            need["the SSM's heads"] = cfg.ssm.n_heads(cfg.d_model)
+        if "rglru" in types:
+            need["lru_width"] = cfg.lru_width or cfg.d_model
+        for what, n in need.items():
             if n % self.m:
                 raise ValueError(
                     f"{cfg.name}: {what} = {n} does not split over the "
                     f"{self.m} ranks of the model axis (the reference "
-                    f"lets GSPMD place such heads; the port splits whole "
-                    f"heads)")
+                    f"lets GSPMD place them; the port splits whole heads "
+                    f"and channel blocks)")
         embed = rules.param_spec(("embed",), (cfg.padded_vocab,
                                               cfg.d_model))
         self.split_vocab = embed[0] == "model"
-        self.fsdp = _fsdp_dims(rules)
+        self.specs = _layer_specs(rules)
+        self.fsdp = _dims(self.specs, "data") if rules.fsdp else {}
         self.data = mesh.axes_comm(("data",)) if self.fsdp else None
+        # The leaves a rank reads whole, gathered over ``model``: the kv
+        # projections where the kv heads do not split, the SSM's conv.
+        whole = [("ssm", "conv_w"), ("ssm", "conv_b")]
+        if cfg.n_kv_heads % self.m:
+            whole += [("attn", k) for k in ("wk", "wv", "bk", "bv")]
+        model = _dims(self.specs, "model")
+        self.whole = {k: model[k] for k in whole if k in model}
+
+    def splits(self, part: str, name: str) -> bool:
+        """Whether the model axis splits the leaf ``name`` of ``part``."""
+        return "model" in spec_axes(self.specs.get((part, name), ()))
 
     # -- the residual --------------------------------------------------------
     def enter(self, x):
@@ -103,15 +147,35 @@ class TensorParallel:
             return self.comm.reduce_scatter_dim(y, 1)
         return self.comm.all_reduce_sum(y, partial_grads=True)
 
-    def own_chunk(self, x):
-        """The rank's sequence chunk of the residual ``x``."""
-        if self.seq or self.m == 1:
+    def seq_chunk(self, x):
+        """The rank's chunk of dim 1 of ``x``, which every rank holds
+        whole."""
+        if self.m == 1:
             return x
         c = x.shape[1] // self.m
         return x[:, self.rank * c:(self.rank + 1) * c]
 
+    def local(self, x):
+        """A tensor every rank holds whole over the group's sequence, as
+        the residual: with ``seq`` the rank's chunk."""
+        return self.seq_chunk(x) if self.seq else x
+
+    def own_chunk(self, x):
+        """The rank's sequence chunk of the residual ``x``."""
+        return x if self.seq else self.seq_chunk(x)
+
     def heads(self, n: int) -> int:
         return n // self.m
+
+    def kv_select(self, n_heads: int, n_kv_heads: int):
+        """``None`` where the kv heads split over the ranks, else the kv
+        head each of the rank's query heads reads (every rank holds all
+        ``n_kv_heads``)."""
+        if n_kv_heads % self.m == 0:
+            return None
+        local = self.heads(n_heads)
+        q = self.rank * local + torch.arange(local)
+        return q // (n_heads // n_kv_heads)
 
     def moe(self, fn, h):
         """``fn`` (the EP program) on the rank's rows of ``h``: without
@@ -120,19 +184,65 @@ class TensorParallel:
             return fn(h)
         return self.comm.all_gather_dim(fn(self.own_chunk(h)), 1)
 
+    # -- channel blocks ------------------------------------------------------
+    def glu_pair(self, h):
+        """``h`` [b, S, 2F/M], the rank's contiguous block of the GLU's
+        gate ‖ up columns, as its gate block r ‖ up block r (F/M each), the
+        rows of its ``w_down`` block. At M = 2 rank 0 holds both gate
+        blocks and rank 1 both up blocks: one all-to-all swaps a block each
+        way (its transpose is the inverse all-to-all). Otherwise the blocks
+        are all-gathered and the rank's two sliced out."""
+        m = self.m
+        if m == 1:
+            return h
+        f = h.shape[-1] // 2
+        if m == 2:
+            got = self.comm.all_to_all([torch.stack([h[..., :f],
+                                                     h[..., f:]])])[0]
+            return torch.cat([got[0], got[1]], dim=-1)
+        whole = self.gather_cols(h)
+        F = whole.shape[-1] // 2
+        r = self.rank
+        return torch.cat([whole[..., r * f:(r + 1) * f],
+                          whole[..., F + r * f:F + (r + 1) * f]], dim=-1)
+
+    def gather_cols(self, y):
+        """Every rank's channel block of ``y`` (its last dim), whole; the
+        transpose reduce-scatters the partial cotangents."""
+        if self.m == 1:
+            return y
+        return self.comm.all_gather_dim(y, y.dim() - 1)
+
+    def channels(self, n: int) -> tuple:
+        """[lo, hi) of the rank's block of ``n`` channels."""
+        c = n // self.m
+        return self.rank * c, (self.rank + 1) * c
+
+    def psum(self, x):
+        """The sum over the ranks of ``x``, a statistic each rank reads for
+        its own channels (each holds a partial share of its cotangent)."""
+        if self.m == 1:
+            return x
+        return self.comm.all_reduce_sum(x, partial_grads=True)
+
     # -- params --------------------------------------------------------------
     def layer(self, p: dict, part: str) -> dict:
-        """``p`` (a layer's ``attn`` or ``moe`` dict) with each leaf FSDP
-        splits gathered whole over ``data``."""
-        if not self.fsdp:
-            return p
-        return {k: (self.data.all_gather_dim(v, self.fsdp[(part, k)])
-                    if (part, k) in self.fsdp else v) for k, v in p.items()}
+        """``p`` (a layer's dict of ``part``) with each leaf FSDP splits
+        gathered whole over ``data`` and each leaf the rank reads whole
+        gathered over ``model``."""
+        out = {}
+        for k, v in p.items():
+            if (part, k) in self.fsdp:
+                v = self.data.all_gather_dim(v, self.fsdp[(part, k)])
+            if (part, k) in self.whole:
+                v = self.comm.all_gather_dim(v, self.whole[(part, k)])
+            out[k] = v
+        return out
 
     # -- tokens and the vocabulary -------------------------------------------
     def tokens(self, t):
-        """A batch's tokens or labels [b, S/M] over the group's whole
-        sequence."""
+        """A batch's tokens, labels or frames [b, S/M, ...] over the
+        group's whole sequence."""
         return self.comm.all_gather_dim(t, 1)
 
     def vocab_lo(self, block: int) -> int:

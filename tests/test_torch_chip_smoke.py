@@ -526,7 +526,9 @@ def test_dist_tp_phase_runs_on_the_cpu():
     FSDP, each within LOSS_TOL / GNORM_TOL of the one-process tp_sp run
     over virtual ranks, each process's params and optimizer state its spec
     blocks (fewer with FSDP), and the FSDP run's checkpoint restored here
-    to every rank's blocks (launches are checked on the card only)."""
+    to every rank's blocks (launches are checked on the card only); then
+    (b) the other families' runs, one spawn of 4 processes for all, each
+    held to its virtual run and its spec blocks the same way."""
     out, launches = chip_smoke.run_dist_tp(smoke=True, dev="cpu", seq=32)
     assert out["phase"] == "dist_tp"
     assert set(out["runs"]) == set(chip_smoke.DIST_TP_RUNS)
@@ -545,6 +547,23 @@ def test_dist_tp_phase_runs_on_the_cpu():
     restore = fsdp["restore"]
     assert restore["blocks_checked"] > 0 and not restore["blocks_unequal"]
     assert set(launches) == set(chip_smoke.COUNTERS)
+    fams = out["families"]["runs"]
+    assert set(fams) == set(chip_smoke.DIST_FAMILIES)
+    for arch, row in fams.items():
+        assert row["n_layers"] == chip_smoke.DIST_FAMILIES[arch][0]
+        assert row["loss_rel_gap"] <= chip_smoke.LOSS_TOL
+        assert row["grad_leaf_norm_rel_gap_max"] <= chip_smoke.GNORM_TOL
+        assert row["param_bytes_per_process"] == [
+            row["param_bytes_by_spec"]] * chip_smoke.DIST_PROCS
+        assert row["opt_state_bytes_per_process"] == [
+            row["opt_state_bytes_by_spec"]] * chip_smoke.DIST_PROCS
+        assert len(row["losses"]) == chip_smoke.DIST_FAMILY_STEPS
+        assert {"all-gather", "reduce-scatter"} <= set(
+            row["collectives_per_rank_per_step"])
+    assert "all-to-all" in fams["gemma-2b"][
+        "collectives_per_rank_per_step"]             # the GLU's pairing
+    assert "all-to-all" not in fams["hubert-xlarge"][
+        "collectives_per_rank_per_step"]             # GELU lines up
 
 
 def test_dist_expected_bytes_at_full_width():
@@ -562,6 +581,22 @@ def test_dist_expected_bytes_at_full_width():
     assert chip_smoke.dist_expected_opt_bytes(cfg, "tp_sp", True) == \
         12 * n_fs
     assert chip_smoke.dist_expected_opt_bytes(cfg, "zero1") < 12 * n_fs
+
+
+@pytest.mark.parametrize("arch,params", [
+    ("gemma-2b", 372_254_720), ("mamba2-1.3b", 77_500_032),
+    ("recurrentgemma-2b", 547_950_080), ("internvl2-26b", 764_442_624),
+    ("hubert-xlarge", 20_974_080)])
+def test_dist_family_blocks_at_full_width(arch, params):
+    """Phase 20 (b)'s spec blocks at full width cut in depth: a process
+    holds its blocks of the cut model in tp_sp (internvl2, with FSDP, a
+    quarter of its layers and half of its two vocabulary tables) in bf16,
+    and 12 bytes of fp32 AdamW state a param."""
+    cfg = chip_smoke.dist_family_config(arch)
+    fsdp = chip_smoke.DIST_FAMILIES[arch][1]
+    n, b = chip_smoke.dist_expected_params(cfg, "tp_sp", fsdp)
+    assert n == params and b == 2 * n
+    assert chip_smoke.dist_expected_opt_bytes(cfg, "tp_sp", fsdp) == 12 * n
 
 
 def test_dist_capacity_is_the_ring_chunk_of_a_ranks_rows():

@@ -376,16 +376,18 @@ def _jax_state_like(state):
 
 def test_launcher_refuses_what_the_slice_does_not_cover(tmp_path):
     """NCCL with more ranks than cards raises (never switching to gloo),
-    and so does tp_sp across processes for a family other than moe (the
-    default mode, and named); both before any process starts."""
+    and so does the audio encoder, which trains on features the launcher
+    does not feed (in the default mode tp_sp, and named); both before any
+    process starts. Every other family trains in tp_sp across processes
+    (``tests/test_torch_tp_sp_families.py``)."""
     base = ["--smoke", "--steps", "1", "--seq", "16", "--global-batch", "4"]
     if torch.cuda.device_count() < 2:
         with pytest.raises(RuntimeError, match="one rank a card"):
             ttrain.main(base + ["--nproc", "2", "--mesh", "1x2", "--mode",
                                 "zero1", "--backend", "nccl"])
     for mode in ([], ["--mode", "tp_sp"]):
-        with pytest.raises(ValueError, match=r"ROADMAP Queue 1 · 1 \(d\)"):
-            ttrain.main(base + ["--arch", "llama3_2-3b", "--nproc", "4",
+        with pytest.raises(ValueError, match="features"):
+            ttrain.main(base + ["--arch", "hubert-xlarge", "--nproc", "4",
                                 "--mesh", "2x2", "--device", "cpu"] + mode)
     with pytest.raises(SystemExit):
         ttrain.main(base + ["--nproc", "4", "--mesh", "1x2", "--mode",
