@@ -139,9 +139,10 @@ Phases, each printing one JSON line:
    (``forced_swap_case``); the first prefill through ``OnlineMoE`` within
    LOGIT_TOL x max|logit| of the plain FFN at a capacity that drops
    nothing (``online_prefill_case``); then ``launch.serve.main`` at full
-   width and depth, 16 requests of 128-token prompts, 8 slots, 32 new
-   tokens, ``--sched auto --online-refit``, ``--slo-us`` the predicted
-   step at SLO_SLOTS busy slots and ``--max-queue`` ONLINE_QUEUE: every
+   width and depth, 16 requests of 128-token prompts, 8 slots,
+   ONLINE_MAX_NEW new tokens, ``--sched auto --online-refit``,
+   ``--slo-us`` the predicted step at SLO_SLOTS busy slots and
+   ``--max-queue`` ONLINE_QUEUE: every
    request finishes or is reported shed (the first four offers are), no
    non-finite logit, and only fp32 ``gmm`` launches (by body: small-row,
    tiled), beside phase 4's fixed-capacity numbers. Its µs are the Ascend
@@ -235,8 +236,9 @@ Phases, each printing one JSON line:
    frames and of internvl2-26b cut to VLM_TRAIN_LAYERS layers on 1 x 4,096
    tokens with its patches: finite losses and grad norms, no kernel launch
    (path ``audio_vlm_train``); (d) ``launch.dryrun`` over all 31 arch x
-   shape cells on the meta device in DRYRUN_WORKERS processes, beside (b)'s
-   hubert prefill, which keeps the card busy: 0 failures, every train and
+   shape cells on the meta device in DRYRUN_WORKERS processes, started
+   after phase 6 with phase 21 (b)'s and run while the card works on
+   phases 7-16 (``BackgroundCounts``): 0 failures, every train and
    prefill cell's FLOPs at least ``model_flops`` less the products no step
    makes (``dryrun.lookup_flops``), and each run of (b) and (c) counted at
    its own batch and depth, its share of the roofline (max(t_compute,
@@ -331,6 +333,25 @@ Phases, each printing one JSON line:
    path ``dist_tp`` of the ``kernels`` line sums the processes' launches;
    the line also has the whole script's seconds so far.
 
+21. dryrun_meshes — the dry run on the reference's production meshes
+   (``launch.dryrun``, rank 0's program on a counting process mesh, the
+   meta device, no card). (a) Phase 20's two tp_sp runs (DIST_TP_RUNS:
+   granite at DIST_LAYERS layers, DIST_BATCH x TRAIN_SEQ tokens, mesh
+   DIST_MESH) counted on ``launch.mesh.counting_mesh(DIST_MESH)``: the
+   forward's collectives by kind and the bytes a rank sends must equal
+   those phase 20's processes recorded on the card for a step; beside
+   them every transfer of the step, the backward's included. (b) PROD_CELLS
+   (every arch's train_4k in tp_sp on 16x16, granite and dbrx in zero1 and
+   ep_dp on 16x16 and 2x16x16) counted in the DRYRUN_WORKERS processes of
+   phase 17 (d)'s counts, started right after phase 6 and run while the
+   card works on phases 7-16 (``BackgroundCounts``; their host-bound times
+   share the host with it): 0 failures, and each row's FLOPs a device times
+   its chips at least ``model_flops`` less the products no step makes.
+   Printed: each row's argument and temporary GB a device, its terms,
+   collectives and bytes a device, its seconds, the pool's wall seconds
+   and the seconds the phase waited for it; the line also has the whole
+   script's seconds so far.
+
 Then the ``kernels`` line, the ``nvidia-smi`` line and the closing
 ``{"ok": true, ...}`` line. Any failure raises and exits non-zero; without a
 CUDA device nothing is printed to stdout.
@@ -393,8 +414,8 @@ from repro_torch.launch import hillclimb as hc_mod  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.launch import steps as steps_mod  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
-from repro_torch.launch.mesh import (dist_mesh, make_mesh,  # noqa: E402
-                                     make_test_mesh)
+from repro_torch.launch.mesh import (counting_mesh, dist_mesh,  # noqa
+                                     make_mesh, make_test_mesh)
 from repro_torch.models import model as M  # noqa: E402
 from repro_torch.models.moe import (bridge_dispatch, capacity,  # noqa
                                     init_moe, moe_grouped,
@@ -481,9 +502,11 @@ ELASTIC_EP, ELASTIC_DEAD = 4, (1, 3)
 # 8 requests of MAX_NEW_SWAP new tokens, the swap forced before decode step
 # SWAP_AT; the full-depth run with --slo-us at the predicted step of
 # SLO_SLOTS busy slots and --max-queue ONLINE_QUEUE, so that the first
-# REQUESTS - ONLINE_QUEUE offers are shed.
+# REQUESTS - ONLINE_QUEUE offers are shed, each served request
+# ONLINE_MAX_NEW new tokens (cut from MAX_NEW to keep the script within
+# its time: the host-bound run takes ~1.6 s a decode step).
 SWAP_LAYERS, SWAP_AT, MAX_NEW_SWAP = 2, 2, 8
-SLO_SLOTS, ONLINE_QUEUE = 6, 12
+SLO_SLOTS, ONLINE_QUEUE, ONLINE_MAX_NEW = 6, 12, 16
 # fp32 gmm calls timed at decode-tile row counts (E = 1, both GMM widths).
 DECODE_TILE_ROWS = (1, 8)
 # Expert parallelism (phase 14): EP virtual ranks on mesh 1 x EP, the
@@ -533,15 +556,18 @@ AV_LAYERS, VLM_STEPS, AUDIO_FRAMES, AUDIO_TOL = 2, 4, 512, 1e-4
 # 1. (c) training, bf16 with fp32 AdamW, FAMILY_TRAIN_STEPS steps of
 # 1 x TRAIN_SEQ: hubert at full depth, internvl2 cut from 48 layers to
 # VLM_TRAIN_LAYERS (its 19.86 B parameters take 12 bytes each of AdamW
-# state). Each timed step call is repeated AV_REPEATS times after a warm-up.
-PATCH_BATCH, VLM_TRAIN_LAYERS, AV_REPEATS = 8, 4, 3
+# state). Each timed step call is repeated AV_REPEATS times after a warm-up
+# (cut from 3 to keep the script within its time: hubert's prefill takes
+# ~20 s a call).
+PATCH_BATCH, VLM_TRAIN_LAYERS, AV_REPEATS = 8, 4, 1
 # (d) the dry run over every arch x shape cell on the meta device, in
-# DRYRUN_WORKERS processes (host work: it runs beside hubert's prefill,
-# which keeps the card busy for seconds a call), and at each run's own
+# DRYRUN_WORKERS processes with phase 21 (b)'s counts (host work: they run
+# beside phases 7-16, 4 of the host's 8 cores, the others left to the
+# script), and at each run's own
 # batch and depth: the share of the roofline a run reached,
 # max(t_compute, t_memory) / its measured time, may not exceed SHARE_MAX
 # (a count below the work done).
-DRYRUN_WORKERS, SHARE_MAX = 6, 1.05
+DRYRUN_WORKERS, SHARE_MAX = 4, 1.05
 # The one-card tools (phase 18). (a) The hill-climb's three cells at the
 # reference's global batches under its default variants, counted on the
 # meta device over TOOLS_MESH virtual ranks in TOOLS_WORKERS processes.
@@ -568,8 +594,9 @@ E2E_STEPS = 10
 # each, on the one card over gloo (NCCL refuses two ranks on one card),
 # mesh DIST_MESH, granite at full width cut to DIST_LAYERS layers,
 # DIST_STEPS steps of DIST_BATCH x TRAIN_SEQ tokens (train_4k's global batch
-# cut from 256 to 4: one row a rank), in each of DIST_MODES.
-DIST_PROCS, DIST_MESH, DIST_LAYERS, DIST_STEPS = 4, (2, 2), 2, 3
+# cut from 256 to 4: one row a rank; a warm-up step and one timed, cut from
+# 3 steps to keep the script within its time), in each of DIST_MODES.
+DIST_PROCS, DIST_MESH, DIST_LAYERS, DIST_STEPS = 4, (2, 2), 2, 2
 DIST_BATCH = 4
 DIST_MODES = ("zero1", "ep_dp")
 # Phase 20: phase 19's setup in mode tp_sp, without then with FSDP (the
@@ -585,6 +612,14 @@ DIST_FAMILIES = {"gemma-2b": (2, False), "mamba2-1.3b": (2, False),
                  "recurrentgemma-2b": (5, False),
                  "internvl2-26b": (2, True), "hubert-xlarge": (2, False)}
 DIST_FAMILY_STEPS = 2
+# Phase 21 (b): (arch, mode, mesh) counts of train_4k on the reference's
+# production meshes, with phase 17 (d)'s, started after phase 6 (the
+# kernels', serving's and training's headline numbers).
+PROD_MODE_ARCHS = (ARCH, "dbrx-132b")
+PROD_CELLS = ([(a, "tp_sp", "16x16") for a in dryrun_mod.DRYRUN_ARCHS]
+              + [(a, mode, mesh) for a in PROD_MODE_ARCHS
+                 for mode in ("zero1", "ep_dp")
+                 for mesh in dryrun_mod.PRODUCTION])
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -2012,7 +2047,8 @@ def run_serve_online(cfg, fixed):
         cfg, serve_mod.decode_population(mc, ep, SLOTS), SLO_SLOTS)
     argv = ["--arch", ARCH, "--requests", str(REQUESTS), "--slots",
             str(SLOTS), "--prompt-len", str(PROMPT_LEN), "--max-new",
-            str(MAX_NEW), "--sched", "auto", "--online-refit", "--slo-us",
+            str(ONLINE_MAX_NEW), "--sched", "auto", "--online-refit",
+            "--slo-us",
             repr(slo), "--max-queue", str(ONLINE_QUEUE)]
     reset_launches()
     t = time.perf_counter()
@@ -3024,12 +3060,13 @@ def _sum_launches(*outs) -> dict:
     return {k: sum(o["launches"][k] for o in outs) for k in COUNTERS}
 
 
-def run_audio_vlm():
+def run_audio_vlm(counts: BackgroundCounts):
     """Phase 17. Returns the phase's line and the launches of paths
     audio_vlm (internvl2's serving and patch prefill, hubert's prefill) and
     audio_vlm_train, gated at 0 in each case: these families run no GMM
-    kernel. The dry run's processes start once the host-bound runs are
-    done, beside hubert's device-bound prefill."""
+    kernel. (d) gates ``counts``' group ``audio_vlm`` (``dryrun_grid``,
+    then ``run_cells``' runs), counted while the card worked on the phases
+    before."""
     t = time.perf_counter()
     _free()
     consistency = [vlm_consistency_case()]
@@ -3042,17 +3079,12 @@ def run_audio_vlm():
     training = [av_train_case(AUDIO),
                 av_train_case(VLM, cfg=runs["vlm_train"][0])]
     _free()
-    grid = dryrun_grid()
-    with ThreadPoolExecutor(1) as ex:
-        t_dry = time.perf_counter()
-        fut = ex.submit(dryrun_mod.count_all, grid + list(runs.values()),
-                        DRYRUN_WORKERS)
-        audio_prefill = prefill_step_case(AUDIO)
-        results = fut.result()
-        dry_s = time.perf_counter() - t_dry
+    audio_prefill = prefill_step_case(AUDIO)
     _free()
-    dry = dryrun_check(grid, runs, results, run_measurements(
+    results, dry_s, waited = counts.result("audio_vlm")
+    dry = dryrun_check(dryrun_grid(), runs, results, run_measurements(
         serving, patch_prefill, audio_prefill, training), dry_s)
+    dry["waited_s"] = waited
     return ({"phase": "audio_vlm", "consistency": consistency,
              "serving": serving, "prefill_steps": [patch_prefill,
                                                    audio_prefill],
@@ -4082,6 +4114,114 @@ def run_dist_families(smoke=False, dev="cuda", seq=TRAIN_SEQ):
             "parent_memory_before_spawn": held}, total
 
 
+def dist_count_case(pcfg, fsdp, seq=TRAIN_SEQ):
+    """Phase 21 (a): phase 20's tp_sp step of ``pcfg`` (``fsdp``) counted
+    on rank 0 of a counting mesh of DIST_MESH, with the launcher's EP
+    (``launch.train``): the ``Roofline`` of the count."""
+    sp = ShapeSpec("train_4k", seq, DIST_BATCH, "train")
+    return dryrun_mod.count_cell(
+        pcfg, sp, counting_mesh(DIST_MESH), mode="tp_sp", fsdp=fsdp,
+        ep=EPConfig(mode="hyperparallel", capacity_factor=EP_CF))[0]
+
+
+def prod_check(results) -> tuple:
+    """Phase 21 (b)'s rows of ``dryrun.count_job``'s ``results``, and the
+    failures and the rows below the FLOPs floor."""
+    rows, failures, low = [], [], []
+    for row, fail in results:
+        if fail is not None:
+            failures.append(fail)
+            continue
+        rows.append(dict({k: row[k] for k in (
+            "arch", "mesh", "mode", "chips", "flops_per_dev", "flops_floor",
+            "bytes_per_dev", "t_compute_s", "t_memory_s", "t_collective_s",
+            "bottleneck", "hbm_args_gb", "hbm_temp_gb", "collectives",
+            "collective_bytes_per_dev", "count_s")},
+            device_gb=row["hbm_args_gb"] + row["hbm_temp_gb"]))
+        if row["flops_per_dev"] * row["chips"] < row["flops_floor"]:
+            low.append((row["arch"], row["mesh"], row["mode"]))
+    return rows, failures, low
+
+
+class BackgroundCounts:
+    """``dryrun.count_job`` cells of named groups (``{name: cells}``) in
+    ``workers`` spawned processes, started on a thread of their own when
+    made, so that they run while the card works on the phases in between;
+    ``result(name)`` waits for them."""
+
+    def __init__(self, groups: dict, workers=DRYRUN_WORKERS):
+        self.groups = {k: list(v) for k, v in groups.items()}
+        self.workers = workers
+        self._pool = ThreadPoolExecutor(1)
+        self.t0 = time.perf_counter()
+        self._fut = self._pool.submit(self._count)
+
+    def _count(self):
+        todo = [c for cells in self.groups.values() for c in cells]
+        results = iter(dryrun_mod.count_all(todo, self.workers,
+                                            dryrun_mod.count_job))
+        out = {k: [next(results) for _ in cells]
+               for k, cells in self.groups.items()}
+        return out, time.perf_counter() - self.t0
+
+    def result(self, name):
+        """(the results of group ``name``, the pool's wall seconds, the
+        seconds waited here)."""
+        t = time.perf_counter()
+        results, wall = self._fut.result()
+        self._pool.shutdown()
+        return results[name], wall, time.perf_counter() - t
+
+
+def prod_cells(smoke=False, cells=None, shape="train_4k") -> list:
+    """Phase 21 (b)'s ``count_job`` cells: ``cells`` ((arch, mode, mesh);
+    default PROD_CELLS, smoke configs with ``smoke``) of ``shape``."""
+    base = get_smoke_config if smoke else get_config
+    return [(base(a), shape, mesh, mode, "hyperparallel")
+            for a, mode, mesh in (cells or PROD_CELLS)]
+
+
+def run_prod_dryrun(tp_runs, counts: BackgroundCounts, *, smoke=False,
+                    seq=TRAIN_SEQ):
+    """Phase 21: (a) each of phase 20's tp_sp runs (``tp_runs``, its
+    ``runs`` by name) counted and held to its recorded collectives and
+    bytes, (b) ``counts``' group ``prod`` (``prod_cells``) gated.
+    Returns the phase's line; raises unless every gate holds."""
+    t_phase = time.perf_counter()
+    pcfg = dist_config(smoke)
+    counted = {}
+    for name, fsdp in DIST_TP_RUNS.items():
+        run = tp_runs[name]
+        rf = dist_count_case(pcfg, fsdp, seq)
+        fwd = rf.coll_forward
+        counted[name] = {
+            "fsdp": fsdp, "forward_collectives": fwd["counts"],
+            "forward_bytes": fwd["bytes"],
+            "processes_collectives": run["collectives_per_rank_per_step"],
+            "processes_bytes": run["comm_bytes_per_rank_per_step"],
+            "all_transfers": rf.coll_counts,
+            "all_transfer_bytes": rf.collective_bytes,
+            "flops_per_dev": rf.flops_per_device,
+            "hbm_args_gb": rf.arg_bytes / 2**30,
+            "hbm_temp_gb": rf.temp_bytes / 2**30}
+        if (fwd["counts"] != run["collectives_per_rank_per_step"]
+                or fwd["bytes"] != run["comm_bytes_per_rank_per_step"]):
+            raise AssertionError(f"phase 21 (a) {name}: the counted step "
+                                 f"is not the processes' one: "
+                                 f"{counted[name]}")
+    results, wall, waited = counts.result("prod")
+    rows, failures, low = prod_check(results)
+    out = {"phase": "dryrun_meshes", "counted_dist_tp": counted,
+           "rows": rows, "failures": failures, "flops_below_floor": low,
+           "workers": counts.workers, "wall_s": wall, "waited_s": waited,
+           "cell_count_s_sum": sum(r["count_s"] for r in rows),
+           "seconds": time.perf_counter() - t_phase}
+    if failures or low:
+        raise AssertionError(f"phase 21 (b) failed its gates: "
+                             f"{json.dumps({'failures': failures, 'low': low})}")
+    return out
+
+
 def swiglu_add_entry(name, spec, checks, bench_out, by_path):
     """The ``kernels`` line's entry of a swiglu_add mode: timed at the
     paper's largest size in bf16 (M = 32768), with every size beside it."""
@@ -4147,6 +4287,11 @@ def main() -> int:
     emit(run_train_parity(cfg))
     train_out, train_launches = run_train(cfg, rows)
     emit(train_out)
+    # Phase 17 (d)'s and phase 21 (b)'s counts are host work alone: they
+    # run in DRYRUN_WORKERS processes while the card works on phases 7-16.
+    counts = BackgroundCounts({
+        "audio_vlm": dryrun_grid() + list(run_cells().values()),
+        "prod": prod_cells()})
 
     tile_rows, tiled = run_dropless_tiles(cfg)
     bits_rows = row_count_bits(cfg)
@@ -4182,7 +4327,7 @@ def main() -> int:
     families_out, families_launches = run_families()
     emit(families_out)
     path_launches.update(families_launches)
-    av_out, av_launches = run_audio_vlm()
+    av_out, av_launches = run_audio_vlm(counts)
     emit(av_out)
     path_launches.update(av_launches)
     tools_out, tools_launches = run_tools()
@@ -4197,6 +4342,9 @@ def main() -> int:
     tp_out["script_seconds"] = time.perf_counter() - t_script
     emit(tp_out)
     path_launches["dist_tp"] = tp_launches
+    prod_out = run_prod_dryrun(tp_out["runs"], counts)
+    prod_out["script_seconds"] = time.perf_counter() - t_script
+    emit(prod_out)
 
     kernels = []
     timing = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

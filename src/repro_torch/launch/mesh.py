@@ -13,10 +13,14 @@ A :class:`Mesh` names its axes (``("data", "model")`` or ``("pod", "data",
   batch and of each param by the mode's rules (``parallel.sharding``). It
   has a :class:`~repro_torch.parallel.comm.DistComm` for every set of axes
   (``axes_comm``): the model row (``comm``), the data column, the world.
-  One model group of M processes is ``dist_mesh((1, M))``.
-
-The reference's ``make_production_mesh`` (16 x 16 or 2 x 16 x 16 chips)
-needs a cluster and is not ported.
+  One model group of M processes is ``dist_mesh((1, M))``;
+* ``counting_mesh(dims, rank)``: the process mesh of one rank, ``rank``,
+  without processes: a :class:`~repro_torch.parallel.comm.CountingComm`
+  for every set of axes, whose transfers move nothing and count
+  themselves. The dry run runs that rank's program of a step on it, on the
+  meta device (``launch/dryrun.py``). ``make_production_mesh`` is the
+  reference's 16 x 16 (256 chips) or 2 x 16 x 16 (512 chips) as such a
+  mesh.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import itertools
 import math
 from typing import Optional
 
-from ..parallel.comm import CommStats, DistComm, VirtualComm
+from ..parallel.comm import (CommStats, CountingComm, DistComm,
+                              VirtualComm)
 from ..parallel.sharding import dp_axes, rank_coords
 
 
@@ -111,23 +116,60 @@ def dist_mesh(dims) -> Mesh:
     stats = CommStats()
     everyone = [rank_coords(shape, r) for r in range(world)]
     comms = {}
-    for n in range(1, len(names) + 1):
-        for axes in itertools.combinations(names, n):
-            # The ranks that share this process's coords off ``axes``; every
-            # process makes every class's group, as new_group requires.
-            classes = {}
-            for r, c in enumerate(everyone):
-                classes.setdefault(tuple(c[a] for a in names
-                                         if a not in axes), []).append(r)
-            mine = None
-            for ranks in classes.values():
-                g = (None if len(ranks) == world
-                     else dist.new_group(ranks))
-                if rank in ranks:
-                    mine = g
-            comms[frozenset(axes)] = DistComm(mine, stats=stats)
+    for axes in _axis_sets(names):
+        # The ranks that share this process's coords off ``axes``; every
+        # process makes every class's group, as new_group requires.
+        classes = {}
+        for r, c in enumerate(everyone):
+            classes.setdefault(tuple(c[a] for a in names
+                                     if a not in axes), []).append(r)
+        mine = None
+        for ranks in classes.values():
+            g = (None if len(ranks) == world
+                 else dist.new_group(ranks))
+            if rank in ranks:
+                mine = g
+        comms[frozenset(axes)] = DistComm(mine, stats=stats)
     return Mesh(shape, comms[frozenset(("model",))], coords=coords,
                 comms=comms)
+
+
+def _axis_sets(names):
+    """Every non-empty set of ``names``, as ``dist_mesh`` makes a comm
+    for each."""
+    for n in range(1, len(names) + 1):
+        yield from itertools.combinations(names, n)
+
+
+def counting_mesh(dims, rank: int = 0) -> Mesh:
+    """The process mesh of ``dims`` as global rank ``rank`` sees it, with
+    no processes: its ``coords`` as ``dist_mesh`` places it, and a
+    ``CountingComm`` (one shared ``CommStats``) for every set of axes,
+    whose rank is this process's place among the ranks that share its
+    coords off those axes, in global rank order."""
+    dims = _checked(tuple(int(n) for n in dims), dims)
+    names = ("pod", "data", "model") if len(dims) == 3 else ("data", "model")
+    shape = dict(zip(names, dims))
+    if not 0 <= rank < math.prod(dims):
+        raise ValueError(f"rank {rank} of a mesh of {math.prod(dims)}")
+    coords = rank_coords(shape, rank)
+    stats = CommStats()
+    comms = {}
+    for axes in _axis_sets(names):
+        size, place = 1, 0
+        for a in names:
+            if a in axes:
+                size, place = size * shape[a], place * shape[a] + coords[a]
+        comms[frozenset(axes)] = CountingComm(size, place, stats=stats)
+    return Mesh(shape, comms[frozenset(("model",))], coords=coords,
+                comms=comms)
+
+
+def make_production_mesh(*, multi_pod: bool = False, rank: int = 0) -> Mesh:
+    """The reference's production mesh, 16 x 16 (``data``, ``model``: 256
+    chips) or with ``multi_pod`` 2 x 16 x 16 (``pod``, ``data``,
+    ``model``: 512 chips), as a counting mesh of rank ``rank``."""
+    return counting_mesh((2, 16, 16) if multi_pod else (16, 16), rank)
 
 
 def model_axis_size(mesh) -> int:

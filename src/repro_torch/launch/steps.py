@@ -20,8 +20,12 @@ the train step takes this rank's block of the batch and of the params
 blocks, ZeRO-1's in zero1 and ep_dp (``adamw.init_opt_state(params,
 rules, mesh)``):
 
-* zero1 and ep_dp: the rank's rows of a batch split over every axis; the
-  params replicated, but ep_dp's experts, which are the rank's own;
+* zero1 and ep_dp: the rank's rows of a batch split over every axis its
+  spec names; the params replicated, but ep_dp's experts, which are the
+  rank's own. Where the spec leaves ``model`` out (``global_batch`` too
+  small for every rank: 256 rows on 2 x 16 x 16), each rank of a model
+  group holds the group's rows, and the MoE routes the rank's sequence
+  chunk of them (``parallel.ep.make_moe_ep(rows_repeat=True)``);
 * tp_sp (every family; the MoE with ``ep=``): the rank's sequence chunk
   of its data group's rows (a vlm's patches whole, an audio encoder's
   frames chunked); its heads, vocabulary block, experts and MLP, SSM and
@@ -33,7 +37,11 @@ rules, mesh)``):
 
 After the backward :func:`reduce_grads` sums each grad over the ranks that
 hold other rows for its block and takes the mean over the batch's shares.
-The loss is the mean over the ranks.
+The loss is the mean over the ranks. Rows repeated over an axis are shares
+all the same: each copy's loss is its rows' mean, and the collectives'
+transposes are those of the sum of every rank's loss, so the sum over the
+ranks is each distinct block's grad times its copies, as many for every
+block.
 """
 
 from __future__ import annotations
@@ -86,8 +94,9 @@ def reduce_grads(grads, mesh, rules):
     hold other rows for its block: a leaf split over ``model`` got its
     group's sum from the collectives' transposes, EP's experts from the
     ring, an FSDP leaf its sum over ``data`` from the reduce-scatter), then
-    divided by the batch's shares: every rank's rows in zero1 and ep_dp,
-    every data group's in tp_sp, whose ranks share one loss."""
+    divided by the batch's shares: every rank's rows in zero1 and ep_dp
+    (rows repeated over an axis counted once a copy: see the module
+    docstring), every data group's in tp_sp, whose ranks share one loss."""
     n = math.prod(mesh.shape.values())
     shares = n // (mesh.shape["model"] if rules.mode == "tp_sp" else 1)
     for g, spec in zip(adamw.tree_leaves(grads),
@@ -103,7 +112,8 @@ def reduce_grads(grads, mesh, rules):
 def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
                     accum_steps: int = 0, moe_impl=None, mesh=None, ep=None,
                     dropless=None, grad_transform=None, rules=None,
-                    seq_parallel: bool = True):
+                    seq_parallel: bool = True,
+                    global_batch: Optional[int] = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)`` with ``loss``, ``grad_norm`` and ``lr`` in ``metrics``.
     ``batch`` holds ``tokens`` and ``labels`` (a vlm's may add
@@ -121,7 +131,9 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
     places nothing). ``grad_transform`` runs on the grads before the update
     (``adamw.apply_updates``). ``rules`` and a process ``mesh``: the step
     of this rank (see the module docstring); ``seq_parallel`` then places
-    tp_sp's residual.
+    tp_sp's residual, and ``global_batch`` (the whole batch's rows; by
+    default as many as split over every axis) decides whether zero1's and
+    ep_dp's rows repeat over ``model``.
     """
     dist_step = rules is not None and mesh is not None and mesh.local_rows
     if rules is not None and not dist_step:
@@ -137,8 +149,12 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
     if ep_moe:
         if mesh is None:
             raise ValueError("ep= needs the mesh= whose model axis it runs on")
+        repeat = (dist_step and rules.mode != "tp_sp"
+                  and global_batch is not None and "model" not in spec_axes(
+                      rules.batch_spec({"labels": (global_batch,)})
+                      ["labels"]))
         moe_impl = make_moe_ep(mesh, ep, cfg.act, mode=(
-            rules.mode if dist_step else "tp_sp"))
+            rules.mode if dist_step else "tp_sp"), rows_repeat=repeat)
     elif dist_step and rules.mode != "zero1" and cfg.family == "moe":
         raise ValueError(f"{rules.mode} holds each rank's experts: pass ep=")
     dropless_moe = None
@@ -188,14 +204,17 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
                ep: Optional[EPConfig] = None, mode: str = "tp_sp",
                dropless=None, grad_transform=None, accum_steps: int = 0,
                flash_decode: bool = True, seq_parallel: bool = True,
-               fsdp: Optional[bool] = None) -> StepFns:
+               fsdp: Optional[bool] = None,
+               global_batch: Optional[int] = None) -> StepFns:
     """The train, prefill and decode steps over ``mesh``.
 
     ``fsdp`` (default: on above ``sharding.FSDP_THRESHOLD`` parameters) and
     ``seq_parallel`` are the reference's: on a process mesh in tp_sp they
     place the attention and expert matrices' ``d`` over ``data`` and the
     residual's sequence over ``model``; a mesh of virtual ranks computes
-    the same values either way.
+    the same values either way. ``global_batch``: the rows of the whole
+    batch a process mesh's train step takes its block of
+    (``make_train_step``).
 
     EP (``ep``) is the MoE of all three; ``dropless`` replaces it in
     training only, as in the reference. An audio encoder's prefill step is
@@ -213,7 +232,7 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
         train_step = make_train_step(
             cfg, opt, accum_steps=accum_steps, mesh=mesh, ep=ep,
             dropless=dropless, grad_transform=grad_transform, rules=rules,
-            seq_parallel=seq_parallel)
+            seq_parallel=seq_parallel, global_batch=global_batch)
 
         def serving(*_args, **_kw):
             raise ValueError("serving runs in one process, as in the "

@@ -250,18 +250,20 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     block of ``wo``: the residual ``x`` enters as the group's whole
     sequence, the rank runs its H/M query and K/M kv heads at their global
     positions, and its partial output leaves summed over the ranks. Where
-    the kv heads do not split (``K % M``), ``wk``/``wv`` arrive whole
-    (``TensorParallel.layer``), every rank computes all K kv heads, and
-    each of its query heads reads its group's.
+    the heads do not split (``H % M``), ``wq``/``bq``/``wo`` arrive whole
+    (``TensorParallel.layer``) and the rank runs its ⌈H/M⌉ or ⌊H/M⌋ heads
+    (none, on a rank past the H-th: its output is zeros, its transfers the
+    others'). Where the kv heads do not split (``K % M``), ``wk``/``wv``
+    arrive whole, the rank computes the kv heads its query heads read, and
+    each of its query heads reads its group's
+    (``TensorParallel.attention_params``).
     """
     tp = current_tensor_parallel() if cache is None else None
     kv_sel = None
     if tp is not None:
         x = tp.enter(x)
-        kv_sel = tp.kv_select(n_heads, n_kv_heads)
-        n_heads = tp.heads(n_heads)
-        if kv_sel is None:
-            n_kv_heads = tp.heads(n_kv_heads)
+        p, n_heads, n_kv_heads, kv_sel = tp.attention_params(
+            p, n_heads, n_kv_heads, head_dim)
     B, S, _ = x.shape
     compute_dtype = x.dtype
 

@@ -53,13 +53,24 @@ Both count, in ``comm.stats``, the collectives of the forward program (a
 recompute's included; a backward's transfers, the transposes, are not
 counted) and the bytes one rank sends to other ranks: a block that stays
 on its rank (the all-to-all's own block, the ring's step 0) is not link
-traffic. ``DistComm`` also counts the data-parallel ``all_reduce`` and the
-ZeRO-1 ``all_gather``; its ``gather``, ``broadcast_object`` and
-``all_gather_object`` (a checkpoint's and the loop's bookkeeping) are not
-counted. On a ``gloo`` group, whose transfers end on the host, it also
+traffic. ``DistComm`` and :class:`CountingComm` also count every transfer
+they make, by kind and bytes sent, in ``stats.transfers`` and
+``stats.transfer_bytes``: the forward's, a recompute's, the backward's
+transposes and the data-parallel and ZeRO-1 ones alike, what the dry run
+prices (``launch/dryrun.py``). ``DistComm`` also counts the data-parallel
+``all_reduce`` and the ZeRO-1 ``all_gather``; its ``gather``,
+``broadcast_object`` and ``all_gather_object`` (a checkpoint's and the
+loop's bookkeeping) are not counted. On a ``gloo`` group, whose transfers end on the host, it also
 adds each transfer's host seconds to ``stats.seconds`` by kind, the
 backward's transfers included; an NCCL transfer is asynchronous, and is
 not timed.
+
+:class:`CountingComm` is a ``DistComm`` without ``torch.distributed``: one
+rank of a counting process mesh (``launch.mesh.counting_mesh``,
+``make_production_mesh``) whose transfers move nothing. Each returns a
+new tensor of the shape the real transfer gives, on the input's device
+(the meta device, where the dry run counts one rank's program), and counts
+itself as ``DistComm`` does.
 """
 
 from __future__ import annotations
@@ -85,15 +96,27 @@ class CommStats:
     bytes: int = 0
     seconds: collections.Counter = dataclasses.field(
         default_factory=collections.Counter)
+    # Every transfer of a DistComm or CountingComm, the backward's
+    # included: count and bytes sent by kind.
+    transfers: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
+    transfer_bytes: collections.Counter = dataclasses.field(
+        default_factory=collections.Counter)
 
     def add(self, kind: str, nbytes: int) -> None:
         self.counts[kind] += 1
         self.bytes += int(nbytes)
 
+    def moved(self, kind: str, nbytes: int) -> None:
+        self.transfers[kind] += 1
+        self.transfer_bytes[kind] += int(nbytes)
+
     def reset(self) -> None:
         self.counts.clear()
         self.bytes = 0
         self.seconds.clear()
+        self.transfers.clear()
+        self.transfer_bytes.clear()
 
 
 # ``reduce_scatter_single`` is the newer name of ``reduce_scatter_tensor``.
@@ -108,6 +131,16 @@ def _nbytes(t: torch.Tensor) -> int:
 def _all_reduce_bytes(t, ep: int) -> int:
     """Bytes a rank sends in a ring all-reduce of ``t``."""
     return 2 * (ep - 1) * _nbytes(t) // ep
+
+
+# Bytes a rank sends in one raw transfer of its tensor ``t`` over ``ep``
+# ranks, by kind: the all-to-all's and the reduce-scatter's ``t`` holds
+# every rank's block, the all-gather's is this rank's.
+_SENT = {"all-to-all": lambda t, ep: (ep - 1) * _nbytes(t) // ep,
+         "collective-permute": lambda t, ep: _nbytes(t),
+         "all-gather": lambda t, ep: (ep - 1) * _nbytes(t),
+         "all-reduce": _all_reduce_bytes,
+         "reduce-scatter": lambda t, ep: (ep - 1) * _nbytes(t) // ep}
 
 
 class VirtualComm:
@@ -200,8 +233,13 @@ class DistComm:
         return r if self.group is None else dist.get_global_rank(
             self.group, r)
 
-    # Raw transfers (no autograd, not counted, timed over gloo).
+    # Raw transfers (no autograd; each counted in ``stats.transfers`` and
+    # timed over gloo).
+    def _moved(self, kind: str, x) -> None:
+        self.stats.moved(kind, _SENT[kind](x, self.ep))
+
     def _a2a(self, x):
+        self._moved("all-to-all", x)
         with self._timed("all-to-all", x):
             w = self._wire(x)
             out = torch.empty_like(w)
@@ -212,6 +250,7 @@ class DistComm:
         dst, src = (self.rank + shift) % self.ep, (self.rank - shift) % self.ep
         if dst == self.rank:
             return x.contiguous().clone()
+        self._moved("collective-permute", x)
         with self._timed("collective-permute", x):
             w = self._wire(x)
             out = torch.empty_like(w)
@@ -224,6 +263,7 @@ class DistComm:
 
     def _blocks(self, x) -> list:
         """Every rank's ``x`` (equal shapes), in rank order."""
+        self._moved("all-gather", x)
         with self._timed("all-gather", x):
             w = self._wire(x)
             parts = [torch.empty_like(w) for _ in range(self.ep)]
@@ -234,6 +274,7 @@ class DistComm:
         return torch.cat(self._blocks(x), dim)
 
     def _all_reduce(self, x, op):
+        self._moved("all-reduce", x)
         with self._timed("all-reduce", x):
             w = self._wire(x)
             w = w.clone() if w is x else w
@@ -243,6 +284,7 @@ class DistComm:
     def _scatter(self, x, dim):
         """This rank's block along ``dim`` of the sum of every rank's
         ``x`` (equal shapes)."""
+        self._moved("reduce-scatter", x)
         with self._timed("reduce-scatter", x):
             w = self._wire(x.movedim(dim, 0))
             out = torch.empty((w.shape[0] // self.ep,) + tuple(w.shape[1:]),
@@ -340,6 +382,55 @@ class DistComm:
 
     def barrier(self) -> None:
         dist.barrier(group=self.group)
+
+
+def _received(x, shape=None):
+    """A counted transfer's result: a new tensor that the work counter
+    sees written (``parallel.roofline``)."""
+    return torch.zeros(x.shape if shape is None else shape, dtype=x.dtype,
+                       device=x.device)
+
+
+class CountingComm(DistComm):
+    """Rank ``rank`` of a group of ``ep`` that moves nothing: each transfer
+    counts itself and returns a new tensor of its result's shape on the
+    input's device (zeros; the meta device's hold no values). The
+    collectives, their autograd functions and their counts are
+    ``DistComm``'s; its bookkeeping (``gather``, ``barrier``, ...) is not
+    counted and needs ``torch.distributed``. ``stats``: a
+    :class:`CommStats` to share with other comms."""
+
+    def __init__(self, ep: int, rank: int = 0, *, stats=None):
+        if not 0 <= rank < ep:
+            raise ValueError(f"rank {rank} of a group of {ep}")
+        self.group, self.backend = None, "counting"
+        self.rank, self.ep = rank, ep
+        self.ranks = [rank]
+        self.stats = CommStats() if stats is None else stats
+
+    def _a2a(self, x):
+        self._moved("all-to-all", x)
+        return _received(x)
+
+    def _shift(self, x, shift: int):
+        if shift % self.ep == 0:
+            return x.contiguous().clone()
+        self._moved("collective-permute", x)
+        return _received(x)
+
+    def _blocks(self, x) -> list:
+        self._moved("all-gather", x)
+        return [_received(x) for _ in range(self.ep)]
+
+    def _all_reduce(self, x, op):
+        self._moved("all-reduce", x)
+        return _received(x)
+
+    def _scatter(self, x, dim):
+        self._moved("reduce-scatter", x)
+        shape = list(x.shape)
+        shape[dim] //= self.ep
+        return _received(x, shape)
 
 
 class _AllToAll(torch.autograd.Function):

@@ -189,7 +189,7 @@ def _split_rule(epc: EPConfig, B: int, S: int, ep: int, n_dp: int):
 
 def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
                 bucket=None, topology=None, inter_bucket=None,
-                mode: str = "tp_sp"):
+                mode: str = "tp_sp", rows_repeat: bool = False):
     """Returns ``moe_impl(params, x, mc)`` running EP over the model axis.
 
     On a mesh of virtual ranks ``params`` and ``x`` [B, S, d] are the
@@ -217,6 +217,15 @@ def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
       replicated leaves, of which the rank runs its block; their grad is
       that block's, zero elsewhere (the data-parallel reduction sums it).
 
+    ``rows_repeat`` (zero1 and ep_dp): the batch's spec leaves ``model``
+    out (too few rows for every rank), so every rank of a model group holds
+    the group's rows. The rank then routes its own sequence chunk of them,
+    as the reference's ``x_spec`` (data, model) places them in zero1, and
+    in ep_dp where ``B % (ep · data groups)``, and the results are
+    all-gathered over the sequence; the all-gather's transpose sums the
+    ranks' cotangents, as the data-parallel reduction expects of every
+    rank's rows.
+
     The router's grad is this rank's rows' alone: the data-parallel
     reduction (``launch.steps.reduce_grads``) sums it.
 
@@ -243,6 +252,9 @@ def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
     if local and (mode == "ep_dp") != epc.dp_batch:
         raise ValueError("on a process mesh ep_dp and EPConfig.dp_batch go "
                          "together")
+    if rows_repeat and not (local and mode in ("zero1", "ep_dp")):
+        raise ValueError("rows_repeat is zero1's and ep_dp's on a process "
+                         "mesh")
     if (bucket is not None or inter_bucket is not None) and plan is None:
         raise ValueError(
             "make_moe_ep(bucket=.../inter_bucket=...) quantizes a routing "
@@ -345,12 +357,16 @@ def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
                              f"{ep} ranks, not {mc.e_total}")
         run = partial(run_ranks, routers=[params["router"]], w_ins=[w_in],
                       w_downs=[w_down], mc=mc)
-        if mode != "zero1" or ep == 1:
+        if (mode != "zero1" and not rows_repeat) or ep == 1:
             return run([x])[0]
         S = x.shape[1]
         if S % ep or S == 1:
-            raise ValueError(f"zero1 splits the sequence over model: "
+            raise ValueError(f"{mode} splits the sequence over model: "
                              f"{S} tokens over {ep} ranks")
+        if rows_repeat:
+            c = S // ep
+            own = x[:, comm.rank * c:(comm.rank + 1) * c]
+            return comm.all_gather_dim(run([own])[0], 1)
         return seq_rows(run([seq_chunks(x)])[0])
 
     def moe_impl(params, x, mc: MoEConfig):

@@ -23,10 +23,13 @@ while it runs, on the meta device in ``launch/dryrun.py``:
   batch, cache) is the argument bytes.
 
 The reference parses collectives from HLO text (``parse_collectives``); the
-port has no HLO and no counterpart. An EP cell's collective bytes come from
+port has no HLO and no counterpart. A cell's collective bytes come from
 ``parallel/comm.py``'s counters (``comm.stats``): 0 on the dry run's ``1x1``
-mesh, the bytes a virtual rank sends on ``launch/hillclimb.py``'s ``1x4``,
-priced at NVLink's rate as a prediction for an NVLink box. ``t_compute``
+mesh, the bytes a virtual rank sends in the forward on
+``launch/hillclimb.py``'s ``1x4``, and on a production mesh (a counting
+process mesh) every transfer of the rank's step, the backward's and the
+optimizer's included. All are priced at NVLink's rate on every axis: a
+prediction for an NVLink box, not a multi-node link. ``t_compute``
 divides by the peak of the config's compute dtype (``core.hardware.H100``).
 """
 
@@ -191,6 +194,9 @@ class Roofline:
     model_bytes_global: float = 0.0
     dtype: str = "bfloat16"       # the compute dtype, whose peak it uses
     kernels: dict = dataclasses.field(default_factory=dict)
+    # A process mesh's forward program alone: {"counts": by kind, "bytes"}
+    # (``comm.stats.counts``/``bytes``), beside every transfer above.
+    coll_forward: dict = dataclasses.field(default_factory=dict)
 
     @property
     def t_compute(self) -> float:
@@ -233,7 +239,7 @@ class Roofline:
     def row(self) -> dict:
         return {
             "arch": self.arch, "shape": self.shape, "mesh": self.mesh,
-            "dtype": self.dtype,
+            "chips": self.chips, "dtype": self.dtype,
             "t_compute_s": self.t_compute, "t_memory_s": self.t_memory,
             "t_collective_s": self.t_collective,
             "bottleneck": self.bottleneck,
@@ -247,5 +253,7 @@ class Roofline:
             "hbm_args_gb": self.arg_bytes / 2**30,
             "hbm_temp_gb": self.temp_bytes / 2**30,
             "collectives": self.coll_counts,
+            "collective_bytes_per_dev": self.collective_bytes,
+            "collectives_forward": self.coll_forward,
             "kernels": self.kernels,
         }

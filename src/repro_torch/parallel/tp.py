@@ -24,10 +24,16 @@ model reads it (``models.model``, ``models.layers``, ``models.ssm``,
   ``leave(y)``: a block's partial sums (a row-parallel output, the
   embedding's vocabulary blocks) back to the residual, reduce-scattered
   over the sequence or, without ``seq``, all-reduced;
-* ``heads(n)``: a rank's heads, a contiguous block, so GQA's grouping
-  holds; ``kv_select``: where the kv heads do not split (``n_kv_heads %
-  M``, gemma's one), the kv head of each of the rank's query heads, every
-  rank computing all of them from ``wk``/``wv`` gathered whole;
+* ``head_range(n)``: a rank's query heads, a contiguous block, so GQA's
+  grouping holds: H / M each, or where the heads do not split (``H % M``)
+  ⌈H/M⌉ on the first H mod M ranks and ⌊H/M⌋ on the rest (rank 0 the
+  busiest; a rank may hold none). ``wq``/``bq``/``wo`` then arrive gathered
+  whole over ``model`` (their spec blocks need not hold whole heads), and
+  ``attention_params`` slices the rank's heads' columns out;
+  ``kv_select``: where the kv heads do not split (``n_kv_heads % M``,
+  gemma's one), ``wk``/``wv`` arrive whole, the rank computes the kv heads
+  its query heads read (``kv_range``), and each query head reads its
+  group's;
 * ``glu_pair(h)``: the GLU's ``x @ w_in`` block (``w_in`` is gate ‖ up,
   split contiguously, so at M = 2 rank 0 holds every gate column) as the
   rank's gate block and up block, by one all-to-all (M = 2) or an
@@ -103,7 +109,8 @@ class TensorParallel:
         self.m, self.rank = self.comm.ep, self.comm.rank
         self.seq = seq
         types = set(cfg.layer_types())
-        need = {"n_heads": cfg.n_heads}
+        # Query heads need not split (``head_range``); these channels do.
+        need = {}
         if types & {"attn", "local_attn", "rglru"}:
             need["d_ff"] = cfg.d_ff          # the MLP's channels
         if "ssm" in types:
@@ -115,17 +122,21 @@ class TensorParallel:
                 raise ValueError(
                     f"{cfg.name}: {what} = {n} does not split over the "
                     f"{self.m} ranks of the model axis (the reference "
-                    f"lets GSPMD place them; the port splits whole heads "
-                    f"and channel blocks)")
+                    f"lets GSPMD place them; the port splits channel "
+                    f"blocks)")
         embed = rules.param_spec(("embed",), (cfg.padded_vocab,
                                               cfg.d_model))
         self.split_vocab = embed[0] == "model"
         self.specs = _layer_specs(rules)
         self.fsdp = _dims(self.specs, "data") if rules.fsdp else {}
         self.data = mesh.axes_comm(("data",)) if self.fsdp else None
-        # The leaves a rank reads whole, gathered over ``model``: the kv
-        # projections where the kv heads do not split, the SSM's conv.
+        # The leaves a rank reads whole, gathered over ``model``: the query
+        # projections where the heads do not split, the kv projections
+        # where the kv heads do not, the SSM's conv.
+        self.uneven = cfg.n_heads % self.m != 0
         whole = [("ssm", "conv_w"), ("ssm", "conv_b")]
+        if self.uneven:
+            whole += [("attn", k) for k in ("wq", "bq", "wo")]
         if cfg.n_kv_heads % self.m:
             whole += [("attn", k) for k in ("wk", "wv", "bk", "bv")]
         model = _dims(self.specs, "model")
@@ -164,18 +175,57 @@ class TensorParallel:
         """The rank's sequence chunk of the residual ``x``."""
         return x if self.seq else self.seq_chunk(x)
 
-    def heads(self, n: int) -> int:
-        return n // self.m
+    def head_range(self, n: int) -> tuple:
+        """[lo, hi) of the rank's block of ``n`` heads: ⌈n/M⌉ on each of
+        the first ``n % M`` ranks, ⌊n/M⌋ on the others."""
+        q, r = divmod(n, self.m)
+        lo = self.rank * q + min(self.rank, r)
+        return lo, lo + q + int(self.rank < r)
+
+    def kv_range(self, n_heads: int, n_kv_heads: int) -> tuple:
+        """[lo, hi) of the kv heads the rank's query heads read."""
+        lo, hi = self.head_range(n_heads)
+        g = n_heads // n_kv_heads
+        return (lo // g, (hi - 1) // g + 1) if hi > lo else (lo // g,) * 2
 
     def kv_select(self, n_heads: int, n_kv_heads: int):
         """``None`` where the kv heads split over the ranks, else the kv
-        head each of the rank's query heads reads (every rank holds all
-        ``n_kv_heads``)."""
+        head each of the rank's query heads reads, counted from the first
+        of ``kv_range``."""
         if n_kv_heads % self.m == 0:
             return None
-        local = self.heads(n_heads)
-        q = self.rank * local + torch.arange(local)
-        return q // (n_heads // n_kv_heads)
+        lo, hi = self.head_range(n_heads)
+        k_lo = self.kv_range(n_heads, n_kv_heads)[0]
+        return torch.arange(lo, hi) // (n_heads // n_kv_heads) - k_lo
+
+    def attention_params(self, p: dict, n_heads: int, n_kv_heads: int,
+                         head_dim: int) -> tuple:
+        """(the rank's attention params, its query heads, its kv heads,
+        ``kv_select``'s indices or ``None``) from ``p`` as ``layer`` gives
+        it: the spec blocks, with the leaves the rank reads whole gathered.
+        Where the heads do not split, the rank's heads' columns of
+        ``wq``/``bq`` and rows of ``wo`` are sliced out; where the kv heads
+        do not, the columns of the kv heads it reads."""
+        if self.m == 1:
+            return p, n_heads, n_kv_heads, None
+        lo, hi = self.head_range(n_heads)
+        p = dict(p)
+        if self.uneven:
+            cols = slice(lo * head_dim, hi * head_dim)
+            p["wq"], p["wo"] = p["wq"][:, cols], p["wo"][cols]
+            if "bq" in p:
+                p["bq"] = p["bq"][cols]
+        sel = self.kv_select(n_heads, n_kv_heads)
+        if sel is None:
+            return p, hi - lo, n_kv_heads // self.m, None
+        k_lo, k_hi = self.kv_range(n_heads, n_kv_heads)
+        cols = slice(k_lo * head_dim, k_hi * head_dim)
+        for k in ("wk", "wv"):
+            p[k] = p[k][:, cols]
+        for k in ("bk", "bv"):
+            if k in p:
+                p[k] = p[k][cols]
+        return p, hi - lo, k_hi - k_lo, sel
 
     def moe(self, fn, h):
         """``fn`` (the EP program) on the rank's rows of ``h``: without

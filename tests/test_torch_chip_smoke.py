@@ -610,3 +610,41 @@ def test_dist_capacity_is_the_ring_chunk_of_a_ranks_rows():
         chip_smoke.DIST_PROCS)
     assert chip_smoke.dist_capacity(cfg) == _pair_capacity(
         tokens, cfg.moe, chip_smoke.DIST_MESH[-1], chip_smoke.EP_CF) == 2736
+
+
+def test_prod_dryrun_phase_runs_on_the_cpu():
+    """Phase 21 at the smoke config's widths on the CPU: (a) one tp_sp
+    launcher step of each of phase 20's runs (4 gloo processes, mesh 2x2)
+    held to its count on a counting mesh, collectives and bytes, (b) a few
+    cells counted in 2 worker processes, started before (a) and run
+    beside it as beside phases 7-16 on the card, on 2x2 and 2x2x2 meshes (the
+    smoke configs' 6 experts do not split over 16 ranks), every row's
+    FLOPs a device times its chips above the floor."""
+    from repro_torch.launch import train as ttrain
+    cells = [("llama3.2-3b", "tp_sp", "2x2"),
+             ("granite-moe-3b-a800m", "zero1", "2x2x2"),
+             ("granite-moe-3b-a800m", "ep_dp", "2x2")]
+    counts = chip_smoke.BackgroundCounts({"prod": chip_smoke.prod_cells(
+        smoke=True, cells=cells,
+        shape=chip_smoke.ShapeSpec("train_4k", 32, 8, "train"))}, workers=2)
+    runs = {}
+    for name, fsdp in chip_smoke.DIST_TP_RUNS.items():
+        run = ttrain.main(
+            ["--smoke", "--device", "cpu", "--backend", "gloo", "--nproc",
+             "4", "--mesh", "x".join(map(str, chip_smoke.DIST_MESH)),
+             "--mode", "tp_sp", "--seq", "32", "--global-batch",
+             str(chip_smoke.DIST_BATCH), "--steps", "1", "--n-layers",
+             str(chip_smoke.DIST_LAYERS)], fsdp=fsdp)
+        rec = run.metrics_log[-1]
+        runs[name] = {"collectives_per_rank_per_step": rec["collectives"],
+                      "comm_bytes_per_rank_per_step":
+                          rec["comm_bytes_per_rank"]}
+    out = chip_smoke.run_prod_dryrun(runs, counts, smoke=True, seq=32)
+    assert out["phase"] == "dryrun_meshes"
+    for name, row in out["counted_dist_tp"].items():
+        assert row["forward_collectives"] == row["processes_collectives"]
+        assert row["all_transfer_bytes"] > row["forward_bytes"] > 0
+    assert not out["failures"] and not out["flops_below_floor"]
+    assert [(r["mode"], r["mesh"], r["chips"]) for r in out["rows"]] == [
+        ("tp_sp", "2x2", 4), ("zero1", "2x2x2", 8), ("ep_dp", "2x2", 4)]
+    assert len(chip_smoke.PROD_CELLS) == 18

@@ -235,7 +235,7 @@ def test_count_cell_at_smoke_size(arch):
 def test_dryrun_main_counts_a_full_cell_on_the_cpu(tmp_path):
     out = tmp_path / "dry.json"
     rows, failures = D.main(["--arch", "olmo-1b", "--shape", "decode_32k",
-                             "--out", str(out)])
+                             "--mesh", "1x1", "--out", str(out)])
     assert not failures and len(rows) == 1
     data = json.loads(out.read_text())
     assert data["failures"] == [] and data["rows"][0]["shape"] == \
@@ -247,8 +247,8 @@ def test_dryrun_main_counts_a_full_cell_on_the_cpu(tmp_path):
 
 def test_run_all_in_worker_processes_equals_one_process():
     cells = (["olmo-1b", "qwen2-1_5b"], ["decode_32k", "long_500k"])
-    one, f1 = D.run_all(*cells)
-    two, f2 = D.run_all(*cells, workers=2)
+    one, f1 = D.run_all(*cells, mesh="1x1")
+    two, f2 = D.run_all(*cells, workers=2, mesh="1x1")
     assert not f1 and not f2 and len(one) == 2
     for a, b in zip(one, two):
         a.pop("count_s"), b.pop("count_s")

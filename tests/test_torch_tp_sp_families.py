@@ -599,7 +599,7 @@ def _expected(case, remat):
             axes = S.spec_axes(spec)
             n = math.prod(shape) * e // math.prod(
                 _shape()[a] for a in axes)
-            if fsdp and "data" in axes:
+            if fsdp and "data" in axes and Dn > 1:   # one rank: no gather
                 out += ag(n, Dn)
                 n *= Dn
             if (pt, name) in whole and "model" in axes:
@@ -612,7 +612,9 @@ def _expected(case, remat):
     def mlp():
         out = gathers("mlp") + enter()
         if cfg.act in ("swiglu", "geglu"):      # the GLU's pairing
-            out += [("all-to-all", (m - 1) * b * T * cfg.d_ff // m * e)]
+            n = b * T * cfg.d_ff // m * e       # a gate or up block
+            out += ([("all-to-all", (m - 1) * n)] if m == 2
+                    else ag(2 * n))             # M > 2: gathered, sliced
         return out + leave()
 
     def ssm():
@@ -721,9 +723,11 @@ def test_batch_block_takes_every_entrys_block():
                                        ("mamba2-1.3b", "SSM's heads"),
                                        ("gemma-2b", "d_ff")])
 def test_tensor_parallel_refuses_what_does_not_split(arch, what):
-    """Heads and channel blocks that the model axis does not split raise
-    ``ValueError`` when ``TensorParallel`` is built; a kv head count that
-    does not split is taken (gemma's one, at M = 2)."""
+    """Channel blocks that the model axis does not split raise
+    ``ValueError`` when ``TensorParallel`` is built; query heads that do
+    not split are taken, ⌈H/M⌉ on the first H mod M ranks (6 heads at
+    M = 4: 2, 2, 1, 1), as is a kv head count that does not split (gemma's
+    one, at M = 2)."""
     cfg = _cfg(arch)
     if what == "n_heads":
         cfg, m = dataclasses.replace(cfg, n_heads=6, n_kv_heads=6), 4
@@ -735,6 +739,13 @@ def test_tensor_parallel_refuses_what_does_not_split(arch, what):
                                  axis_names=("data", "model"),
                                  comm=types.SimpleNamespace(ep=m, rank=0))
     rules = S.ShardingRules(cfg, mesh, mode="tp_sp", fsdp=False)
+    if what == "n_heads":
+        spans = []
+        for r in range(m):
+            mesh.comm.rank = r
+            spans.append(TP.TensorParallel(mesh, rules).head_range(6))
+        assert spans == [(0, 2), (2, 4), (4, 5), (5, 6)]
+        return
     with pytest.raises(ValueError, match=what):
         TP.TensorParallel(mesh, rules)
     if arch == "gemma-2b":
