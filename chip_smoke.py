@@ -329,7 +329,24 @@ Phases, each printing one JSON line:
    them: the step times, collectives, bytes and ``comm_s_per_step`` a rank,
    peaks allocated and reserved (the processes' allocators grow segments
    in place), this process's and the card's memory before the spawn, and
-   the one-process bf16 run's own gap from an fp32 run. The
+   the one-process bf16 run's own gap from an fp32 run (mamba2's alone,
+   DIST_FP32_ARCHS). (c) Serving across the processes, in the same spawn
+   after the trainings (``serve_ranks``): each SERVE_LAYOUTS layout (granite
+   with EP through ``gmm_swiglu``/``gmm`` in tp_sp on DIST_BATCH rows and in
+   zero1 and ep_dp on SERVE_REPEAT_ROWS, the families in tp_sp) runs
+   ``make_steps(...).prefill_step`` of SERVE_PROMPT tokens a row
+   (recurrentgemma 2,048, so that its decode wraps the ring) into each
+   rank's ``cache_spec`` blocks, then SERVE_NEW teacher-forced
+   ``decode_step``s (flash decoding over the slot blocks). Gates: every
+   rank's prefill and decode logits within LOGIT_TOL x max|logit| of the
+   one-process bf16 run over virtual ranks on the same params and tokens
+   (``serve_yardsticks``, made before the spawn); finite logits; each
+   process's cache bytes those of its ``cache_spec`` blocks after the
+   prefill and after the last step; granite's launches a process
+   ``serve_launches_per_process``, all on tensor cores, none for the other
+   families. Printed: the prefill's ms and the decode step's median ms,
+   collectives and bytes a rank of the prefill and of a decode step,
+   ``comm_s_per_step``, each process's peak and each layout's seconds. The
    path ``dist_tp`` of the ``kernels`` line sums the processes' launches;
    the line also has the whole script's seconds so far.
 
@@ -340,13 +357,16 @@ Phases, each printing one JSON line:
    DIST_MESH) counted on ``launch.mesh.counting_mesh(DIST_MESH)``: the
    forward's collectives by kind and the bytes a rank sends must equal
    those phase 20's processes recorded on the card for a step; beside
-   them every transfer of the step, the backward's included. (b) PROD_CELLS
-   (every arch's train_4k in tp_sp on 16x16, granite and dbrx in zero1 and
-   ep_dp on 16x16 and 2x16x16) counted in the DRYRUN_WORKERS processes of
-   phase 17 (d)'s counts, started right after phase 6 and run while the
-   card works on phases 7-16 (``BackgroundCounts``; their host-bound times
-   share the host with it): 0 failures, and each row's FLOPs a device times
-   its chips at least ``model_flops`` less the products no step makes.
+   them every transfer of the step, the backward's included; phase 20
+   (c)'s granite tp_sp prefill and one decode step the same way. (b)
+   PROD_CELLS (every arch's train_4k in tp_sp on 16x16, granite and dbrx in
+   zero1 and ep_dp on 16x16 and 2x16x16) and PROD_SERVE_CELLS (eight
+   serving cells in tp_sp on 16x16) counted in the DRYRUN_WORKERS
+   processes of phase 17 (d)'s counts, started right after phase 6 and run
+   while the card works on phases 7-16 (``BackgroundCounts``; their
+   host-bound times share the host with it): 0 failures, and each row's
+   FLOPs a device times its chips at least ``model_flops`` less the
+   products no step makes.
    Printed: each row's argument and temporary GB a device, its terms,
    collectives and bytes a device, its seconds, the pool's wall seconds
    and the seconds the phase waited for it; the line also has the whole
@@ -612,6 +632,26 @@ DIST_FAMILIES = {"gemma-2b": (2, False), "mamba2-1.3b": (2, False),
                  "recurrentgemma-2b": (5, False),
                  "internvl2-26b": (2, True), "hubert-xlarge": (2, False)}
 DIST_FAMILY_STEPS = 2
+# Phase 20 (c): serving in phase 20 (b)'s spawn, after the trainings: a
+# prefill of each layout's rows x SERVE_PROMPT tokens (recurrentgemma
+# SERVE_PROMPTS', so that its decode wraps the 2,048-slot ring; the smoke
+# configs SERVE_SMOKE_PROMPT, a 16-slot ring wrapped alike), then SERVE_NEW
+# teacher-forced decode steps. Layouts: name -> (arch, mode, rows); granite
+# (EP through the GMM kernels) in tp_sp and, at SERVE_REPEAT_ROWS rows, in
+# zero1 and ep_dp (2 rows on 2x2 repeat over model; 4 would split over both
+# axes, a cache spec naming model twice, which both packages refuse); the
+# other families in tp_sp.
+SERVE_PROMPT, SERVE_SMOKE_PROMPT, SERVE_NEW = 512, 16, 8
+SERVE_PROMPTS = {"recurrentgemma-2b": 2048}
+SERVE_REPEAT_ROWS = 2
+SERVE_LAYOUTS = {f"{ARCH}/tp_sp": (ARCH, "tp_sp", DIST_BATCH),
+                 **{f"{ARCH}/{m}": (ARCH, m, SERVE_REPEAT_ROWS)
+                    for m in DIST_MODES},
+                 **{f"{a}/tp_sp": (a, "tp_sp", DIST_BATCH)
+                    for a in DIST_FAMILIES}}
+# Phase 20 (b)'s fp32 yardstick (the printed bf16_vs_fp32 gap, no gate)
+# runs for mamba2 alone, the SSD's bf16 question (ROADMAP Queue 3 · 6).
+DIST_FP32_ARCHS = ("mamba2-1.3b",)
 # Phase 21 (b): (arch, mode, mesh) counts of train_4k on the reference's
 # production meshes, with phase 17 (d)'s, started after phase 6 (the
 # kernels', serving's and training's headline numbers).
@@ -620,6 +660,13 @@ PROD_CELLS = ([(a, "tp_sp", "16x16") for a in dryrun_mod.DRYRUN_ARCHS]
               + [(a, mode, mesh) for a in PROD_MODE_ARCHS
                  for mode in ("zero1", "ep_dp")
                  for mesh in dryrun_mod.PRODUCTION])
+# ... and these serving cells, in tp_sp on 16x16: (arch, shape).
+PROD_SERVE_CELLS = ((ARCH, "prefill_32k"), (ARCH, "decode_32k"),
+                    ("dbrx-132b", "decode_32k"), ("llama3.2-3b", "decode_32k"),
+                    ("mamba2-1.3b", "long_500k"),
+                    ("recurrentgemma-2b", "long_500k"),
+                    ("internvl2-26b", "prefill_32k"),
+                    ("hubert-xlarge", "prefill_32k"))
 
 KERNELS = {
     "gmm_swiglu": dict(fn=swiglu_mod.gmm_swiglu, plain=gmm_swiglu_ref,
@@ -3892,8 +3939,9 @@ def dist_family_virtual(cfg, dev, seq, fp32=False):
 def _dist_family_rank(rank, init, out_dir, smoke, dev, seq):
     """One process of phase 20 (b): every DIST_FAMILIES run in turn, each
     DIST_FAMILY_STEPS steps of ``make_steps(mode="tp_sp")`` on its block of
-    the params and of each step's batch (``sharding.batch_block``); its
-    record to ``out_dir``."""
+    the params and of each step's batch (``sharding.batch_block``), then
+    phase 20 (c)'s serving layouts (``serve_ranks``, held to the
+    yardsticks in ``out_dir``); its record to ``out_dir``."""
     import torch.distributed as dist
     dist.init_process_group("gloo", init_method=init,
                             world_size=DIST_PROCS, rank=rank)
@@ -3943,6 +3991,8 @@ def _dist_family_rank(rank, init, out_dir, smoke, dev, seq):
                                         if dev.type == "cuda" else None)}
             del params, state, fns, batch, m
             _free(dev)
+        out["serve"] = serve_ranks(mesh, dev, smoke, torch.load(
+            os.path.join(out_dir, "serve_want.pt"), weights_only=False))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()
     finally:
@@ -3954,12 +4004,13 @@ def dist_family_gaps(cfg, got, want) -> dict:
     yardsticks (``want``): the loss's relative gap and each reduced grad
     leaf's norm's gap from the one-process bf16 run's, relative to that
     norm (an ssm layer's ``A_log``: to the size of its grad's terms), the
-    largest three named with the fp32 run's norm beside them; and the same
-    gaps of the one-process bf16 run from the fp32 one, what bf16 itself
-    resolves (mamba2's SSD runs in bf16, as the reference's does)."""
+    largest three named with the fp32 run's norm beside them; and for
+    DIST_FP32_ARCHS the same gaps of the one-process bf16 run from the fp32
+    one, what bf16 itself resolves (mamba2's SSD runs in bf16, as the
+    reference's does; None for the others)."""
     names = [f"{i}:{'/'.join(map(str, p))}" for i, (p, _, _) in enumerate(
         sharding.jax_leaves(M.init_params(cfg, device="meta")))]
-    w16, w32 = want["bf16"], want["fp32"]
+    w16, w32 = want["bf16"], want["fp32"] or want["bf16"]
 
     def scales(w):
         out, a_log = list(w["grad_leaf_norms"]), iter(w["a_log_scale"])
@@ -3977,35 +4028,46 @@ def dist_family_gaps(cfg, got, want) -> dict:
     gaps = leaf_gaps(got, w16, scales(w16))
     own = leaf_gaps(w16, w32, scales(w32))
     worst = sorted(range(len(names)), key=lambda i: -gaps[i])[:3]
+    fp32 = want["fp32"] is not None
     return {"yardstick_loss": w16["loss"],
             "loss_rel_gap": rel(got["loss"], w16["loss"], abs(w16["loss"])),
             "grad_leaf_norm_rel_gap_max": max(gaps),
             "grad_leaf_norms": {names[i]: {
                 "processes": got["grad_leaf_norms"][i],
                 "bf16": w16["grad_leaf_norms"][i],
-                "fp32": w32["grad_leaf_norms"][i], "gap": gaps[i]}
-                for i in worst},
+                "fp32": w32["grad_leaf_norms"][i] if fp32 else None,
+                "gap": gaps[i]} for i in worst},
             "bf16_vs_fp32": {
                 "loss_rel_gap": rel(w16["loss"], w32["loss"],
                                     abs(w32["loss"])),
                 "grad_leaf_norm_rel_gap_max": max(own),
                 "worst_leaf": names[max(range(len(own)),
-                                        key=own.__getitem__)]}}
+                                        key=own.__getitem__)]}
+            if fp32 else None}
 
 
 def dist_family_runs(smoke=False, dev="cuda", seq=TRAIN_SEQ):
     """Phase 20 (b)'s runs: each DIST_FAMILIES model's yardsticks in this
-    process (``dist_family_virtual``, fp32 and the processes' bf16), then
-    one spawn of DIST_PROCS processes trains them all in turn, each with
-    expandable allocator segments. Returns ({arch: (yardsticks, each
-    process's record)}, the spawn's seconds, this process's and the card's
-    memory before the spawn)."""
+    process (``dist_family_virtual``: the processes' bf16, and fp32 for
+    DIST_FP32_ARCHS) and phase 20 (c)'s (``serve_yardsticks``), then one
+    spawn of DIST_PROCS processes trains them all in turn and serves each
+    layout, each process with expandable allocator segments. Returns
+    ({arch: (yardsticks, each process's record)}, {layout: each process's
+    record}, {layout: the yardstick's router choices}, the spawn's
+    seconds, this process's and the card's memory before the spawn, the
+    yardsticks' seconds)."""
     import torch.multiprocessing as mp
-    want = {}
+    want, seconds = {}, {}
+    t = time.perf_counter()
     for arch in DIST_FAMILIES:
         cfg = dist_family_config(arch, smoke)
         want[arch] = {"bf16": dist_family_virtual(cfg, dev, seq),
-                      "fp32": dist_family_virtual(cfg, dev, seq, fp32=True)}
+                      "fp32": (dist_family_virtual(cfg, dev, seq, fp32=True)
+                               if arch in DIST_FP32_ARCHS else None)}
+    seconds["train"] = time.perf_counter() - t
+    t = time.perf_counter()
+    serve_want = serve_yardsticks(dev, smoke)
+    seconds["serve"] = time.perf_counter() - t
     # The yardsticks' cached segments, which their live leaves pinned at
     # each run's own _free, go back to the card before the processes start.
     _free(dev)
@@ -4013,6 +4075,9 @@ def dist_family_runs(smoke=False, dev="cuda", seq=TRAIN_SEQ):
     print(json.dumps({"phase 20 (b) memory before the spawn": held}),
           file=sys.stderr, flush=True)
     d = tempfile.mkdtemp()
+    torch.save(serve_want, os.path.join(d, "serve_want.pt"))
+    serve_routes = {k: v["routes"] for k, v in serve_want.items()}
+    del serve_want
     conf = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
     # The four processes share the one card and reach their peaks together:
     # segments that grow in place keep what each reserves near its peak.
@@ -4031,8 +4096,302 @@ def dist_family_runs(smoke=False, dev="cuda", seq=TRAIN_SEQ):
         else:
             os.environ["PYTORCH_CUDA_ALLOC_CONF"] = conf
         shutil.rmtree(d, ignore_errors=True)
-    return {a: (want[a], [r[a] for r in ranks]) for a in DIST_FAMILIES}, \
-        wall, held
+    return ({a: (want[a], [r[a] for r in ranks]) for a in DIST_FAMILIES},
+            {n: [r["serve"][n] for r in ranks] for n in SERVE_LAYOUTS},
+            serve_routes, wall, held, seconds)
+
+
+def serve_config(arch, smoke=False):
+    """Phase 20 (c)'s model of ``arch``: granite as phases 19 and 20 cut it
+    (``dist_config``), the others as phase 20 (b) (``dist_family_config``)."""
+    return dist_config(smoke) if arch == ARCH else \
+        dist_family_config(arch, smoke)
+
+
+def serve_inputs(cfg, rows, smoke, dev, seed=0):
+    """A layout's prompt batch (tokens, a vlm's patches before them; an
+    audio encoder's frames), its SERVE_NEW new tokens [rows, SERVE_NEW, 1]
+    (None for an encoder) and the cache's ``max_len``."""
+    prompt = SERVE_SMOKE_PROMPT if smoke else SERVE_PROMPTS.get(
+        cfg.name, SERVE_PROMPT)
+    rng = np.random.default_rng(seed)
+    if cfg.family in ("vlm", "audio"):
+        batch = av_batch(cfg, rows, prompt, dev, seed=seed)
+    else:
+        batch = {"tokens": torch.as_tensor(
+            rng.integers(0, cfg.vocab, (rows, prompt)), device=dev)}
+    if cfg.family == "audio":
+        return batch, None, prompt
+    new = torch.as_tensor(rng.integers(0, cfg.vocab, (rows, SERVE_NEW, 1)),
+                          device=dev)
+    return batch, new, prompt + SERVE_NEW + (
+        cfg.n_patches if cfg.family == "vlm" else 0)
+
+
+@contextlib.contextmanager
+def routing_log(log: list):
+    """Append each EP router call's top-k expert choices (on the device)
+    to ``log`` while it runs: ``parallel.ep``'s ``router_topk``, logged."""
+    from repro_torch.parallel import ep as ep_mod
+    orig = ep_mod.router_topk
+
+    def logged(router, x2d, mc):
+        top_p, top_i = orig(router, x2d, mc)
+        log.append(top_i.detach())
+        return top_p, top_i
+    ep_mod.router_topk = logged
+    try:
+        yield
+    finally:
+        ep_mod.router_topk = orig
+
+
+def serve_layout(name, mesh, dev, smoke=False, want=None):
+    """Phase 20 (c)'s layout ``name`` on ``mesh``: ``make_steps`` in its
+    mode (granite with phase 20's EP, internvl2 with its FSDP,
+    ``global_batch`` its rows) on fresh params (``_family_params``), a
+    prefill then SERVE_NEW teacher-forced decode steps; a MoE's router
+    calls logged each step (``routing_log``). Returns over virtual ranks
+    (the yardstick) each step's logits on the host (fp32) and router
+    choices; on a process mesh the rank's record: each step's largest gap
+    from ``want``'s logits in each row beside ``want``'s largest logit,
+    its router choices, whether its logits are finite, each step's ms and
+    transfer seconds by kind, the prefill's and the last decode step's
+    collectives and bytes, and the cache's bytes after the prefill and
+    after the last step beside its ``cache_spec`` blocks'."""
+    arch, mode, rows = SERVE_LAYOUTS[name]
+    cfg = serve_config(arch, smoke)
+    fns = steps_mod.make_steps(
+        cfg, mesh, mode=mode, global_batch=rows,
+        fsdp=DIST_FAMILIES.get(arch, (0, False))[1],
+        ep=(EPConfig(mode="hyperparallel", capacity_factor=EP_CF)
+            if cfg.family == "moe" else None))
+    params = _family_params(cfg, dev)
+    batch, new, max_len = serve_inputs(cfg, rows, smoke, dev)
+    if mesh.local_rows:
+        params = sharding.own_params(fns.rules, params, mesh)
+        batch = sharding.batch_block(fns.rules, batch, mesh)
+        if new is not None:
+            new = sharding.batch_block(fns.rules, {"new": new}, mesh)["new"]
+    stats = mesh.comm.stats
+    rec = {"step_ms": [], "comm_seconds": [], "rows": rows, "mode": mode,
+           "max_len": max_len}
+    logits, routes = [], []
+
+    def timed(fn):
+        log = []
+        _sync(dev)
+        stats.reset()
+        t = time.perf_counter()
+        with (routing_log(log) if cfg.family == "moe"
+              else contextlib.nullcontext()):
+            out, cache = fn()
+        _sync(dev)
+        rec["step_ms"].append(1e3 * (time.perf_counter() - t))
+        rec["comm_seconds"].append(dict(stats.seconds))
+        logits.append(out.float().cpu())
+        routes.append([t.cpu() for t in log])
+        return cache
+
+    cache = timed(lambda: fns.prefill_step(params, batch, max_len))
+    rec["prefill_collectives"] = dict(stats.counts)
+    rec["prefill_bytes"] = stats.bytes
+    if cache is not None:
+        rec["cache_bytes"] = [tree_bytes(cache)]
+        for i in range(SERVE_NEW):
+            cache = timed(lambda: fns.decode_step(params, new[:, i], cache))
+        rec["decode_collectives"] = dict(stats.counts)
+        rec["decode_bytes"] = stats.bytes
+        rec["cache_bytes"].append(tree_bytes(cache))
+        if mesh.local_rows:
+            rec["cache_bytes_by_spec"] = tree_bytes(sharding.cache_blocks(
+                fns.rules, rows, max_len, mesh, "meta"))
+    del params, cache, fns
+    if want is None:
+        return {"logits": logits, "routes": routes}
+    want = want["logits"]
+    rec["gap"] = [[float((g[i] - w[i]).abs().max()) for i in range(rows)]
+                  for g, w in zip(logits, want)]
+    rec["scale"] = [float(w.abs().max()) for w in want]
+    rec["routes"] = routes
+    rec["finite"] = all(bool(torch.isfinite(g).all()) for g in logits) \
+        and [g.shape for g in logits] == [w.shape for w in want]
+    return rec
+
+
+def decided_rows(name, ranks, want_routes) -> list:
+    """[step][row]: whether each row's compared position (a prefill's
+    last, a decode step's token) took the yardstick's experts at every
+    layer. The processes' router calls of a layer are their ranks' (rank
+    r's over its rows of its data group: a prefill's sequence chunk, a
+    decode step's group rows); the yardstick's virtual ranks make the same
+    calls in global rank order. ROADMAP §3's rule: a MoE's bf16 values are
+    compared only where its expert choices agree."""
+    rows = SERVE_LAYOUTS[name][2]
+    world, m_n = math.prod(DIST_MESH), DIST_MESH[-1]
+    b = rows // DIST_MESH[0]
+    out = []
+    for t in range(len(want_routes)):
+        ok = [True] * rows
+        for r, rec in enumerate(ranks):
+            d, m = divmod(r, m_n)
+            for layer, got in enumerate(rec["routes"][t]):
+                want = want_routes[t][layer * world + r]
+                agree = (got.sort(-1).values == want.sort(-1).values).all(
+                    -1).reshape(b, -1)
+                if agree.shape[1] > 1 and m != m_n - 1:
+                    continue        # a prefill's last position: rank M-1's
+                for i in range(b):
+                    ok[d * b + i] &= bool(agree[i, -1])
+        out.append(ok)
+    return out
+
+
+def serve_ranks(mesh, dev, smoke, want) -> dict:
+    """Each layout of ``want`` (its yardstick by name, every SERVE_LAYOUTS
+    layout in phase 20) on this rank (``serve_layout``), each with its
+    launches (tensor cores beside them), its peak device bytes and its
+    seconds."""
+    out = {}
+    for name in want:
+        _free(dev)
+        reset_launches()
+        t = time.perf_counter()
+        rec = serve_layout(name, mesh, dev, smoke, want[name])
+        rec.update(seconds=time.perf_counter() - t,
+                   launches=read_launches(),
+                   launches_tc={"gmm_swiglu": swiglu_mod.launches_tc,
+                                "gmm": gmm_mod.launches_tc},
+                   peak_bytes=_peak(dev))
+        out[name] = rec
+    return out
+
+
+def serve_yardsticks(dev, smoke) -> dict:
+    """Each layout's logits and router choices in one process over
+    DIST_MESH virtual ranks, in bf16 (``serve_layout``)."""
+    out = {}
+    for name in SERVE_LAYOUTS:
+        out[name] = serve_layout(name, make_test_mesh(*DIST_MESH, device=dev),
+                                 dev, smoke)
+        _free(dev)
+    return out
+
+
+def _dist_serve_rank(rank, init, out_dir, name, smoke, dev):
+    import torch.distributed as dist
+    dist.init_process_group("gloo", init_method=init,
+                            world_size=DIST_PROCS, rank=rank)
+    try:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // DIST_PROCS))
+        rec = serve_ranks(dist_mesh(DIST_MESH), dev, smoke, {
+            name: torch.load(os.path.join(out_dir, "want.pt"),
+                             weights_only=False)})[name]
+        torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def dist_serve_spawn(name, smoke=True, dev="cpu") -> dict:
+    """Phase 20 (c)'s layout ``name`` alone in a spawn of DIST_PROCS
+    processes of its own (phase 21 (a)'s check without phase 20's spawn, as
+    the CPU tests run it): its row, gated (``dist_serve_check``)."""
+    import torch.multiprocessing as mp
+    d = tempfile.mkdtemp()
+    try:
+        want = serve_layout(name, make_test_mesh(*DIST_MESH, device=dev),
+                            dev, smoke)
+        torch.save(want, os.path.join(d, "want.pt"))
+        mp.start_processes(_dist_serve_rank, args=(
+            f"file://{os.path.join(d, 'init')}", d, name, smoke, dev),
+            nprocs=DIST_PROCS, join=True, start_method="spawn")
+        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"),
+                            weights_only=False) for r in range(DIST_PROCS)]
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return dist_serve_check({name: ranks}, {name: want["routes"]}, dev)[name]
+
+
+def serve_launches_per_process() -> dict:
+    """A granite layout's GMM launches in one process: each forward (the
+    prefill and SERVE_NEW decode steps) makes an FFN call at each of the
+    ring's ep steps a layer, each one ``gmm_swiglu`` and one ``gmm``."""
+    n = (1 + SERVE_NEW) * DIST_LAYERS * DIST_MESH[-1]
+    return {"gmm_swiglu": n, "gmm": n}
+
+
+def dist_serve_check(recs: dict, routes: dict, dev) -> dict:
+    """Phase 20 (c)'s gates on every process's record of each layout
+    (``recs``: name -> the ranks' records; ``routes``: name -> the
+    yardstick's router choices): each prefill's and decode step's logits
+    within LOGIT_TOL x max|logit| of the one-process bf16 yardstick, a
+    MoE's in the rows whose experts agree (``decided_rows``), at least
+    half of its rows and steps; finite logits; the cache's bytes those of
+    its ``cache_spec`` blocks after the prefill and the last step; on the
+    card, granite's ``gmm_swiglu``/``gmm`` launches their formula, all on
+    the tensor cores, and none for the other families. Returns the
+    rows."""
+    rows, failed = {}, []
+    for name, ranks in recs.items():
+        arch = SERVE_LAYOUTS[name][0]
+        r0 = ranks[0]
+        decided = (decided_rows(name, ranks, routes[name]) if routes[name]
+                   and routes[name][0] else
+                   [[True] * r0["rows"] for _ in r0["scale"]])
+        rel = max(g / max(s, 1e-30) for r in ranks
+                  for gs, s, ok in zip(r["gap"], r["scale"], decided)
+                  for g, k in zip(gs, ok) if k)
+        n = sum(map(sum, decided))
+        decode = r0["step_ms"][1:]
+        row = {
+            "mode": r0["mode"], "rows": r0["rows"], "max_len": r0["max_len"],
+            "logit_rel_gap_max": rel,
+            "logit_rel_gap_all_rows": max(
+                g / max(s, 1e-30) for r in ranks
+                for gs, s in zip(r["gap"], r["scale"]) for g in gs),
+            "rows_compared": [n, r0["rows"] * len(decided)],
+            "prefill_ms": r0["step_ms"][0],
+            "decode_ms_median": (statistics.median(decode) if decode
+                                 else None),
+            "prefill_collectives": r0["prefill_collectives"],
+            "prefill_bytes": r0["prefill_bytes"],
+            "decode_collectives": r0.get("decode_collectives"),
+            "decode_bytes": r0.get("decode_bytes"),
+            "prefill_comm_s": r0["comm_seconds"][0],
+            "comm_s_per_step": r0["comm_seconds"][1:],
+            "peak_bytes_per_process": [r["peak_bytes"] for r in ranks],
+            "cache_bytes_per_process": [r.get("cache_bytes")
+                                        for r in ranks],
+            "cache_bytes_by_spec": r0.get("cache_bytes_by_spec"),
+            "launches_per_process": [r["launches"] for r in ranks],
+            "seconds": r0["seconds"]}
+        why = []
+        if rel > LOGIT_TOL:
+            why.append("logits beyond the yardstick")
+        if 2 * n < r0["rows"] * len(decided):
+            why.append("fewer than half the rows took the same experts")
+        if not all(r["finite"] for r in ranks):
+            why.append("non-finite logits")
+        if "cache_bytes" in r0 and any(
+                r["cache_bytes"] != [r0["cache_bytes_by_spec"]] * 2
+                for r in ranks):
+            why.append("cache not its cache_spec blocks")
+        if torch.device(dev).type == "cuda":
+            want = (serve_launches_per_process() if arch == ARCH else {})
+            for r in ranks:
+                got = {k: v for k, v in r["launches"].items() if v}
+                tc = {k: v for k, v in r["launches_tc"].items() if v}
+                if got != want or tc != want:
+                    why.append(f"launches {got} (tensor cores {tc}) != "
+                               f"{want}")
+                    break
+        if why:
+            failed.append((name, why, row))
+        rows[name] = row
+    if failed:
+        raise AssertionError(f"phase 20 (c): {failed}")
+    return rows
 
 
 def _device_memory(dev):
@@ -4060,7 +4419,8 @@ def run_dist_families(smoke=False, dev="cuda", seq=TRAIN_SEQ):
     process's params and optimizer state the bytes of its spec blocks; no
     kernel launch (cuBLAS and plain ops). Returns the runs' rows and their
     launches (every process's, summed)."""
-    runs, wall, held = dist_family_runs(smoke, dev, seq)
+    runs, serve, serve_routes, wall, held, yard_s = dist_family_runs(
+        smoke, dev, seq)
     rows, total, failed = {}, {k: 0 for k in COUNTERS}, []
     for arch, (want, recs) in runs.items():
         cfg = dist_family_config(arch, smoke)
@@ -4110,7 +4470,13 @@ def run_dist_families(smoke=False, dev="cuda", seq=TRAIN_SEQ):
         rows[arch] = row
     if failed:
         raise AssertionError(f"phase 20 (b): {failed}")
+    serving = dist_serve_check(serve, serve_routes, dev)
+    for recs in serve.values():
+        for k in COUNTERS:
+            total[k] += sum(r["launches"].get(k, 0) for r in recs)
     return {"runs": rows, "steps": DIST_FAMILY_STEPS, "spawn_wall_s": wall,
+            "serving": serving, "serve_new": SERVE_NEW,
+            "logit_tol": LOGIT_TOL, "yardstick_seconds": yard_s,
             "parent_memory_before_spawn": held}, total
 
 
@@ -4124,6 +4490,32 @@ def dist_count_case(pcfg, fsdp, seq=TRAIN_SEQ):
         ep=EPConfig(mode="hyperparallel", capacity_factor=EP_CF))[0]
 
 
+def serve_count_case(smoke=False):
+    """Phase 21 (a): phase 20 (c)'s granite tp_sp prefill and one decode
+    step counted on rank 0 of a counting mesh of DIST_MESH: {"prefill":
+    (collectives, bytes), "decode": (...)} of the forward."""
+    name = f"{ARCH}/tp_sp"
+    _, mode, rows = SERVE_LAYOUTS[name]
+    cfg = serve_config(ARCH, smoke)
+    mesh = counting_mesh(DIST_MESH)
+    fns = steps_mod.make_steps(
+        cfg, mesh, mode=mode, global_batch=rows,
+        ep=EPConfig(mode="hyperparallel", capacity_factor=EP_CF))
+    params = sharding.own_params(fns.rules, M.init_params(
+        cfg, device="meta"), mesh)
+    batch, new, max_len = serve_inputs(cfg, rows, smoke, "meta")
+    batch = sharding.batch_block(fns.rules, batch, mesh)
+    new = sharding.batch_block(fns.rules, {"new": new}, mesh)["new"]
+    stats, out = mesh.comm.stats, {}
+    stats.reset()
+    _, cache = fns.prefill_step(params, batch, max_len)
+    out["prefill"] = (dict(stats.counts), stats.bytes)
+    stats.reset()
+    fns.decode_step(params, new[:, 0], cache)
+    out["decode"] = (dict(stats.counts), stats.bytes)
+    return out
+
+
 def prod_check(results) -> tuple:
     """Phase 21 (b)'s rows of ``dryrun.count_job``'s ``results``, and the
     failures and the rows below the FLOPs floor."""
@@ -4133,7 +4525,8 @@ def prod_check(results) -> tuple:
             failures.append(fail)
             continue
         rows.append(dict({k: row[k] for k in (
-            "arch", "mesh", "mode", "chips", "flops_per_dev", "flops_floor",
+            "arch", "shape", "mesh", "mode", "chips", "flops_per_dev",
+            "flops_floor",
             "bytes_per_dev", "t_compute_s", "t_memory_s", "t_collective_s",
             "bottleneck", "hbm_args_gb", "hbm_temp_gb", "collectives",
             "collective_bytes_per_dev", "count_s")},
@@ -4173,23 +4566,45 @@ class BackgroundCounts:
         return results[name], wall, time.perf_counter() - t
 
 
-def prod_cells(smoke=False, cells=None, shape="train_4k") -> list:
+def prod_cells(smoke=False, cells=None, shape="train_4k",
+               serve_cells=None, serve_mesh="16x16") -> list:
     """Phase 21 (b)'s ``count_job`` cells: ``cells`` ((arch, mode, mesh);
-    default PROD_CELLS, smoke configs with ``smoke``) of ``shape``."""
+    default PROD_CELLS, smoke configs with ``smoke``) of ``shape``, then
+    ``serve_cells`` ((arch, shape); default PROD_SERVE_CELLS) in tp_sp on
+    ``serve_mesh``."""
     base = get_smoke_config if smoke else get_config
-    return [(base(a), shape, mesh, mode, "hyperparallel")
-            for a, mode, mesh in (cells or PROD_CELLS)]
+    serve = PROD_SERVE_CELLS if serve_cells is None else serve_cells
+    return ([(base(a), shape, mesh, mode, "hyperparallel")
+             for a, mode, mesh in (cells or PROD_CELLS)]
+            + [(base(a), s, serve_mesh, "tp_sp", "hyperparallel")
+               for a, s in serve])
 
 
 def run_prod_dryrun(tp_runs, counts: BackgroundCounts, *, smoke=False,
-                    seq=TRAIN_SEQ):
+                    seq=TRAIN_SEQ, served=None):
     """Phase 21: (a) each of phase 20's tp_sp runs (``tp_runs``, its
     ``runs`` by name) counted and held to its recorded collectives and
-    bytes, (b) ``counts``' group ``prod`` (``prod_cells``) gated.
-    Returns the phase's line; raises unless every gate holds."""
+    bytes, and phase 20 (c)'s granite tp_sp prefill and decode step
+    (``served``: its row of phase 20's ``serving``) the same way, (b)
+    ``counts``' group ``prod`` (``prod_cells``) gated. Returns the
+    phase's line; raises unless every gate holds."""
     t_phase = time.perf_counter()
     pcfg = dist_config(smoke)
     counted = {}
+    if served is not None:
+        got = serve_count_case(smoke)
+        counted["serve"] = {
+            step: {"forward_collectives": got[step][0],
+                   "forward_bytes": got[step][1],
+                   "processes_collectives": served[f"{step}_collectives"],
+                   "processes_bytes": served[f"{step}_bytes"]}
+            for step in ("prefill", "decode")}
+        if any(got[step] != (served[f"{step}_collectives"],
+                             served[f"{step}_bytes"])
+               for step in ("prefill", "decode")):
+            raise AssertionError(f"phase 21 (a) serving: the counted steps "
+                                 f"are not the processes' ones: "
+                                 f"{counted['serve']}")
     for name, fsdp in DIST_TP_RUNS.items():
         run = tp_runs[name]
         rf = dist_count_case(pcfg, fsdp, seq)
@@ -4342,7 +4757,9 @@ def main() -> int:
     tp_out["script_seconds"] = time.perf_counter() - t_script
     emit(tp_out)
     path_launches["dist_tp"] = tp_launches
-    prod_out = run_prod_dryrun(tp_out["runs"], counts)
+    prod_out = run_prod_dryrun(
+        tp_out["runs"], counts,
+        served=tp_out["families"]["serving"][f"{ARCH}/tp_sp"])
     prod_out["script_seconds"] = time.perf_counter() - t_script
     emit(prod_out)
 

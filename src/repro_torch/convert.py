@@ -25,6 +25,10 @@ checkpoint written by either package restores in the other
 (``jax_train_tree``, ``restore_jax_train``). Across processes
 (:class:`DistTrainLayout`) each leaf a process holds a block of is a
 ``checkpoint.ckpt.Sharded`` leaf of that tree: the files are the same.
+
+A serving cache crosses the same way: ``cache_from_numpy`` takes the JAX
+package's stacked cache (``init_cache``/``prefill``'s, numpy leaves) to the
+port's one dict a layer, ``cache_to_numpy`` back.
 """
 
 from __future__ import annotations
@@ -100,6 +104,42 @@ def opt_state_from_numpy(np_state: dict, cfg, device) -> dict:
            for k in ("m", "v", "master")}
     out["step"] = int(np_state["step"])
     return out
+
+
+def cache_from_numpy(np_cache, cfg, device) -> object:
+    """The JAX package's serving cache (numpy leaves: ``[L, ...]`` stacked,
+    a hybrid's ``{"super", "tail"}`` with ``[n_super, ...]`` positions)
+    → the port's tree (``models.model.init_cache``) on ``device``, each
+    leaf in its own dtype."""
+    dev = resolve_device(device)
+
+    def layers(tree: dict, n: int) -> list:
+        return [{k: torch.from_numpy(np.array(v[i])).to(dev)
+                 for k, v in tree.items()} for i in range(n)]
+    if cfg.family == "hybrid":
+        n_super = cfg.n_layers // len(cfg.hybrid_pattern)
+        return {"super": tuple(layers(pos, n_super)
+                               for pos in np_cache["super"]),
+                "tail": [{k: torch.from_numpy(np.array(v)).to(dev)
+                          for k, v in t.items()} for t in np_cache["tail"]]}
+    return layers(np_cache, cfg.n_layers)
+
+
+def cache_to_numpy(cache) -> object:
+    """The port's serving cache → the JAX package's stacked tree of numpy
+    arrays (a bf16 leaf as fp32, which numpy has)."""
+    def host(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    def stack(layers: list) -> dict:
+        return {k: np.stack([host(d[k]) for d in layers])
+                for k in layers[0]}
+    if isinstance(cache, dict):
+        return {"super": tuple(stack(pos) for pos in cache["super"]),
+                "tail": [{k: host(v) for k, v in t.items()}
+                         for t in cache["tail"]]}
+    return stack(cache)
 
 
 def _to_jax(tree: dict, stack, leaf=lambda t: t) -> dict:

@@ -28,10 +28,12 @@ the optimizer state and the batch, its transfers counted and not made
 bytes, argument and temporary bytes, and collectives and bytes of every
 transfer it makes, the backward's and the optimizer's included, priced
 at NVLink's 450 GB/s on every axis (a prediction, not a multi-node link).
-Serving steps do not run across a process mesh yet: those cells are
-listed as pending, not counted and not failed. ``--mesh 1x1`` is the
-one-card count of every cell (serving included), a step's whole work;
-``--mesh DxM`` counts rank 0 of another counting mesh.
+A serving cell is rank 0's prefill of the cell's prompt into its cache
+blocks, or its decode step over its ``cache_spec`` blocks of the cell's
+cache (``launch.steps`` on a process mesh, flash decoding where the model
+axis splits the slots). ``--mesh 1x1`` is the one-card count of every
+cell, a step's whole work; ``--mesh DxM`` counts rank 0 of another
+counting mesh.
 
 Differences from the reference:
 
@@ -75,7 +77,7 @@ from ..models import model as M
 from ..optim import adamw
 from ..parallel import roofline as R
 from ..parallel.ep import EPConfig
-from ..parallel.sharding import batch_block, own_params
+from ..parallel.sharding import batch_block, cache_blocks, own_params
 from . import steps as St
 from .mesh import counting_mesh, make_mesh, mesh_dims
 
@@ -155,7 +157,7 @@ def count_cell(cfg, shape, mesh=None, **step_kw):
     run's batch and sequence). ``mesh`` (default ``1x1``) is a mesh of
     virtual ranks on the meta device, or a counting process mesh
     (``launch.mesh.counting_mesh``, ``make_production_mesh``), whose
-    rank's program is counted (a train step only); ``step_kw`` go to
+    rank's program is counted (``_count_rank``); ``step_kw`` go to
     ``launch.steps.make_steps`` (``ep``, ``mode``, ``fsdp``,
     ``flash_decode``, ...). The collectives and bytes a rank are read from
     ``mesh.comm.stats`` around the step. Returns (``Roofline``, seconds).
@@ -206,25 +208,40 @@ def count_cell(cfg, shape, mesh=None, **step_kw):
 
 def _count_rank(cfg, sp, mesh, t0, step_kw):
     """``count_cell`` on a counting process mesh: rank ``mesh.coords``'s
-    train step on its blocks of the params, the optimizer state and the
-    batch (``global_batch`` rows)."""
-    if sp.kind != "train":
-        raise ValueError(f"{cfg.name} × {sp.name}: serving steps run in "
-                         f"one process; across a process mesh they are "
-                         f"pending")
+    step on its blocks of the params and the batch (``global_batch``
+    rows): a train step with its optimizer state's blocks, a prefill of
+    the cell's prompt into the rank's cache blocks (``max_len`` as
+    :func:`count_cell` takes it), or a decode step over the rank's
+    ``cache_spec`` blocks of ``cache_specs``' cache."""
     fns = St.make_steps(cfg, mesh, global_batch=sp.global_batch, **step_kw)
     rules = fns.rules
-    params = own_params(rules, adamw.cast_params(
-        M.init_params(cfg, device="meta"), cfg.compute_dtype), mesh)
-    opt_state = adamw.init_opt_state(params, rules, mesh)
+    params = M.init_params(cfg, device="meta")
     batch = {k: v.clone() for k, v in
              batch_block(rules, input_specs(cfg, sp), mesh).items()}
-    args = (params, opt_state, batch)
+    if sp.kind == "train":
+        params = own_params(rules, adamw.cast_params(
+            params, cfg.compute_dtype), mesh)
+        opt_state = adamw.init_opt_state(params, rules, mesh)
+        args = (params, opt_state, batch)
+        run = lambda: fns.train_step(*args)  # noqa: E731
+    elif sp.kind == "prefill":
+        params = own_params(rules, params, mesh)
+        max_len = sp.seq_len + (cfg.n_patches if "patches" in batch else 0)
+        args = (params, batch)
+        run = lambda: fns.prefill_step(  # noqa: E731
+            params, batch, max_len, prompt_len=sp.seq_len)
+    else:
+        params = own_params(rules, params, mesh)
+        cache = cache_blocks(rules, sp.global_batch, sp.seq_len, mesh,
+                             "meta")
+        args = (params, batch, cache)
+        run = lambda: fns.decode_step(  # noqa: E731
+            params, batch["tokens"], cache, max_len=sp.seq_len)
     arg_bytes = R.tree_bytes(args)
     stats = mesh.comm.stats
     stats.reset()
-    with R.WorkCounter() as wc:
-        fns.train_step(*args)
+    with torch.set_grad_enabled(sp.kind == "train"), R.WorkCounter() as wc:
+        run()
     dt = time.perf_counter() - t0
     rf = R.Roofline(
         arch=cfg.name, shape=sp.name, mesh=mesh_name(mesh),
@@ -308,13 +325,12 @@ def run_all(archs, shapes, *, out=None, workers: int = 1, mesh=None,
             mode: str = "tp_sp", ep_mode: str = "hyperparallel",
             single_pod_only: bool = False, multi_pod_only: bool = False):
     """Count every cell of ``archs`` × ``shapes`` that ``skip_reason``
-    keeps on each mesh of ``meshes_of``, in ``workers`` processes. A
-    serving cell on a process mesh is pending: printed and listed, not
-    counted. Returns (rows, failures) in the cells' order; ``out`` gets
-    them as JSON, with the pending cells."""
+    keeps on each mesh of ``meshes_of``, in ``workers`` processes.
+    Returns (rows, failures) in the cells' order; ``out`` gets them as
+    JSON."""
     names = meshes_of(mesh, single_pod_only=single_pod_only,
                       multi_pod_only=multi_pod_only)
-    todo, pending = [], []
+    todo = []
     for arch in archs:
         cfg = get_config(arch)
         for shape_name in shapes:
@@ -323,12 +339,7 @@ def run_all(archs, shapes, *, out=None, workers: int = 1, mesh=None,
                 print(f"SKIP {arch} × {shape_name}: {why}")
                 continue
             for name in names:
-                if name != "1x1" and SHAPES[shape_name].kind != "train":
-                    pending.append((cfg.name, shape_name, name))
-                    print(f"PENDING {cfg.name} × {shape_name} × {name}: "
-                          f"serving across a process mesh")
-                else:
-                    todo.append((cfg, shape_name, name, mode, ep_mode))
+                todo.append((cfg, shape_name, name, mode, ep_mode))
     t0 = time.perf_counter()
     results = count_all(todo, workers, count_job)
     rows, failures = [], []
@@ -360,12 +371,10 @@ def run_all(archs, shapes, *, out=None, workers: int = 1, mesh=None,
     if out:
         with open(out, "w") as f:
             json.dump({"rows": rows,
-                       "failures": [list(f_) for f_ in failures],
-                       "pending": [list(p_) for p_ in pending]}, f,
+                       "failures": [list(f_) for f_ in failures]}, f,
                       indent=1, default=str)
         print(f"wrote {out}")
-    print(f"\n{len(rows)} cells counted, {len(failures)} failures, "
-          f"{len(pending)} pending")
+    print(f"\n{len(rows)} cells counted, {len(failures)} failures")
     for f_ in failures:
         print("FAILED:", *f_[:3])
     return rows, failures

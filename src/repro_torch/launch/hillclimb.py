@@ -7,19 +7,25 @@ three roofline terms of each — counterpart of ``repro.launch.hillclimb``.
     PYTHONPATH=src python -m repro_torch.launch.hillclimb --sched-sweep --ep 4
 
 It runs on any machine, without a card. The reference lowers each variant
-with XLA and reads its cost analysis; the port runs the variant's real step
-on the meta device through the dry run's counter
-(``launch.dryrun.count_cell``), on a mesh of virtual ranks (``--mesh``,
-default ``1x4``, the EP layout of the card's smoke run). The count is
+with XLA on its 16x16 production mesh and reads its cost analysis; the port
+runs the variant's real step on the meta device through the dry run's
+counter (``launch.dryrun.count_cell``). ``--mesh`` (default ``16x16``)
+names the mesh: ``16x16`` or ``2x16x16`` count rank 0's program of the
+process-mesh step on ``make_production_mesh``'s counting mesh, as the dry
+run counts its cells there (FSDP above 10e9 parameters, the microbatch
+policy and ``seq_parallel`` as the reference's ``compile_variant`` sets
+them); any other ``DxM`` (``1x4``: the EP layout of the card's smoke run)
+counts a mesh of virtual ranks, whose step is the whole one. The count is
 whole: no 2- and 3-trip extrapolation. Each variant prints one line on
 stdout (the reference's), and ``--out`` writes the rows as JSON:
 
-* ``compute`` and ``memory``: the counted FLOPs and bytes of the whole
-  step priced on the H100's data-sheet rates (``core.hardware.H100``);
-* ``collective``: the bytes one virtual rank sends
-  (``parallel/comm.VirtualComm``'s ``comm.stats``) at the H100's NVLink
-  rate, a prediction for an NVLink box, since one card's virtual ranks
-  move their blocks by device copies;
+* ``compute`` and ``memory``: the counted FLOPs and bytes (the rank's, or
+  the whole step's over virtual ranks) priced on the H100's data-sheet
+  rates (``core.hardware.H100``);
+* ``collective``: the bytes a rank sends (on a production mesh every
+  transfer of rank 0, the backward's included; over virtual ranks
+  ``parallel/comm.VirtualComm``'s forward count) at the H100's NVLink
+  rate, a prediction for an NVLink box;
 * ``args`` and ``temp``: the argument bytes and the peak live bytes of the
   count, in GiB.
 
@@ -29,8 +35,8 @@ the card measures what was counted. ``--sched-sweep``,
 ``launch.schedsweep``, whose makespans are the Ascend A3 model's.
 
 Differences from the reference: an unknown variant name is an argparse
-error (the reference skips it); ``zero1``, ``nosp`` and ``baseline`` place
-nothing differently in one process, so they count the same work.
+error (the reference skips it); over virtual ranks ``zero1``, ``nosp`` and
+``baseline`` place nothing differently, so they count the same work.
 """
 
 from __future__ import annotations
@@ -43,8 +49,8 @@ import sys
 from ..configs import get_config
 from ..parallel.ep import EPConfig
 from . import steps as St
-from .dryrun import count_cell
-from .mesh import make_mesh, mesh_dims
+from .dryrun import PRODUCTION, count_cell
+from .mesh import counting_mesh, make_mesh, mesh_dims
 
 CELLS = {
     "granite_train": ("granite-moe-3b-a800m", "train_4k"),
@@ -69,7 +75,7 @@ VARIANTS = {
     "opt": (None, {}, None),
 }
 
-COLLECTIVE_NOTE = ("bytes a virtual rank sends at the H100's NVLink rate: "
+COLLECTIVE_NOTE = ("bytes a rank sends at the H100's NVLink rate: "
                    "a prediction for an NVLink box")
 
 
@@ -87,22 +93,31 @@ def resolve_variant(arch: str, variant: str) -> tuple:
 
 def step_kwargs(cfg, *, mode: str = "tp_sp",
                 ep_mode: str = "hyperparallel", cap_factor: float = 1.25,
-                seq_parallel: bool = True, flash_decode: bool = True) -> dict:
+                seq_parallel: bool = True, flash_decode: bool = True,
+                process: bool = False) -> dict:
     """``make_steps``' keywords for the reference's ``compile_variant``
-    arguments: EP on for the MoE family. ``seq_parallel`` places nothing in
-    one process and is dropped; the microbatches are ``make_steps``' own
-    policy, the reference's (8, 4 or 1 by parameter count)."""
+    arguments: EP on for the MoE family; the microbatches are
+    ``make_steps``' own policy, the reference's (8, 4 or 1 by parameter
+    count). On a process mesh (``process``) ``seq_parallel`` and FSDP
+    (above 10e9 parameters) are passed; over virtual ranks they place
+    nothing and are dropped."""
     ep = (EPConfig(mode=ep_mode, capacity_factor=cap_factor)
           if cfg.family == "moe" else None)
-    return {"ep": ep, "mode": mode, "flash_decode": flash_decode}
+    kw = {"ep": ep, "mode": mode, "flash_decode": flash_decode}
+    if process:
+        kw.update(seq_parallel=seq_parallel,
+                  fsdp=cfg.param_count() > 10e9)
+    return kw
 
 
-def variant_config(cfg, variant: str, **kw) -> tuple:
+def variant_config(cfg, variant: str, process: bool = False, **kw) -> tuple:
     """(tag, the variant's config, ``make_steps``' keywords); ``kw``
-    override the variant's compile keywords."""
+    override the variant's compile keywords; ``process``: for a process
+    mesh."""
     tag, fields, compile_kw = resolve_variant(cfg.name, variant)
     cfg = dataclasses.replace(cfg, **fields) if fields else cfg
-    return tag, cfg, step_kwargs(cfg, **{**compile_kw, **kw})
+    return tag, cfg, step_kwargs(cfg, **{**compile_kw, **kw},
+                                 process=process)
 
 
 def variant_steps(cfg, mesh, variant: str, **kw) -> tuple:
@@ -114,10 +129,20 @@ def variant_steps(cfg, mesh, variant: str, **kw) -> tuple:
 
 def count_variant(cfg, shape, mesh, variant: str = "baseline", **kw):
     """The variant's real step counted on the meta device over ``mesh``
-    (virtual ranks on meta): (tag, ``Roofline``, seconds)."""
-    tag, vcfg, step_kw = variant_config(cfg, variant, **kw)
+    (virtual ranks on meta, or a counting process mesh): (tag,
+    ``Roofline``, seconds)."""
+    tag, vcfg, step_kw = variant_config(cfg, variant,
+                                        process=bool(mesh.local_rows), **kw)
     rf, dt = count_cell(vcfg, shape, mesh, **step_kw)
     return tag, rf, dt
+
+
+def count_mesh(dims):
+    """The mesh a variant is counted on: a production mesh's counting
+    mesh (rank 0), or virtual ranks on meta."""
+    if "x".join(map(str, dims)) in PRODUCTION:
+        return counting_mesh(dims)
+    return make_mesh(dims, "meta")
 
 
 def line(tag: str, rf) -> str:
@@ -131,11 +156,10 @@ def line(tag: str, rf) -> str:
 
 
 def variant_row(cfg, shape, variant: str, dims=(1, 4), **kw) -> dict:
-    """Count one variant over ``dims`` virtual ranks on meta: its
-    ``Roofline.row()`` plus ``tag``, ``args_gb``, ``temp_gb``, its line
-    and the count's seconds."""
-    tag, rf, dt = count_variant(cfg, shape, make_mesh(dims, "meta"),
-                                variant, **kw)
+    """Count one variant on ``count_mesh(dims)``: its ``Roofline.row()``
+    plus ``tag``, ``args_gb``, ``temp_gb``, its line and the count's
+    seconds."""
+    tag, rf, dt = count_variant(cfg, shape, count_mesh(dims), variant, **kw)
     return {**rf.row(), "tag": tag, "variant": variant,
             "args_gb": rf.arg_bytes / 2**30,
             "temp_gb": rf.temp_bytes / 2**30,
@@ -158,9 +182,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--cell", choices=list(CELLS))
     ap.add_argument("--variants", default="baseline,opt")
-    ap.add_argument("--mesh", default="1x4", metavar="DxM",
-                    help="virtual ranks the step is counted over "
-                         "(1x1, 1x4, 1x16)")
+    ap.add_argument("--mesh", default="16x16", metavar="DxM",
+                    help="16x16 or 2x16x16: rank 0 of the production "
+                         "mesh's counting mesh; any other DxM: virtual "
+                         "ranks (1x1, 1x4, 1x16)")
     ap.add_argument("--sched-sweep", action="store_true",
                     help="sweep SCHED_PIPELINES (+ the auto selector) "
                          "through the simulator instead of counting a "

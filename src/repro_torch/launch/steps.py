@@ -35,6 +35,9 @@ rules, mesh)``):
   replicated over ``model``). ``parallel.sharding.batch_block`` cuts a
   rank's block from a whole batch.
 
+The prefill and decode steps serve on the same blocks, each rank holding
+its ``cache_spec`` blocks of the cache (``make_steps``).
+
 After the backward :func:`reduce_grads` sums each grad over the ranks that
 hold other rows for its block and takes the mean over the batch's shares.
 The loss is the mean over the ranks. Rows repeated over an axis are shares
@@ -54,7 +57,7 @@ import torch
 
 from ..models import model as M
 from ..optim import adamw
-from ..parallel.ctx import tensor_parallel_context
+from ..parallel.ctx import cache_blocks_context, tensor_parallel_context
 from ..parallel.ep import EPConfig, make_moe_ep
 from ..parallel.sharding import ShardingRules, param_specs, spec_axes
 from ..parallel.tp import TensorParallel
@@ -213,15 +216,34 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
     place the attention and expert matrices' ``d`` over ``data`` and the
     residual's sequence over ``model``; a mesh of virtual ranks computes
     the same values either way. ``global_batch``: the rows of the whole
-    batch a process mesh's train step takes its block of
-    (``make_train_step``).
+    batch a process mesh's steps take their blocks of
+    (``make_train_step``; by default as many as split over every axis the
+    mode splits rows over).
 
     EP (``ep``) is the MoE of all three; ``dropless`` replaces it in
     training only, as in the reference. An audio encoder's prefill step is
     its forward, ``(logits, None)``. The decode step uses flash
     decoding when ``flash_decode`` is set, the mesh's model axis is larger
     than 1 and the config has heads; without it the dense one-token
-    attention runs.
+    attention runs (on a process mesh over each layer's cache blocks
+    all-gathered).
+
+    On a process mesh the serving steps are this rank's:
+    ``prefill_step(params, batch, max_len, prompt_len=None)`` and
+    ``decode_step(params, token, cache, max_len=None)`` take the rank's
+    params (``sharding.own_params``) and batch block
+    (``sharding.batch_block``); the cache is the rank's ``cache_spec``
+    blocks (``parallel.tp.CacheBlocks``; a spec naming an axis twice
+    raises ``ValueError``, as the reference raises ``DuplicateSpecError``),
+    made by the prefill. The logits come back whole on every rank (the
+    reference's ``out_shardings=None``): every row, the whole vocabulary.
+    In tp_sp the prefill keeps training's placement (the residual's
+    sequence over ``model`` where the prompt splits) and a decode step
+    replicates the residual over ``model``; in zero1 and ep_dp each rank
+    runs its rows whole. ``prompt_len``: the prompt's whole length, by
+    default the block's times the model axis in tp_sp (a prompt that the
+    model axis does not split passes it); ``max_len``: the cache's, by
+    default the last prefill's.
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}: one of {MODES}")
@@ -233,12 +255,10 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
             cfg, opt, accum_steps=accum_steps, mesh=mesh, ep=ep,
             dropless=dropless, grad_transform=grad_transform, rules=rules,
             seq_parallel=seq_parallel, global_batch=global_batch)
-
-        def serving(*_args, **_kw):
-            raise ValueError("serving runs in one process, as in the "
-                             "reference (launch.serve uses no mesh)")
-        return StepFns(train_step=train_step, prefill_step=serving,
-                       decode_step=serving, ep_cfg=ep,
+        prefill_step, decode_step = _dist_serving(
+            cfg, mesh, rules, ep, flash_decode, seq_parallel, global_batch)
+        return StepFns(train_step=train_step, prefill_step=prefill_step,
+                       decode_step=decode_step, ep_cfg=ep,
                        dropless=train_step.dropless, rules=rules)
     moe_impl = (make_moe_ep(mesh, ep, cfg.act)
                 if ep is not None and cfg.family == "moe" else None)
@@ -262,3 +282,103 @@ def make_steps(cfg, mesh, *, opt: Optional[adamw.OptConfig] = None,
     return StepFns(train_step=train_step, prefill_step=prefill_step,
                    decode_step=decode_step, ep_cfg=ep,
                    dropless=train_step.dropless, rules=rules)
+
+
+def _dist_serving(cfg, mesh, rules, ep, flash_decode, seq_parallel,
+                  global_batch):
+    """The prefill and decode steps of this rank of a process mesh (see
+    :func:`make_steps`)."""
+    from ..parallel.flash_decode import make_flash_decode
+    from ..parallel.sharding import block_shape
+    from ..parallel.tp import CacheBlocks
+    M_ = mesh.shape["model"]
+    fd_impl = (make_flash_decode(mesh) if flash_decode and M_ > 1
+               and cfg.n_heads else None)
+    made: dict = {}
+    last = {"max_len": None}
+
+    def once(key, make):
+        if key not in made:
+            made[key] = make()
+        return made[key]
+
+    def rows(b: int) -> int:
+        """The whole batch's rows: ``global_batch``, or a block of ``b``
+        times every axis the mode may split rows over."""
+        return global_batch or b * math.prod(
+            n for a, n in mesh.shape.items()
+            if rules.mode != "tp_sp" or a != "model")
+
+    def moe(B: int):
+        if ep is None or cfg.family != "moe":
+            return None
+        repeat = rules.mode != "tp_sp" and "model" not in spec_axes(
+            rules.batch_spec({"labels": (B,)})["labels"])
+        return once(("moe", B), lambda: make_moe_ep(
+            mesh, ep, cfg.act, mode=rules.mode, rows_repeat=repeat))
+
+    def tensor_parallel(seq: bool, split: bool):
+        if rules.mode != "tp_sp":
+            return None
+        return once(("tp", seq, split), lambda: TensorParallel(
+            mesh, rules, seq=seq, split_tokens=split))
+
+    def whole_rows(logits, B: int):
+        """The logits of every row, gathered over the batch spec's axes."""
+        axes = spec_axes(rules.batch_spec({"labels": (B,)})["labels"])
+        if not axes:
+            return logits
+        return mesh.axes_comm(axes).all_gather_dim(logits, 0)
+
+    def run(B, max_len, tp, fn):
+        cb = once(("cache", B, max_len),
+                  lambda: CacheBlocks(mesh, rules, B, max_len))
+        with torch.no_grad(), tensor_parallel_context(tp), \
+                cache_blocks_context(cb):
+            return fn(cb, moe(B))
+
+    def prefill_step(params, batch, max_len: int,
+                     prompt_len: Optional[int] = None):
+        key = "features" if cfg.family == "audio" else "tokens"
+        b, s = batch[key].shape[:2]
+        B = rows(b)
+        S = prompt_len or (s * M_ if rules.mode == "tp_sp" and M_ > 1
+                           else s)
+        whole = {k: (B, S) + tuple(v.shape[2:]) if k == key
+                 else (B,) + tuple(v.shape[1:]) for k, v in batch.items()}
+        want = {k: block_shape(v, rules.batch_spec(whole)[k], mesh)
+                for k, v in whole.items()}
+        got = {k: tuple(v.shape) for k, v in batch.items()}
+        if got != want:
+            raise ValueError(
+                f"a batch of {B} rows x {S} positions splits into blocks "
+                f"{want} on this mesh, not {got} (pass prompt_len= or "
+                f"make_steps(global_batch=) for another split)")
+        split = "model" in spec_axes(rules.batch_spec(whole)[key])
+        tp = tensor_parallel(seq_parallel and split, split)
+        last["max_len"] = max_len
+        if cfg.family == "audio":      # an encoder: no cache to fill
+            return run(B, max_len, tp, lambda cb, moe_impl: (whole_rows(
+                M.forward(cfg, params, batch, moe_impl=moe_impl), B), None))
+
+        def fill(cb, moe_impl):
+            logits, cache = M.prefill(cfg, params, batch, max_len, moe_impl,
+                                      cache=cb.alloc(batch[key].device))
+            return whole_rows(logits, B), cache
+        return run(B, max_len, tp, fill)
+
+    def decode_step(params, token, cache, max_len: Optional[int] = None):
+        max_len = max_len or last["max_len"]
+        if max_len is None:
+            raise ValueError("decode_step on a process mesh needs the "
+                             "cache's max_len: pass max_len= or prefill "
+                             "first")
+        B = rows(token.shape[0])
+
+        def step(_cb, moe_impl):
+            logits, new = M.decode_step(cfg, params, token, cache, moe_impl,
+                                        flash_decode=fd_impl)
+            return whole_rows(logits, B), new
+        return run(B, max_len, tensor_parallel(False, False), step)
+
+    return prefill_step, decode_step

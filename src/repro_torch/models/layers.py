@@ -23,7 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.ctx import current_flash_decode, current_tensor_parallel
+from ..parallel.ctx import (current_cache_blocks, current_flash_decode,
+                            current_tensor_parallel)
 
 
 class MetaDraws:
@@ -234,7 +235,7 @@ def init_attention(gen: torch.Generator, d_model, n_heads, n_kv_heads,
 
 def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
               causal=True, sliding_window=0, block=1024, cache=None,
-              flash_decode=None):
+              flash_decode=None, cache_slots=None):
     """Returns (out, new_cache). ``cache`` = dict(k, v, len) for serving.
 
     Unlike the JAX function, which returns fresh cache arrays, the port
@@ -245,20 +246,30 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
     ``parallel.ctx.flash_decode_context``'s. Where it returns ``None`` the
     dense path runs.
 
-    Under an ambient ``parallel.tp.TensorParallel`` (training, no cache)
-    ``p`` holds the rank's column blocks of ``wq``/``wk``/``wv`` and row
-    block of ``wo``: the residual ``x`` enters as the group's whole
-    sequence, the rank runs its H/M query and K/M kv heads at their global
-    positions, and its partial output leaves summed over the ranks. Where
-    the heads do not split (``H % M``), ``wq``/``bq``/``wo`` arrive whole
+    Under an ambient ``parallel.tp.TensorParallel`` ``p`` holds the rank's
+    column blocks of ``wq``/``wk``/``wv`` and row block of ``wo``: the
+    residual ``x`` enters as the group's whole sequence, the rank runs its
+    H/M query and K/M kv heads at their global positions, and its partial
+    output leaves summed over the ranks. Where the heads do not split
+    (``H % M``), ``wq``/``bq``/``wo`` arrive whole
     (``TensorParallel.layer``) and the rank runs its ⌈H/M⌉ or ⌊H/M⌋ heads
     (none, on a rank past the H-th: its output is zeros, its transfers the
     others'). Where the kv heads do not split (``K % M``), ``wk``/``wv``
     arrive whole, the rank computes the kv heads its query heads read, and
     each of its query heads reads its group's
     (``TensorParallel.attention_params``).
+
+    With a cache on a process mesh (an ambient
+    ``parallel.tp.CacheBlocks``, in any mode) ``cache`` holds the rank's
+    blocks: every kv head over its block of the ``cache_slots`` slots of
+    the whole cache (:func:`_block_cache_attention`). Without one, a cache
+    runs the one-process path.
     """
-    tp = current_tensor_parallel() if cache is None else None
+    tp = current_tensor_parallel()
+    cb = current_cache_blocks() if cache is not None else None
+    if cache is not None and cb is None:
+        tp = None
+    whole_p, H, K = p, n_heads, n_kv_heads
     kv_sel = None
     if tp is not None:
         x = tp.enter(x)
@@ -266,16 +277,6 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
             p, n_heads, n_kv_heads, head_dim)
     B, S, _ = x.shape
     compute_dtype = x.dtype
-
-    def proj(w, b, n):
-        y = x @ w.to(compute_dtype)
-        if b is not None:
-            y = y + b.to(compute_dtype)
-        return y.reshape(B, S, n, head_dim)
-
-    q = proj(p["wq"], p.get("bq"), n_heads)
-    k = proj(p["wk"], p.get("bk"), n_kv_heads)
-    v = proj(p["wv"], p.get("bv"), n_kv_heads)
 
     ar = torch.arange(S, device=x.device)
     if cache is not None:
@@ -288,78 +289,180 @@ def attention(p, x, *, n_heads, n_kv_heads, head_dim, rope_theta,
             positions = lens[:, None] + ar[None, :]
     else:
         positions = ar[None, :].expand(B, S)
-    if rope_theta:
-        cos, sin = rope_tables(positions, head_dim, rope_theta)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    if kv_sel is not None:
-        sel = kv_sel.to(x.device)
-        k, v = k.index_select(2, sel), v.index_select(2, sel)
+    rope = rope_tables(positions, head_dim, rope_theta) if rope_theta \
+        else None
 
-    new_cache = None
-    if cache is not None:
-        kc, vc, lens = cache["k"], cache["v"], cache["len"]
-        W = kc.shape[1]
-        # A window cache no larger than the window is a ring buffer: token
-        # p lives in slot p % W.
-        ring = bool(sliding_window) and W <= sliding_window
-        res = None
-        fd = flash_decode if flash_decode is not None \
-            else current_flash_decode()
-        if (S == 1 and fd is not None and lens.dim() == 0
-                and not sliding_window):
-            res = fd(q, kc, vc, k, v, lens)
-        if res is not None:
-            o, kc, vc = res
-            new_cache = {"k": kc, "v": vc, "len": lens + 1}
-        elif S == 1:
-            # Decode: write this token's K/V at each slot's length, wrapped
-            # on a ring. Elsewhere, as with the JAX dynamic_update_slice,
-            # the index is clamped to the cache (slots that decode while
-            # idle run past max_len).
-            idx = lens % W if ring else torch.clamp(lens, max=W - 1)
-            if lens.dim() == 0:
-                # A one-element index: a 0-d one would read the length on
-                # the host, which the meta device (the dry run) cannot.
-                at = idx.reshape(1).long()
-                kc.index_copy_(1, at, k)
-                vc.index_copy_(1, at, v)
-            else:
-                rows = torch.arange(B, device=x.device)
-                kc[rows, idx] = k[:, 0]
-                vc[rows, idx] = v[:, 0]
-            new_cache = {"k": kc, "v": vc, "len": lens + 1}
-            if ring:
-                # Slot i holds the newest token at a position ≡ i (mod W),
-                # so every written slot is inside the window: only slots
-                # not yet written are masked (the JAX package's
-                # _ring_decode_attention).
-                o = decode_attention(q, kc, vc, torch.clamp(lens + 1, max=W))
-            else:
-                o = decode_attention(q, kc, vc, lens + 1,
-                                     sliding_window=sliding_window)
-        else:
-            # Prefill into an empty cache. A cache smaller than the prompt
-            # keeps the last W keys at their ring slots: element j of the
-            # last-W slice holds position S-W+j, slot (j + S) % W.
-            if W < S:
-                kc.copy_(torch.roll(k[:, -W:], S % W, dims=1))
-                vc.copy_(torch.roll(v[:, -W:], S % W, dims=1))
-            else:
-                kc[:, :S] = k
-                vc[:, :S] = v
-            new_cache = {"k": kc, "v": vc, "len": lens + S}
-            o = blockwise_attention(q, k, v, causal=causal, q_offset=0,
-                                    sliding_window=sliding_window,
-                                    block=block)
+    def heads(w, b, n, rotate=True):
+        """x's projection onto ``n`` heads, rotated at the positions."""
+        y = x @ w.to(compute_dtype)
+        if b is not None:
+            y = y + b.to(compute_dtype)
+        y = y.reshape(B, S, n, head_dim)
+        return apply_rope(y, *rope) if rotate and rope is not None else y
+
+    q = heads(p["wq"], p.get("bq"), n_heads)
+    k = heads(p["wk"], p.get("bk"), n_kv_heads)
+    v = heads(p["wv"], p.get("bv"), n_kv_heads, rotate=False)
+
+    if cb is not None:
+        def every_head(name, t):
+            """``t``, the rank's heads of projection ``name`` (q, k or v),
+            as all of them: gathered over ``model`` where they split, else
+            projected from the whole leaf ``layer`` gathered."""
+            if tp is None or tp.m == 1:
+                return t
+            n, split = ((H, not tp.uneven) if name == "q"
+                        else (K, kv_sel is None))
+            if split:
+                return tp.comm.all_gather_dim(t, 2)
+            return heads(whole_p["w" + name], whole_p.get("b" + name), n,
+                         rotate=name != "v")
+        o, new_cache = _block_cache_attention(
+            cb, tp, q, k, v, kv_sel, cache, cache_slots, every_head,
+            causal=causal, sliding_window=sliding_window, block=block,
+            flash_decode=flash_decode, n_heads=H)
     else:
-        o = blockwise_attention(q, k, v, causal=causal, q_offset=0,
-                                sliding_window=sliding_window, block=block)
+        if kv_sel is not None:
+            sel = kv_sel.to(x.device)
+            k, v = k.index_select(2, sel), v.index_select(2, sel)
+        o, new_cache = _one_process_attention(
+            q, k, v, cache, causal=causal, sliding_window=sliding_window,
+            block=block, flash_decode=flash_decode)
 
     out = o.reshape(B, S, n_heads * head_dim) @ p["wo"].to(compute_dtype)
     if tp is not None:
         out = tp.leave(out)
     return out, new_cache
+
+
+def _dense_decode(q, k, v, kc, vc, lens, sliding_window):
+    """One token's attention over a whole cache ``kc``/``vc``, its K/V
+    written at each slot's length in place (wrapped on a ring): the
+    output [B, 1, H, hd]."""
+    B, W = q.shape[0], kc.shape[1]
+    # A window cache no larger than the window is a ring buffer: token
+    # p lives in slot p % W.
+    ring = bool(sliding_window) and W <= sliding_window
+    # Elsewhere, as with the JAX dynamic_update_slice, the index is
+    # clamped to the cache (slots that decode while idle run past
+    # max_len).
+    idx = lens % W if ring else torch.clamp(lens, max=W - 1)
+    if lens.dim() == 0:
+        # A one-element index: a 0-d one would read the length on the
+        # host, which the meta device (the dry run) cannot.
+        at = idx.reshape(1).long()
+        kc.index_copy_(1, at, k)
+        vc.index_copy_(1, at, v)
+    else:
+        rows = torch.arange(B, device=q.device)
+        kc[rows, idx] = k[:, 0]
+        vc[rows, idx] = v[:, 0]
+    if ring:
+        # Slot i holds the newest token at a position ≡ i (mod W), so
+        # every written slot is inside the window: only slots not yet
+        # written are masked (the JAX package's _ring_decode_attention).
+        return decode_attention(q, kc, vc, torch.clamp(lens + 1, max=W))
+    return decode_attention(q, kc, vc, lens + 1,
+                            sliding_window=sliding_window)
+
+
+def _one_process_attention(q, k, v, cache, *, causal, sliding_window,
+                           block, flash_decode):
+    """``attention``'s heads over the prompt, or with a cache in one
+    process: (o [B, S, H, hd], new_cache)."""
+    S = q.shape[1]
+    if cache is None:
+        return blockwise_attention(q, k, v, causal=causal, q_offset=0,
+                                   sliding_window=sliding_window,
+                                   block=block), None
+    kc, vc, lens = cache["k"], cache["v"], cache["len"]
+    W = kc.shape[1]
+    if S == 1:
+        fd = flash_decode if flash_decode is not None \
+            else current_flash_decode()
+        res = None
+        if fd is not None and lens.dim() == 0 and not sliding_window:
+            res = fd(q, kc, vc, k, v, lens)
+        if res is not None:
+            o, kc, vc = res
+        else:
+            o = _dense_decode(q, k, v, kc, vc, lens, sliding_window)
+        return o, {"k": kc, "v": vc, "len": lens + 1}
+    # Prefill into an empty cache. A cache smaller than the prompt
+    # keeps the last W keys at their ring slots: element j of the
+    # last-W slice holds position S-W+j, slot (j + S) % W.
+    if W < S:
+        kc.copy_(torch.roll(k[:, -W:], S % W, dims=1))
+        vc.copy_(torch.roll(v[:, -W:], S % W, dims=1))
+    else:
+        kc[:, :S] = k
+        vc[:, :S] = v
+    o = blockwise_attention(q, k, v, causal=causal, q_offset=0,
+                            sliding_window=sliding_window, block=block)
+    return o, {"k": kc, "v": vc, "len": lens + S}
+
+
+def _slot_content(t, W):
+    """A prompt's keys or values ``t`` [B, S, k, hd] as the W slots of an
+    empty cache: positions 0..S-1 then zeros, or, where the prompt is
+    longer than a ring of W, its last W at their slots p % W."""
+    S = t.shape[1]
+    if W < S:
+        return torch.roll(t[:, -W:], S % W, dims=1)
+    return F.pad(t, (0, 0, 0, 0, 0, W - S))
+
+
+def _block_cache_attention(cb, tp, q, k, v, kv_sel, cache, W, every_head,
+                           *, causal, sliding_window, block, flash_decode,
+                           n_heads):
+    """Attention with a process's cache blocks (``parallel.tp.CacheBlocks``)
+    of a cache of ``W`` slots: every kv head over the rank's block of the
+    slots. ``q``, ``k``, ``v``: the rank's heads (its own under tensor
+    parallelism, every head otherwise); ``every_head(name, t)`` gives all
+    of them from them. Returns (o over the rank's query heads, the new
+    cache).
+
+    A prompt runs the rank's heads over it as training does; the cache
+    takes its kv heads' slots: the rank's block of every head's, cut from
+    the whole where the rank computes every head, else one all-to-all of
+    its heads for the other ranks' blocks (``CacheBlocks.exchange``). A
+    decode step gathers the token's query and kv heads: flash decoding
+    over the slot blocks writes the token at its owner and combines the
+    partials over ``model``; the ring of a windowed layer, and any layer
+    without flash decoding, gathers its blocks whole, runs the one-process
+    decode, and keeps its block of the written cache. Under tensor
+    parallelism the rank's heads of the output are kept."""
+    kc, vc, lens = cache["k"], cache["v"], cache["len"]
+    S = q.shape[1]
+    if S > 1:
+        ks, vs = k, v
+        if kv_sel is not None:
+            sel = kv_sel.to(q.device)
+            ks, vs = k.index_select(2, sel), v.index_select(2, sel)
+        o = blockwise_attention(q, ks, vs, causal=causal, q_offset=0,
+                                sliding_window=sliding_window, block=block)
+        for c, name, t in ((kc, "k", k), (vc, "v", v)):
+            if tp is not None and kv_sel is None and tp.m > 1:
+                c.copy_(cb.exchange(_slot_content(t, W)))
+            else:
+                c.copy_(cb.block(_slot_content(every_head(name, t), W), 1))
+        return o, {"k": kc, "v": vc, "len": lens + S}
+    qa, ka, va = (every_head(n, t) for n, t in (("q", q), ("k", k),
+                                                  ("v", v)))
+    fd = flash_decode if flash_decode is not None else current_flash_decode()
+    if fd is not None and cb.splits(W) and lens.dim() == 0 \
+            and not sliding_window:
+        o = fd(qa, kc, vc, ka, va, lens)[0]
+    else:
+        kw, vw = cb.whole(kc, 1, W), cb.whole(vc, 1, W)
+        o = _dense_decode(qa, ka, va, kw, vw, lens, sliding_window)
+        if kw is not kc:
+            kc.copy_(cb.block(kw, 1))
+            vc.copy_(cb.block(vw, 1))
+    if tp is not None and tp.m > 1:
+        lo, hi = tp.head_range(n_heads)
+        o = o[:, :, lo:hi]
+    return o, {"k": kc, "v": vc, "len": lens + 1}
 
 
 # ---------------------------------------------------------------------------

@@ -34,8 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
-from ..parallel.ctx import (current_moe_impl, current_tensor_parallel,
-                            tensor_parallel_context)
+from ..parallel.ctx import (current_cache_blocks, current_moe_impl,
+                            current_tensor_parallel, tensor_parallel_context)
 from . import layers as L
 from .moe import MoEConfig, init_moe, moe_grouped
 from .rglru import init_rglru, rglru_block
@@ -267,12 +267,14 @@ def _window(cfg: ModelConfig, btype: str) -> int:
 def _attn_half(cfg: ModelConfig, p, x, cache=None, flash_decode=None,
                btype: str = "attn_moe"):
     """ln1 → attention → residual: (x, new_cache)."""
+    cb = current_cache_blocks() if cache is not None else None
     a, new_cache = L.attention(
         _part(p, "attn"), L.apply_norm(cfg.norm, x, p, "ln1"),
         n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
         rope_theta=cfg.rope_theta, causal=cfg.causal,
         sliding_window=_window(cfg, btype), block=cfg.attn_block,
-        cache=cache, flash_decode=flash_decode)
+        cache=cache, flash_decode=flash_decode,
+        cache_slots=None if cb is None else cb.slots(btype))
     return x + a, new_cache
 
 
@@ -526,9 +528,15 @@ def _final(cfg: ModelConfig, params, x):
 
 
 def forward(cfg: ModelConfig, params, batch, moe_impl=None):
-    """Full forward → logits [B, S, Vp] (vlm: the token region only)."""
+    """Full forward → logits [B, S, Vp] (vlm: the token region only).
+    Under tensor parallelism the group's logits whole: the vocabulary
+    blocks and the sequence chunks gathered over ``model``."""
     x = final_hidden(cfg, params, batch, moe_impl)
-    return x @ _unembedding(cfg, params).to(x.dtype)
+    tp = current_tensor_parallel()
+    if tp is not None and not _n_patches(cfg, batch):
+        x = tp.whole_seq(x)        # (a vlm's comes back whole)
+    logits = x @ _unembedding(cfg, params).to(x.dtype)
+    return logits if tp is None else tp.vocab_whole(logits)
 
 
 def final_hidden(cfg: ModelConfig, params, batch, moe_impl=None):
@@ -651,9 +659,12 @@ def loss_fn(cfg: ModelConfig, params, batch, moe_impl=None,
 def _block_cache(cfg: ModelConfig, btype: str, B: int, max_len: int,
                  per_slot_len: bool, dev) -> dict:
     dt = cfg.compute_dtype
+    # The meta device holds no values: an empty leaf, which writes nothing
+    # (a count of the dry run sees no work in it).
+    make = torch.empty if dev.type == "meta" else torch.zeros
 
     def zeros(*shape, dtype=dt):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+        return make(shape, dtype=dtype, device=dev)
 
     zlen = zeros(*((B,) if per_slot_len else ()), dtype=torch.int32)
     if btype in ("attn", "attn_moe", "local_attn"):
@@ -703,20 +714,30 @@ def decode_step(cfg: ModelConfig, params, token, cache, moe_impl=None,
     x = embed_inputs(cfg, params, {"tokens": token})
     x, new_cache = _run_stack(cfg, params, x, cache, moe_impl, flash_decode)
     x, unembed = _final(cfg, params, x)
-    return x @ unembed, new_cache
+    tp = current_tensor_parallel()
+    logits = x @ unembed
+    return (logits if tp is None else tp.vocab_whole(logits)), new_cache
 
 
-def prefill(cfg: ModelConfig, params, batch, max_len: int, moe_impl=None):
-    """Run the prompt through the stack, filling a new cache.
+def prefill(cfg: ModelConfig, params, batch, max_len: int, moe_impl=None,
+            cache=None):
+    """Run the prompt through the stack, filling a new cache (``cache``:
+    an empty one to fill, on a process mesh the rank's blocks).
 
     A vlm batch's ``patches`` go before the tokens and take the first
     cache slots, so ``max_len`` counts them. Returns (last-token logits
     [B, Vp], cache). An audio encoder has no cache: call ``forward``.
+    Under tensor parallelism the last position comes from the rank whose
+    sequence chunk holds it, and the logits are the whole vocabulary's.
     """
     tokens = batch["tokens"]
-    B, _ = tokens.shape
-    cache = init_cache(cfg, B, max_len, device=tokens.device)
+    if cache is None:
+        cache = init_cache(cfg, tokens.shape[0], max_len,
+                           device=tokens.device)
     x = embed_inputs(cfg, params, batch)
     x, new_cache = _run_stack(cfg, params, x, cache, moe_impl)
     x, unembed = _final(cfg, params, x)
-    return x[:, -1] @ unembed, new_cache
+    tp = current_tensor_parallel()
+    if tp is None:
+        return x[:, -1] @ unembed, new_cache
+    return tp.vocab_whole(tp.last(x) @ unembed), new_cache

@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from ..parallel.ctx import current_tensor_parallel
+from ..parallel.ctx import current_cache_blocks, current_tensor_parallel
 from .layers import randn
 
 C_RGLRU = 8.0
@@ -102,26 +102,39 @@ def _rglru_core(x, p, h0=None, whole=None):
 
 def rglru_block(p, x, state=None, conv_width: int = 4):
     """The Griffin recurrent block. x: [B, L, d] → (y, new_state);
-    ``state`` = dict(conv [B, W-1, w], h [B, w] fp32) for serving."""
+    ``state`` = dict(conv [B, W-1, w], h [B, w] fp32) for serving.
+
+    On a process mesh (an ambient ``parallel.tp.CacheBlocks``) ``state``
+    holds the rank's ``cache_spec`` blocks over the channels: under tensor
+    parallelism the rank's own, otherwise gathered whole and the new
+    state's blocks kept."""
     from .ssm import _causal_conv
-    tp = current_tensor_parallel() if state is None else None
+    tp = current_tensor_parallel()
+    cb = current_cache_blocks() if state is not None else None
+    if state is not None and cb is None:
+        tp = None
     if tp is not None:
         x = tp.enter(x)
     dt = x.dtype
     branch = x @ p["in_x"].to(dt)
     gate = F.gelu(x @ p["in_y"].to(dt), approximate="tanh")
     conv_state = state["conv"] if state is not None else None
+    h0 = state["h"] if state is not None else None
+    gathered = cb is not None and tp is None
+    if gathered:
+        w = p["lam"].shape[0]
+        conv_state, h0 = cb.whole(conv_state, -1, w), cb.whole(h0, 1, w)
     branch, conv_tail = _causal_conv(branch, p["conv_w"].to(dt),
                                      p["conv_b"].to(dt), conv_state)
-    h0 = state["h"] if state is not None else None
     h, h_last = _rglru_core(branch, p, h0,
                             None if tp is None else tp.gather_cols(branch))
     y = (h * gate) @ p["out"].to(dt)
-    if tp is not None:
-        return tp.leave(y), None
-    new_state = ({"conv": conv_tail, "h": h_last}
-                 if state is not None else None)
-    return y, new_state
+    new_state = None
+    if state is not None:
+        new_state = ({"conv": cb.block(conv_tail, -1),
+                      "h": cb.block(h_last, 1)} if gathered
+                     else {"conv": conv_tail, "h": h_last})
+    return (y if tp is None else tp.leave(y)), new_state
 
 
 def rglru_reference(x, p, h0=None):

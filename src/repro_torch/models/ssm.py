@@ -33,7 +33,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
-from ..parallel.ctx import current_tensor_parallel
+from ..parallel.ctx import current_cache_blocks, current_tensor_parallel
 from .layers import randn
 
 
@@ -158,8 +158,20 @@ def ssm_forward(p, x, sc: SSMConfig, state=None):
     ``state`` = dict(conv [B, W-1, d_conv], ssm [B, H, N, P]) for serving:
     a prompt (L > 1) fills it, a one-token step updates it. Without a state
     no state is returned.
+
+    On a process mesh (an ambient ``parallel.tp.CacheBlocks``) ``state``
+    holds the rank's ``cache_spec`` blocks: ``ssm`` over heads, ``conv``
+    over the contiguous channels of x ‖ B ‖ C. Under tensor parallelism
+    the ``ssm`` block is the rank's heads; the ``conv`` block is not the
+    rank's x channels with the whole B and C, so it is gathered whole over
+    ``model`` (as training gathers ``conv_w``) and the new one cut from the
+    rank's x channels gathered with the B and C columns. Otherwise the
+    blocks are gathered, the whole state updated and the blocks kept.
     """
-    tp = current_tensor_parallel() if state is None else None
+    tp = current_tensor_parallel()
+    cb = current_cache_blocks() if state is not None else None
+    if state is not None and cb is None:
+        tp = None
     if tp is not None:
         x = tp.enter(x)
     Bsz, L, d_model = x.shape
@@ -189,6 +201,13 @@ def ssm_forward(p, x, sc: SSMConfig, state=None):
 
     conv_in = torch.cat([xs, B_, C_], dim=-1)
     conv_state = state["conv"] if state is not None else None
+    ssm_state = state["ssm"] if state is not None else None
+    if cb is not None:
+        conv_state = cb.whole(conv_state, -1, d_in + 2 * N)
+        if tp is not None:
+            conv_state = conv_state[..., cols]
+        else:
+            ssm_state = cb.whole(ssm_state, 1, H)
     conv_out, conv_tail = _causal_conv(conv_in, conv_w.to(dt_f),
                                        conv_b.to(dt_f), conv_state)
     conv_out = F.silu(conv_out)
@@ -204,7 +223,7 @@ def ssm_forward(p, x, sc: SSMConfig, state=None):
         a = torch.exp(dt[:, 0] * A[None, :])                   # [B,H]
         dBx = torch.einsum("bh,bn,bhp->bhnp", dt[:, 0].to(dt_f), B_[:, 0],
                            xh[:, 0])
-        S = state["ssm"] * a[..., None, None].to(dt_f) + dBx
+        S = ssm_state * a[..., None, None].to(dt_f) + dBx
         y = torch.einsum("bn,bhnp->bhp", C_[:, 0], S)
         y = y + xh[:, 0] * D.to(dt_f)[None, :, None]
         y = y[:, None]                                         # [B,1,H,P]
@@ -230,7 +249,15 @@ def ssm_forward(p, x, sc: SSMConfig, state=None):
     y = (y.float() * torch.rsqrt(var + 1e-6)).to(dt_f)
     y = y * (1.0 + norm_w.to(dt_f))[None, None, :]
     out = y @ p["out_proj"].to(dt_f)
-    return (out, new_state) if tp is None else (tp.leave(out), None)
+    if cb is not None:
+        tail = new_state["conv"]
+        if tp is not None:
+            tail = torch.cat([tp.gather_cols(tail[..., :d_loc]),
+                              tail[..., d_loc:]], dim=-1)
+        new_state = {"conv": cb.block(tail, -1),
+                     "ssm": new_state["ssm"] if tp is not None
+                     else cb.block(new_state["ssm"], 1)}
+    return (out, new_state) if tp is None else (tp.leave(out), new_state)
 
 
 def ssd_reference(x, dt, A, B, C, D):

@@ -20,7 +20,12 @@ reference:
   it for a train step on a process mesh). ``models.model`` and
   ``models.layers.attention`` read it: the embedding and the cross
   entropy over the vocabulary blocks, the heads, the sequence-parallel
-  residual and the FSDP gathers of each layer.
+  residual and the FSDP gathers of each layer;
+* ``cache_blocks_context(cb)`` / ``current_cache_blocks()``: a serving
+  step's cache on a process mesh, of which each rank holds its
+  ``cache_spec`` blocks (:class:`repro_torch.parallel.tp.CacheBlocks`;
+  ``launch.steps`` sets it around a prefill or decode step there). The
+  attention, SSM and RG-LRU blocks read it where they get a cache.
 
 An explicit argument always wins over the ambient value.
 """
@@ -89,3 +94,12 @@ def moe_impl_context(impl):
 
 def current_moe_impl():
     return getattr(_CTX, "moe_impl", None)
+
+
+def cache_blocks_context(cb):
+    """Ambient cache placement of a serving step on a process mesh."""
+    return _ambient("cache_blocks", cb)
+
+
+def current_cache_blocks():
+    return getattr(_CTX, "cache_blocks", None)

@@ -225,6 +225,10 @@ def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
     all-gathered over the sequence; the all-gather's transpose sums the
     ranks' cotangents, as the data-parallel reduction expects of every
     rank's rows.
+    Where the sequence does not split (S == 1, a decode step, or S % ep)
+    the group's rows are routed whole by every rank, as the reference's
+    ``x_spec`` (data, None) places them: repeated rows as they are, zero1's
+    rows split over ``model`` all-gathered first.
 
     The router's grad is this rank's rows' alone: the data-parallel
     reduction (``launch.steps.reduce_grads``) sums it.
@@ -361,8 +365,15 @@ def make_moe_ep(mesh, epc: EPConfig, act: str = "swiglu", plan=None,
             return run([x])[0]
         S = x.shape[1]
         if S % ep or S == 1:
-            raise ValueError(f"{mode} splits the sequence over model: "
-                             f"{S} tokens over {ep} ranks")
+            # The sequence does not split (a decode step): the group's rows,
+            # which every rank routes, as the reference's x_spec (data,
+            # None) places them; zero1's rows split over model are
+            # gathered first and the rank keeps its own.
+            if rows_repeat:
+                return run([x])[0]
+            b = x.shape[0]
+            return run([comm.all_gather_dim(x, 0)])[0].narrow(
+                0, comm.rank * b, b)
         if rows_repeat:
             c = S // ep
             own = x[:, comm.rank * c:(comm.rank + 1) * c]

@@ -22,6 +22,15 @@ tree to, and give a per-layer tensor that spec without its layer entry.
 
 :func:`local_block` is the block of a tensor that the process at
 ``coords`` holds, :func:`assemble` its inverse over every rank's block.
+
+A serving cache is the port's tree (``models.model.init_cache``: one dict
+a layer, or a hybrid's ``{"super", "tail"}``) where the reference stacks
+``[L, ...]`` leaves: :func:`cache_specs` gives each leaf the reference's
+``cache_spec`` without its layer entry and refuses a spec that names one
+axis twice, as the reference's ``PartitionSpec`` raises
+``DuplicateSpecError`` (zero1 or ep_dp with rows split over ``model`` and a
+sequence the model axis splits too); :func:`cache_blocks` makes a rank's
+empty blocks and :func:`own_cache` cuts them from a whole cache.
 """
 
 from __future__ import annotations
@@ -440,3 +449,67 @@ def own_params(rules: ShardingRules, params, mesh):
             return tree
         return local_block(tree, spec, mesh, mesh.coords).clone()
     return own(params)
+
+
+# -- the serving cache -------------------------------------------------------
+
+
+def _cache_map(fn, *trees):
+    """``fn(name, jax_shape, stacked, *leaves)`` over the leaves of caches
+    of one tree (a per-layer list of dicts, or a hybrid's ``{"super",
+    "tail"}``): the same tree of its results. ``jax_shape`` is the shape of
+    the reference's leaf (``[L, ...]``, a hybrid position's ``[n_super,
+    ...]``; a tail layer's unstacked)."""
+    def layer(ds, lead):
+        return {k: fn(k, ((lead,) if lead else ()) + tuple(ds[0][k].shape),
+                      bool(lead), *(d[k] for d in ds)) for k in ds[0]}
+    first = trees[0]
+    if isinstance(first, dict):
+        return {"super": tuple(
+                    [layer([t["super"][pos][g] for t in trees], len(layers))
+                     for g in range(len(layers))]
+                    for pos, layers in enumerate(first["super"])),
+                "tail": [layer([t["tail"][i] for t in trees], 0)
+                         for i in range(len(first["tail"]))]}
+    return [layer([t[i] for t in trees], len(first))
+            for i in range(len(first))]
+
+
+def cache_specs(rules: ShardingRules, cache):
+    """The tree of ``cache``'s specs (``rules.cache_spec`` of the
+    reference's stacked leaf, its layer entry dropped). A spec that names an
+    axis twice raises ``ValueError``."""
+    def spec(name, shape, stacked, _leaf):
+        s = rules.cache_spec((name,), shape)
+        axes = spec_axes(s)
+        if len(set(axes)) != len(axes):
+            raise ValueError(
+                f"cache leaf {name!r} {shape}: the spec {s} names an axis "
+                f"twice (rows and another dim both split over it), which "
+                f"the reference's PartitionSpec refuses too "
+                f"(DuplicateSpecError)")
+        return s[1:] if stacked else s
+    return _cache_map(spec, cache)
+
+
+def cache_blocks(rules: ShardingRules, batch: int, max_len: int, mesh,
+                 device):
+    """A process's empty serving cache on a process mesh: zeros of its
+    ``cache_specs`` blocks of ``init_cache(rules.cfg, batch, max_len)``
+    (``batch`` the whole batch's rows) on ``device`` (``"meta"``: shapes
+    and dtypes alone)."""
+    from ..models.model import init_cache
+    whole = init_cache(rules.cfg, batch, max_len, device="meta")
+    return _cache_map(
+        lambda _n, _s, _st, leaf, spec: torch.zeros(
+            block_shape(leaf.shape, spec, mesh), dtype=leaf.dtype,
+            device=device),
+        whole, cache_specs(rules, whole))
+
+
+def own_cache(rules: ShardingRules, cache, mesh):
+    """The rank at ``mesh.coords``'s blocks of a whole ``cache``, copies."""
+    return _cache_map(
+        lambda _n, _s, _st, leaf, spec: local_block(
+            leaf, spec, mesh, mesh.coords).clone(),
+        cache, cache_specs(rules, cache))

@@ -45,7 +45,9 @@ model reads it (``models.model``, ``models.layers``, ``models.ssm``,
   (the SSM's gated RMSNorm);
 * ``moe(fn, h)``: the EP program (``parallel.ep``, mode tp_sp) on the
   rank's rows; without ``seq`` on the rank's chunk of the replicated
-  residual, the outputs all-gathered;
+  residual, the outputs all-gathered, or, where the sequence does not
+  split (a decode step's one token), on the group's rows, which every rank
+  routes, as the reference's ``x_spec`` places them;
 * ``layer(p, part)``: a layer's FSDP leaves all-gathered over ``data``
   (their grads reduce-scattered) and the small leaves the rank reads whole
   all-gathered over ``model`` (the shared kv heads' ``wk``/``wv``, the
@@ -53,8 +55,19 @@ model reads it (``models.model``, ``models.layers``, ``models.ssm``,
   recompute gathers again and one layer's whole weights are live at a
   time;
 * ``tokens(t)``: a batch's tokens, labels or frames over the group's whole
-  sequence; ``vocab_max``/``vocab_sum``: the cross entropy's statistics
-  over the vocabulary blocks.
+  sequence (``split_tokens=False``: the batch holds them whole, as a decode
+  step's one token); ``vocab_max``/``vocab_sum``: the cross entropy's
+  statistics over the vocabulary blocks.
+
+Serving (``launch.steps`` on a process mesh) adds :class:`CacheBlocks`:
+the cache's ``cache_spec`` blocks each rank holds, in every mode. A prefill
+keeps training's placement; a decode step's residual is replicated over
+``model`` (``seq=False``). The attention's kv cache holds every kv head
+over the rank's block of slots, so a prefill exchanges the rank's kv heads
+for its slots (one all-to-all) and a decode step gathers the new token's
+query and kv heads for flash decoding over the blocks
+(``parallel.flash_decode``); the SSM's conv state is gathered, the SSM's
+heads and the RG-LRU's channels line up with the rank's.
 
 A tensor replicated over ``model`` carries a partial share of its
 cotangent on each rank (``parallel.comm``): each rank's heads, channels,
@@ -69,7 +82,8 @@ from __future__ import annotations
 
 import torch
 
-from ..parallel.sharding import jax_leaves, spec_axes
+from ..parallel.sharding import (cache_blocks, cache_specs, jax_leaves,
+                                  spec_axes)
 
 # The parts of a layer's params that ``TensorParallel.layer`` places.
 PARTS = ("attn", "moe", "mlp", "ssm", "rglru")
@@ -77,9 +91,13 @@ PARTS = ("attn", "moe", "mlp", "ssm", "rglru")
 
 def _layer_specs(rules) -> dict:
     """(part, name) of each layer leaf -> its spec without the layer entry
-    (a stacked leaf's; a hybrid tail's is unstacked and has none)."""
+    (a stacked leaf's; a hybrid tail's is unstacked and has none). Made
+    once a rules object: a step that places itself when called (serving)
+    then runs no op to do so."""
+    if "_layer_specs" in rules.__dict__:
+        return rules._layer_specs
     from ..models.model import init_params
-    out = {}
+    out = rules._layer_specs = {}
     for path, shape, stacked in jax_leaves(init_params(rules.cfg,
                                                        device="meta")):
         if len(path) < 2 or path[-2] not in PARTS:
@@ -100,7 +118,8 @@ class TensorParallel:
     ``mesh``; ``seq``: sequence-parallel residual (the reference's
     ``seq_parallel``)."""
 
-    def __init__(self, mesh, rules, seq: bool = True):
+    def __init__(self, mesh, rules, seq: bool = True,
+                 split_tokens: bool = True):
         cfg = rules.cfg
         if rules.mode != "tp_sp":
             raise ValueError(f"tensor parallelism is the tp_sp mode's, not "
@@ -108,6 +127,7 @@ class TensorParallel:
         self.comm = mesh.comm
         self.m, self.rank = self.comm.ep, self.comm.rank
         self.seq = seq
+        self.split_tokens = split_tokens
         types = set(cfg.layer_types())
         # Query heads need not split (``head_range``); these channels do.
         need = {}
@@ -171,6 +191,24 @@ class TensorParallel:
         the residual: with ``seq`` the rank's chunk."""
         return self.seq_chunk(x) if self.seq else x
 
+    def last(self, x):
+        """The last position of the residual ``x`` [b, s, d] as [b, d] on
+        every rank: with ``seq`` it lies in the last rank's chunk, and each
+        rank's last position is all-gathered."""
+        if self.seq and self.m > 1:
+            return self.comm.all_gather_dim(x[:, -1:], 1)[:, -1]
+        return x[:, -1]
+
+    def whole_seq(self, x):
+        """A tensor laid out as the residual [b, s, ...] over the group's
+        whole sequence."""
+        return self.comm.all_gather_dim(x, 1) if self.seq else x
+
+    def vocab_whole(self, logits):
+        """Logits over the rank's vocabulary block as the whole vocabulary
+        (its last dim)."""
+        return self.gather_cols(logits) if self.split_vocab else logits
+
     def own_chunk(self, x):
         """The rank's sequence chunk of the residual ``x``."""
         return x if self.seq else self.seq_chunk(x)
@@ -229,8 +267,10 @@ class TensorParallel:
 
     def moe(self, fn, h):
         """``fn`` (the EP program) on the rank's rows of ``h``: without
-        ``seq`` its chunk, the outputs all-gathered over the sequence."""
-        if self.seq or self.m == 1:
+        ``seq`` its chunk, the outputs all-gathered over the sequence; where
+        the sequence does not split, the group's rows whole."""
+        S = h.shape[1]
+        if self.seq or self.m == 1 or S == 1 or S % self.m:
             return fn(h)
         return self.comm.all_gather_dim(fn(self.own_chunk(h)), 1)
 
@@ -292,8 +332,9 @@ class TensorParallel:
     # -- tokens and the vocabulary -------------------------------------------
     def tokens(self, t):
         """A batch's tokens, labels or frames [b, S/M, ...] over the
-        group's whole sequence."""
-        return self.comm.all_gather_dim(t, 1)
+        group's whole sequence (held whole already without
+        ``split_tokens``)."""
+        return self.comm.all_gather_dim(t, 1) if self.split_tokens else t
 
     def vocab_lo(self, block: int) -> int:
         """The first vocabulary index of this rank's block of ``block``
@@ -310,3 +351,69 @@ class TensorParallel:
         """The sum of every rank's ``x``, a statistic every rank consumes
         alike (its backward is the identity)."""
         return self.comm.all_reduce_sum(x, partial_grads=False)
+
+
+class CacheBlocks:
+    """A serving step's cache on a process mesh: this rank's blocks of
+    ``init_cache(cfg, batch, max_len)`` by the reference's ``cache_spec``
+    (``sharding.cache_specs``, which refuses a spec naming an axis twice),
+    in every mode (``batch`` is the whole batch's rows). Rows over the data
+    axes are the rank's already; every other split is over ``model``, and
+    a dim is split exactly where the model axis divides it, as the specs'
+    rule has it: k/v over the slots, the SSM state over heads, the conv
+    states and the RG-LRU's ``h`` over channels."""
+
+    def __init__(self, mesh, rules, batch: int, max_len: int):
+        from ..models.model import init_cache
+        self.mesh, self.rules, self.cfg = mesh, rules, rules.cfg
+        self.comm = mesh.comm
+        self.m, self.rank = self.comm.ep, self.comm.rank
+        self.batch, self.max_len = batch, max_len
+        # A spec that names an axis twice raises here.
+        cache_specs(rules, init_cache(rules.cfg, batch, max_len,
+                                      device="meta"))
+
+    def alloc(self, device):
+        """The rank's empty blocks on ``device``
+        (``sharding.cache_blocks``)."""
+        return cache_blocks(self.rules, self.batch, self.max_len, self.mesh,
+                            device)
+
+    def slots(self, btype: str) -> int:
+        """An attention layer's slots in the whole cache: a ``local_attn``
+        ring's min(max_len, window), else ``max_len``."""
+        if btype == "local_attn":
+            return min(self.max_len, self.cfg.sliding_window or self.max_len)
+        return self.max_len
+
+    def splits(self, n: int) -> bool:
+        """Whether the model axis splits a cache dim of ``n`` (whole)."""
+        return self.m > 1 and n % self.m == 0
+
+    def block(self, t, dim: int):
+        """The rank's block along ``dim`` of ``t``, which every rank holds
+        whole."""
+        n = t.shape[dim]
+        if not self.splits(n):
+            return t
+        c = n // self.m
+        return t.narrow(dim, self.rank * c, c)
+
+    def whole(self, t, dim: int, n: int):
+        """The rank's block ``t`` of a dim of ``n`` as the whole, gathered
+        over ``model`` where it splits."""
+        return self.comm.all_gather_dim(t, dim) if self.splits(n) else t
+
+    def exchange(self, content):
+        """``content`` [b, W, k, hd], the rank's k kv heads over every slot
+        of a cache of W, as every rank's heads over this rank's block of
+        slots [b, W/M, M·k, hd]: one all-to-all over ``model`` (where W does
+        not split, an all-gather of the heads). Every rank sends and
+        receives, whatever heads it holds."""
+        if not self.splits(content.shape[1]):
+            return self.comm.all_gather_dim(content, 2)
+        b, W, k, hd = content.shape
+        send = content.reshape(b, self.m, W // self.m, k, hd).transpose(0, 1)
+        got = self.comm.all_to_all([send.contiguous()])[0]
+        return got.permute(1, 2, 0, 3, 4).reshape(b, W // self.m,
+                                                  self.m * k, hd)

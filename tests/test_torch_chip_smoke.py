@@ -564,6 +564,27 @@ def test_dist_tp_phase_runs_on_the_cpu():
         "collectives_per_rank_per_step"]             # the GLU's pairing
     assert "all-to-all" not in fams["hubert-xlarge"][
         "collectives_per_rank_per_step"]             # GELU lines up
+    # (b)'s fp32 yardstick runs for mamba2 alone.
+    assert [a for a, row in fams.items() if row["bf16_vs_fp32"]] == list(
+        chip_smoke.DIST_FP32_ARCHS)
+    # (c) serving in the same spawn: every layout's logits within the
+    # gate of its one-process run, its cache its cache_spec blocks.
+    serving = out["families"]["serving"]
+    assert set(serving) == set(chip_smoke.SERVE_LAYOUTS)
+    for name, row in serving.items():
+        arch, mode, rows = chip_smoke.SERVE_LAYOUTS[name]
+        assert (row["mode"], row["rows"]) == (mode, rows)
+        assert row["logit_rel_gap_max"] <= chip_smoke.LOGIT_TOL
+        if arch == "hubert-xlarge":                  # a forward, no cache
+            assert row["decode_ms_median"] is None
+            continue
+        assert row["cache_bytes_per_process"] == [
+            [row["cache_bytes_by_spec"]] * 2] * chip_smoke.DIST_PROCS
+        assert len(row["comm_s_per_step"]) == chip_smoke.SERVE_NEW
+        assert "all-reduce" in row["decode_collectives"]   # flash decoding
+    assert "all-to-all" in serving[f"{chip_smoke.ARCH}/tp_sp"][
+        "prefill_collectives"]           # the cache's slots and EP's tokens
+    assert serving[f"{chip_smoke.ARCH}/zero1"]["rows"] == 2
 
 
 def test_dist_expected_bytes_at_full_width():
@@ -624,9 +645,12 @@ def test_prod_dryrun_phase_runs_on_the_cpu():
     cells = [("llama3.2-3b", "tp_sp", "2x2"),
              ("granite-moe-3b-a800m", "zero1", "2x2x2"),
              ("granite-moe-3b-a800m", "ep_dp", "2x2")]
+    serve_cells = [("granite-moe-3b-a800m", "decode_32k"),
+                   ("recurrentgemma-2b", "long_500k")]
     counts = chip_smoke.BackgroundCounts({"prod": chip_smoke.prod_cells(
         smoke=True, cells=cells,
-        shape=chip_smoke.ShapeSpec("train_4k", 32, 8, "train"))}, workers=2)
+        shape=chip_smoke.ShapeSpec("train_4k", 32, 8, "train"),
+        serve_cells=serve_cells, serve_mesh="2x2")}, workers=2)
     runs = {}
     for name, fsdp in chip_smoke.DIST_TP_RUNS.items():
         run = ttrain.main(
@@ -639,12 +663,22 @@ def test_prod_dryrun_phase_runs_on_the_cpu():
         runs[name] = {"collectives_per_rank_per_step": rec["collectives"],
                       "comm_bytes_per_rank_per_step":
                           rec["comm_bytes_per_rank"]}
-    out = chip_smoke.run_prod_dryrun(runs, counts, smoke=True, seq=32)
+    served = chip_smoke.dist_serve_spawn(f"{chip_smoke.ARCH}/tp_sp")
+    out = chip_smoke.run_prod_dryrun(runs, counts, smoke=True, seq=32,
+                                     served=served)
     assert out["phase"] == "dryrun_meshes"
+    serve = out["counted_dist_tp"].pop("serve")
     for name, row in out["counted_dist_tp"].items():
         assert row["forward_collectives"] == row["processes_collectives"]
         assert row["all_transfer_bytes"] > row["forward_bytes"] > 0
+    for step, row in serve.items():
+        assert row["forward_collectives"] == row["processes_collectives"]
+        assert row["forward_bytes"] == row["processes_bytes"] > 0
     assert not out["failures"] and not out["flops_below_floor"]
-    assert [(r["mode"], r["mesh"], r["chips"]) for r in out["rows"]] == [
-        ("tp_sp", "2x2", 4), ("zero1", "2x2x2", 8), ("ep_dp", "2x2", 4)]
+    assert [(r["mode"], r["mesh"], r["chips"], r["shape"])
+            for r in out["rows"]] == [
+        ("tp_sp", "2x2", 4, "train_4k"), ("zero1", "2x2x2", 8, "train_4k"),
+        ("ep_dp", "2x2", 4, "train_4k"), ("tp_sp", "2x2", 4, "decode_32k"),
+        ("tp_sp", "2x2", 4, "long_500k")]
     assert len(chip_smoke.PROD_CELLS) == 18
+    assert len(chip_smoke.PROD_SERVE_CELLS) == 8

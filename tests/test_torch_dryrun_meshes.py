@@ -16,7 +16,9 @@ heads (2 kv) and gemma with 2 at 1x4, in 4 ``gloo`` processes, against
 JAX's tp_sp step on 4 forced host devices at 1e-5 in fp32. (e) Rows
 repeated over ``model`` (2x2, a global batch of 2, granite): zero1 and
 ep_dp across the processes against the one-process step. Then the CLI on
-a production mesh: train cells counted, serving cells pending.
+a production mesh, train and serving cells counted, and serving cells of
+llama and gemma on 16x16 in tp_sp (gemma's ranks past its 8 heads join
+every transfer).
 """
 
 import ast
@@ -588,9 +590,11 @@ def test_repeated_rows_route_each_ranks_chunk_once(mode):
 
 def test_cli_counts_train_cells_and_lists_serving_ones_pending(tmp_path,
                                                                 monkeypatch):
-    """``--shape train_4k`` and a serving shape on 16x16 in ep_dp, with
-    granite cut to 2 layers: one row (256 chips, per-device FLOPs that
-    cover the step), the serving cell pending and not failed."""
+    """Every cell of granite, cut to 2 layers, on 16x16 in ep_dp: the
+    train step, the prefill_32k and the decode_32k cells are all counted
+    (256 chips, per-device FLOPs that cover the step: FLOPs a device x
+    chips >= model_flops - lookup_flops), with 0 failures and no list of
+    pending cells: the serving steps run on a process mesh too."""
     cut = dataclasses.replace(get_config(GRANITE), n_layers=2)
     monkeypatch.setattr(D, "get_config", lambda arch: cut)
     out = tmp_path / "dry.json"
@@ -599,12 +603,40 @@ def test_cli_counts_train_cells_and_lists_serving_ones_pending(tmp_path,
                              "--out", str(out)])
     data = json.loads(out.read_text())
     assert not failures and data["failures"] == []
-    assert [r["shape"] for r in rows] == ["train_4k"]
-    row = rows[0]
-    assert (row["chips"], row["mesh"], row["mode"], row["ep_mode"]) == (
-        256, "16x16", "ep_dp", "baseline")
-    floor = row["model_flops"] - D.lookup_flops(cut, "train_4k")
-    assert row["flops_per_dev"] * row["chips"] >= floor
-    assert set(row["collectives"]) >= {"all-to-all", "all-reduce"}
-    assert {tuple(p) for p in data["pending"]} == {
-        (GRANITE, s, "16x16") for s in ("prefill_32k", "decode_32k")}
+    assert "pending" not in data
+    assert [r["shape"] for r in rows] == ["train_4k", "prefill_32k",
+                                          "decode_32k"]
+    for row in rows:
+        assert (row["chips"], row["mesh"], row["mode"], row["ep_mode"]) \
+            == (256, "16x16", "ep_dp", "baseline")
+        floor = row["model_flops"] - D.lookup_flops(cut, row["shape"])
+        assert row["flops_per_dev"] * row["chips"] >= floor
+        assert set(row["collectives"]) >= {"all-to-all", "all-gather"}
+
+
+# gemma-2b's 8 query heads over 16 ranks: ranks 8 to 15 hold none.
+SERVE_CELLS = {"llama3.2-3b": (0,), "gemma-2b": (0, 8)}
+
+
+@pytest.mark.parametrize("arch", list(SERVE_CELLS))
+def test_decode_cell_counted_on_the_production_mesh(arch):
+    """decode_32k of ``arch`` (cut to 2 layers) on 16x16 in tp_sp: rank 0's
+    decode step over its cache blocks counts FLOPs that cover the step, a
+    rank's cache block is a 16th of the slots of its group's rows, and
+    gemma's rank 8, which holds no query head, makes the same transfers
+    with the same bytes as rank 0."""
+    cfg = dataclasses.replace(get_config(arch), n_layers=2)
+    sp = SHAPES["decode_32k"]
+    rfs = [D.count_cell(cfg, sp, counting_mesh((16, 16), rank),
+                        **D.step_policy(cfg))[0] for rank in SERVE_CELLS[arch]]
+    rf = rfs[0]
+    floor = rf.model_flops_global - D.lookup_flops(cfg, sp)
+    assert rf.flops_per_device * rf.chips >= floor
+    cache = 2 * cfg.n_layers * (sp.global_batch // 16) * (sp.seq_len // 16) \
+        * cfg.n_kv_heads * cfg.hd * 2
+    assert rf.arg_bytes > cache
+    assert {"all-gather", "all-reduce"} <= set(rf.coll_counts)
+    for other in rfs[1:]:
+        assert other.coll_counts == rf.coll_counts
+        assert other.collective_bytes == rf.collective_bytes
+        assert other.coll_forward == rf.coll_forward

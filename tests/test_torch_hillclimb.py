@@ -6,7 +6,10 @@ set ``XLA_FLAGS`` to 512 host devices, which would reach every later JAX
 test of the same worker. Its cells, its variant if-chain and
 ``compile_variant``'s defaults are the table the port's must equal. The
 counts run a smoke config's real step on the meta device over four
-virtual ranks, and are held to a CPU run of the same step.
+virtual ranks, and are held to a CPU run of the same step. On the
+reference's 16x16 mesh (the CLI's default) the cells' variants count rank
+0 of the counting mesh: llama's decode without flash decoding moves its
+cache, and granite's training variants all count.
 """
 
 import ast
@@ -210,7 +213,8 @@ def test_printed_line_and_out_json(tmp_path, monkeypatch):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         H.main(["--cell", "granite_train", "--variants",
-                "baseline,ep_dp_baselinea2a", "--out", str(out)])
+                "baseline,ep_dp_baselinea2a", "--mesh", "1x4",
+                "--out", str(out)])
     lines = [ln for ln in buf.getvalue().splitlines()
              if not ln.startswith("#")]
     m = [LINE.match(ln) for ln in lines]
@@ -224,6 +228,55 @@ def test_printed_line_and_out_json(tmp_path, monkeypatch):
         assert keys | {"tag", "args_gb", "temp_gb"} <= set(r)
     assert rows[1]["collectives"] == {"all-to-all": rows[1]["collectives"][
         "all-to-all"]}
+
+
+def _main_rows(monkeypatch, tmp_path, argv, n_layers=2):
+    """``main(argv)``'s JSON rows, each cell's arch cut to ``n_layers``."""
+    from repro_torch.configs import get_config
+    monkeypatch.setattr(H, "get_config", lambda arch: dataclasses.replace(
+        get_config(arch), n_layers=n_layers))
+    out = tmp_path / "rows.json"
+    with contextlib.redirect_stdout(io.StringIO()):
+        H.main(argv + ["--out", str(out)])
+    return json.loads(out.read_text())
+
+
+def test_decode_without_flash_decoding_moves_the_cache(monkeypatch,
+                                                       tmp_path):
+    """``--cell llama_decode`` on the default 16x16 (rank 0 of the counting
+    mesh, 256 chips): ``flashdecode_off`` gathers each layer's cache blocks
+    over ``model``, so it counts more collective bytes and more bytes a
+    device than ``baseline``, whose flash decoding combines statistics."""
+    base, off = _main_rows(monkeypatch, tmp_path, [
+        "--cell", "llama_decode", "--variants", "baseline,flashdecode_off"])
+    assert [r["tag"] for r in (base, off)] == ["baseline(tp_sp)",
+                                               "decode_dense_gspmd"]
+    assert base["mesh"] == off["mesh"] == "16x16"
+    assert base["chips"] == 256
+    assert off["collective_bytes_per_dev"] > 5 * base[
+        "collective_bytes_per_dev"] > 0
+    assert off["bytes_per_dev"] > base["bytes_per_dev"]
+
+
+def test_granite_train_variants_count_on_the_production_mesh(monkeypatch,
+                                                             tmp_path):
+    """Every variant of ``granite_train`` counts on 16x16 with no failure,
+    each in its mode: EP moves tokens in each, ep_dp's baseline
+    all-to-all where its ring permutes."""
+    variants = ["baseline", "zero1", "zero1_noremat", "ep_dp",
+                "ep_dp_savemoe", "ep_dp_baselinea2a", "nosp", "opt"]
+    rows = _main_rows(monkeypatch, tmp_path, [
+        "--cell", "granite_train", "--variants", ",".join(variants),
+        "--mesh", "16x16"])
+    assert [r["variant"] for r in rows] == variants
+    for r in rows:
+        assert r["chips"] == 256 and r["flops_per_dev"] > 0
+        assert r["collective_bytes_per_dev"] > 0
+    by = {r["variant"]: r for r in rows}
+    assert "all-to-all" in by["ep_dp_baselinea2a"]["collectives"]
+    assert "collective-permute" in by["ep_dp"]["collectives"]
+    assert by["zero1_noremat"]["flops_per_dev"] < by["zero1"][
+        "flops_per_dev"]
 
 
 def test_unknown_variant_is_an_error():
