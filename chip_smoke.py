@@ -301,6 +301,31 @@ Phases, each printing one JSON line:
    transfer (``comm.stats.seconds``), the rest of its step being compute
    and waits for the other ranks.
 
+19b. dist_dropless — dropless training across processes: ``launch.train
+   --nproc DIST_PROCS --backend gloo --dropless`` on the one card in each
+   of DROPLESS_DIST_MODES (ep_dp, the reference README's, then tp_sp, the
+   reference's default), granite at full width cut to DIST_LAYERS layers,
+   mesh DIST_MESH, bf16 with fp32 AdamW, remat, DIST_STEPS steps of
+   DIST_BATCH x DROPLESS_DIST_SEQ tokens (4,096, phase 8's fragment and
+   phase 9's parity step), ``DroplessConfig(ep = the model axis)``: every
+   process gathers the whole batch and every expert and runs the whole
+   fragment (``launch.dropless.MeshRows``). Gates: step 0's loss within
+   LOSS_TOL and each grad leaf's norm within GNORM_TOL of the one-process
+   dropless step on the same global batch and params
+   (``dist_dropless_case``); finite losses and grad norms; every process
+   2 x DIST_LAYERS SSC lookups a step, all misses on step 0; each
+   process's ``gmm`` launches a step, all on the fp32 bodies (tiled,
+   small-row), equal every other process's, FRAGMENT_GMM_PER_EXPERT a
+   routed expert a layer, and no other kernel (``dist_dropless_check``;
+   the one-process step's printed beside: a bf16 near tie may route a
+   rarely chosen expert otherwise); params and optimizer state
+   the bytes of their spec blocks. Printed: step ms, collectives, bytes
+   and ``comm_s_per_step`` a rank by kind, peaks, each process's
+   ``ssc_*`` counters. Both modes run in one spawn of the processes
+   (``train.main_runs``), as phase 19's two runs and phase 20 (a)'s two
+   do. The path ``dist_dropless`` of the ``kernels`` line sums the
+   processes' launches.
+
 20. dist_tp — tp_sp across processes: phase 19's setup (``launch.train
    --nproc DIST_PROCS --backend gloo --n-layers DIST_LAYERS``, granite at
    full width cut to DIST_LAYERS layers, mesh DIST_MESH, bf16 with fp32
@@ -505,8 +530,10 @@ DROPLESS_TIMED_ROWS = 683       # an expert's mean share: 4096 x 8 / 48
 # fp32 gmm's rows must not depend on the call's row count: C = 1 ... this,
 # across both fp32 bodies (the small-row body under FP32_TILED_MIN_ROWS).
 ROW_BITS_MAX = 32
-# Full-depth dropless training: steps of 1 x 4096 tokens, the first warm-up.
-DROPLESS_STEPS = 3
+# Full-depth dropless training: steps of 1 x 4096 tokens, the first warm-up
+# (cut from 3 to make room for phase 19b: a step there is host-bound in
+# good part, the executor's walk and a compile a lookup).
+DROPLESS_STEPS = 2
 # The same step when remat checkpointed each whole block, so that the
 # backward ran every fragment's forward again (PERF.md §5; NVIDIA H100 80GB
 # HBM3, 700.00 W): printed beside this run's numbers, compared with nothing.
@@ -524,9 +551,10 @@ ELASTIC_EP, ELASTIC_DEAD = 4, (1, 3)
 # SLO_SLOTS busy slots and --max-queue ONLINE_QUEUE, so that the first
 # REQUESTS - ONLINE_QUEUE offers are shed, each served request
 # ONLINE_MAX_NEW new tokens (cut from MAX_NEW to keep the script within
-# its time: the host-bound run takes ~1.6 s a decode step).
+# its time: the host-bound run takes ~1.6 s a decode step; cut from 16
+# to make room for phase 19b).
 SWAP_LAYERS, SWAP_AT, MAX_NEW_SWAP = 2, 2, 8
-SLO_SLOTS, ONLINE_QUEUE, ONLINE_MAX_NEW = 6, 12, 16
+SLO_SLOTS, ONLINE_QUEUE, ONLINE_MAX_NEW = 6, 12, 8
 # fp32 gmm calls timed at decode-tile row counts (E = 1, both GMM widths).
 DECODE_TILE_ROWS = (1, 8)
 # Expert parallelism (phase 14): EP virtual ranks on mesh 1 x EP, the
@@ -619,6 +647,17 @@ E2E_STEPS = 10
 DIST_PROCS, DIST_MESH, DIST_LAYERS, DIST_STEPS = 4, (2, 2), 2, 2
 DIST_BATCH = 4
 DIST_MODES = ("zero1", "ep_dp")
+# Dropless training across processes (phase 19b): phase 19's processes,
+# mesh, layers and steps with ``--dropless`` (DroplessConfig(ep = the model
+# axis), the launcher's default bucket), DIST_BATCH rows x DROPLESS_DIST_SEQ
+# tokens (4,096: phase 8's fragment and phase 9's parity step), in ep_dp
+# (the reference README's mode) and tp_sp (the reference's default).
+DROPLESS_DIST_SEQ = 1024
+DROPLESS_DIST_MODES = ("ep_dp", "tp_sp")
+# A routed expert's gmm calls in the fragment a layer a step: GMM1 and GMM2
+# forward, the backward's recompute of both, their activation grads and
+# their weight grads (an expert that no token picks has no tile).
+FRAGMENT_GMM_PER_EXPERT = 8
 # Phase 20: phase 19's setup in mode tp_sp, without then with FSDP (the
 # run's name -> make_steps' fsdp=), the last one checkpointed.
 DIST_TP_RUNS = {"tp_sp": False, "tp_sp_fsdp": True}
@@ -640,8 +679,10 @@ DIST_FAMILY_STEPS = 2
 # (EP through the GMM kernels) in tp_sp and, at SERVE_REPEAT_ROWS rows, in
 # zero1 and ep_dp (2 rows on 2x2 repeat over model; 4 would split over both
 # axes, a cache spec naming model twice, which both packages refuse); the
-# other families in tp_sp.
-SERVE_PROMPT, SERVE_SMOKE_PROMPT, SERVE_NEW = 512, 16, 8
+# other families in tp_sp. SERVE_NEW was cut from 8 to make room for phase
+# 19b (host-bound steps over the loopback; the rings still wrap at the
+# first).
+SERVE_PROMPT, SERVE_SMOKE_PROMPT, SERVE_NEW = 512, 16, 4
 SERVE_PROMPTS = {"recurrentgemma-2b": 2048}
 SERVE_REPEAT_ROWS = 2
 SERVE_LAYOUTS = {f"{ARCH}/tp_sp": (ARCH, "tp_sp", DIST_BATCH),
@@ -3674,29 +3715,47 @@ def dist_launches_per_step() -> dict:
     return {k: DIST_LAYERS * F * n for k, n in TRAIN_LAUNCHES.items() if n}
 
 
-def dist_run_case(pcfg, mode, want, *, smoke=False, dev="cuda",
-                  seq=TRAIN_SEQ, fsdp=None, ckpt=None):
-    """One ``launch.train --nproc DIST_PROCS --backend gloo`` run of
-    phases 19 and 20 in ``mode`` (``fsdp``: ``train.main(fsdp=)``), held
-    to ``want`` (``dist_virtual_case``), its processes' params and state
-    to their spec blocks, their launches to ``dist_launches_per_step``;
-    with ``ckpt`` (a directory) the last step saves there, and its restore
-    is checked. Returns (the run's row, each process's launches)."""
+def dist_runs(pcfg, cases, *, smoke=False, dev="cuda", seq=TRAIN_SEQ):
+    """Runs of phases 19, 19b and 20 (a): ``launch.train --nproc DIST_PROCS
+    --backend gloo``, one a case (a dict of ``dist_run_case``'s keywords:
+    ``mode``, ``want``, ``fsdp``, ``ckpt``, ``dropless``), all in one spawn
+    of the processes (``train.main_runs``), each held by ``dist_run_case``.
+    Returns (the spawn's seconds, each case's (row, each process's
+    launches))."""
+    argvs = []
+    for c in cases:
+        argvs.append(["--arch", ARCH, "--nproc", str(DIST_PROCS), "--mesh",
+                      "x".join(map(str, DIST_MESH)), "--mode", c["mode"],
+                      "--backend", "gloo", "--device", dev, "--seq",
+                      str(seq), "--global-batch", str(DIST_BATCH),
+                      "--steps", str(DIST_STEPS), "--lr", "1e-3",
+                      "--n-layers", str(DIST_LAYERS)]
+                     + (["--smoke"] if smoke else [])
+                     + (["--dropless"] if c.get("dropless") else []))
+        if c.get("ckpt") is not None:     # one checkpoint, at the end
+            argvs[-1] += ["--ckpt-dir", c["ckpt"], "--ckpt-every",
+                          str(DIST_STEPS)]
+    t = time.perf_counter()
+    runs = train_mod.main_runs(argvs, fsdp=[c.get("fsdp") for c in cases])
+    wall = time.perf_counter() - t
+    return wall, [dist_run_case(pcfg, run, dev=dev, seq=seq, **c)
+                  for c, run in zip(cases, runs)]
+
+
+def dist_run_case(pcfg, run, *, mode, want, dev="cuda", seq=TRAIN_SEQ,
+                  fsdp=None, ckpt=None, dropless=False):
+    """One run of ``dist_runs`` (``run``, its ``TrainRun``) in ``mode``
+    (``fsdp``: ``train.main(fsdp=)``), held to ``want``
+    (``dist_virtual_case``, or phase 19b's ``dist_dropless_case``), its
+    processes' params and state to their spec blocks, their launches to
+    ``dist_launches_per_step`` (``dropless``: ``--dropless``,
+    ``dist_dropless_check``); with ``ckpt`` (a directory) its last step
+    saved there, and the restore is checked. Returns (the run's row, each
+    process's launches)."""
     cuda = torch.device(dev).type == "cuda"
     names = ["/".join(map(str, p)) for p, _, _ in
              sharding.jax_leaves(M.init_params(pcfg, device="meta"))]
-    per_step = dist_launches_per_step()
-    argv = ["--arch", ARCH, "--nproc", str(DIST_PROCS), "--mesh",
-            "x".join(map(str, DIST_MESH)), "--mode", mode,
-            "--backend", "gloo", "--device", dev, "--seq", str(seq),
-            "--global-batch", str(DIST_BATCH), "--steps",
-            str(DIST_STEPS), "--lr", "1e-3", "--n-layers",
-            str(DIST_LAYERS)] + (["--smoke"] if smoke else [])
-    if ckpt is not None:     # one checkpoint, at the end
-        argv += ["--ckpt-dir", ckpt, "--ckpt-every", str(DIST_STEPS)]
-    t = time.perf_counter()
-    run = train_mod.main(argv, fsdp=fsdp)
-    wall = time.perf_counter() - t
+    per_step = None if dropless else dist_launches_per_step()
     log, ranks = run.metrics_log, run.ranks
     if not all(math.isfinite(m["loss"])
                and math.isfinite(m["grad_norm"]) for m in log):
@@ -3712,7 +3771,7 @@ def dist_run_case(pcfg, mode, want, *, smoke=False, dev="cuda",
     n_params, param_bytes = dist_expected_params(pcfg, mode, fsdp)
     step_ms = [m["step_ms"] for m in log]
     row = {
-        "wall_s": wall, "losses": [m["loss"] for m in log],
+        "seconds": ranks[0]["seconds"], "losses": [m["loss"] for m in log],
         "grad_norms": [m["grad_norm"] for m in log],
         "step_ms": step_ms,
         "step_ms_median_after_warmup": statistics.median(
@@ -3750,13 +3809,17 @@ def dist_run_case(pcfg, mode, want, *, smoke=False, dev="cuda",
             or any(b != param_bytes for b in row["param_bytes_per_process"]):
         raise AssertionError(f"{mode}: params or optimizer state are not "
                              f"the spec's blocks: {row}")
-    want_l = {k: DIST_STEPS * n for k, n in per_step.items()}
-    if cuda and any(
-            {k: r[k] for k in want_l} != want_l
-            or t != {k: want_l[k] for k in t}
-            for r, t in zip(launches, tc)):
-        raise AssertionError(f"{mode}: launches {launches} (tensor "
-                             f"cores {tc}) != {want_l} a process")
+    if dropless:
+        row.update(dist_dropless_check(mode, ranks, launches, tc, want,
+                                       cuda, pcfg.moe.n_experts))
+    else:
+        want_l = {k: DIST_STEPS * n for k, n in per_step.items()}
+        if cuda and any(
+                {k: r[k] for k in want_l} != want_l
+                or t != {k: want_l[k] for k in t}
+                for r, t in zip(launches, tc)):
+            raise AssertionError(f"{mode}: launches {launches} (tensor "
+                                 f"cores {tc}) != {want_l} a process")
     if ckpt is not None:
         row["restore"] = dist_restore_check(
             pcfg, mode, ckpt_mod.latest_step_dir(ckpt), ranks, fsdp)
@@ -3777,15 +3840,16 @@ def run_dist_train(smoke=False, dev="cuda", seq=TRAIN_SEQ, nccl=True):
     # NCCL's try runs beside the modes: it fails at its first collective.
     started = nccl_try_start() if nccl else None
     try:
-        for mode in DIST_MODES:
-            want = dist_virtual_case(pcfg, mode, dev, seq)
-            row, launches = dist_run_case(
-                pcfg, mode, want, smoke=smoke, dev=dev, seq=seq,
-                ckpt=(os.path.join(root, mode) if mode == DIST_MODES[-1]
-                      else None))
+        cases = [dict(mode=mode, want=dist_virtual_case(pcfg, mode, dev, seq),
+                      ckpt=(os.path.join(root, mode)
+                            if mode == DIST_MODES[-1] else None))
+                 for mode in DIST_MODES]
+        spawn_s, rows = dist_runs(pcfg, cases, smoke=smoke, dev=dev,
+                                  seq=seq)
+        for c, (row, launches) in zip(cases, rows):
             for k in COUNTERS:
                 total[k] += sum(r.get(k, 0) for r in launches)
-            modes[mode] = row
+            modes[c["mode"]] = row
     finally:
         shutil.rmtree(root, ignore_errors=True)
         # Reaps the two NCCL ranks whatever happened above.
@@ -3795,10 +3859,130 @@ def run_dist_train(smoke=False, dev="cuda", seq=TRAIN_SEQ, nccl=True):
            "backend": "gloo (host-staged: one card)", "device": dev,
            "seq": seq, "global_batch": DIST_BATCH, "steps": DIST_STEPS,
            "capacity_factor": EP_CF, "loss_tol": LOSS_TOL,
-           "grad_norm_tol": GNORM_TOL, "modes": modes}
+           "grad_norm_tol": GNORM_TOL, "modes": modes,
+           "spawn_wall_s": spawn_s}
     if refusal is not None:
         out["nccl_two_ranks_one_card"] = refusal
     out["seconds"] = time.perf_counter() - t_phase
+    return out, total
+
+
+def _gmm_step(rec) -> list:
+    """A step record's ``gmm`` launches: [all, fp32 tiled, small-row]."""
+    fp32 = rec["gmm_fp32_launches"]
+    return [rec["gmm_launches"], fp32["tiled"], fp32["small"]]
+
+
+def dist_dropless_check(mode, ranks, launches, tc, want, cuda,
+                        e_real) -> dict:
+    """Phase 19b's gates on the processes' records beyond phase 19's:
+    every process 2 x layers SSC lookups a step (``want``'s), all misses
+    on step 0; on the card each process's ``gmm`` launches a step, all on
+    the fp32 bodies, equal every other process's (each runs one fragment
+    on one whole batch), FRAGMENT_GMM_PER_EXPERT for each expert of each
+    layer that the step routes a token to (at most ``e_real``, the
+    experts that are not padding), and no other kernel, no tensor core.
+    The one-process step's launches are printed beside: its bf16 routing
+    may differ at a near tie, and a rarely routed expert's tiles with it
+    (8 launches more in tp_sp's step 0 on an H100 80GB HBM3, 700 W).
+    Returns the row's additions; raises otherwise."""
+    steps = [r["per_step"] for r in ranks]
+    gmm = [[_gmm_step(s) for s in st] for st in steps]
+    out = {"ssc_per_process": [[{k: v for k, v in s.items()
+                                 if k.startswith("ssc_")} for s in st]
+                               for st in steps],
+           "gmm_per_process_per_step": gmm,
+           "one_process_gmm": want["gmm"],
+           "step0_gmm_equals_one_process": gmm[0][0] == want["gmm"][0]}
+    lookups = [[s["ssc_hits"] + s["ssc_misses"] for s in st] for st in steps]
+    bad = []
+    if any(n != want["ssc_lookups"] for st in lookups for n in st) or any(
+            st[0]["ssc_hits"] for st in steps):
+        bad.append(f"SSC lookups a step {lookups}, want "
+                   f"{want['ssc_lookups']} (step 0 all misses)")
+    most = FRAGMENT_GMM_PER_EXPERT * DIST_LAYERS * e_real
+    if cuda and (any(g != gmm[0] for g in gmm) or any(
+            n != tiled + small or n % FRAGMENT_GMM_PER_EXPERT
+            or not 0 < n <= most for n, tiled, small in gmm[0])):
+        bad.append(f"gmm launches a step [all, tiled, small] {gmm}: want "
+                   f"them equal, on the fp32 bodies, "
+                   f"{FRAGMENT_GMM_PER_EXPERT} a routed expert a layer "
+                   f"(at most {most})")
+    if cuda and any(v for r in launches for k, v in r.items()
+                    if k in COUNTERS and k != "gmm") or any(
+                        any(t.values()) for t in tc):
+        bad.append(f"other kernels {launches} (tensor cores {tc})")
+    if bad:
+        raise AssertionError(f"{mode}: {bad}")
+    return out
+
+
+def dist_dropless_case(cfg, dev="cuda", seq=DROPLESS_DIST_SEQ):
+    """Phase 19b's yardstick: the one-process dropless step
+    (``make_train_step(cfg, dropless=DroplessConfig(ep=DIST_MESH[-1]))``,
+    the launcher's optimizer) on the launcher's first global batch from
+    the same params: its loss and each leaf's grad norm (before clipping),
+    its ``gmm`` launches ([all, fp32 tiled, small-row]) and SSC lookups."""
+    dev = torch.device(dev)
+    seen = {}
+
+    def keep(g):
+        seen["norms"] = [float(t.float().norm()) for t in adamw.tree_leaves(g)]
+        return g
+    step = steps_mod.make_train_step(
+        cfg, adamw.OptConfig(lr=1e-3, warmup_steps=2,
+                             total_steps=DIST_STEPS),
+        dropless=dropless_mod.DroplessConfig(ep=DIST_MESH[-1]),
+        grad_transform=keep)
+    params = adamw.cast_params(M.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(0), device=dev),
+        cfg.compute_dtype)
+    reset_launches()
+    _, _, m = step(params, adamw.init_opt_state(params),
+                   SyntheticStream(DataConfig(
+                       vocab=cfg.vocab, seq_len=seq,
+                       global_batch=DIST_BATCH)).batch(0, dev))
+    out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+           "grad_leaf_norms": seen["norms"],
+           "gmm": [[gmm_mod.launches, gmm_mod.launches_fp32_tiled,
+                    gmm_mod.launches_fp32_small]],
+           "ssc": {k: v for k, v in m.items() if k.startswith("ssc_")},
+           "ssc_lookups": 2 * cfg.n_layers}
+    del params, step, m
+    _free(dev)
+    return out
+
+
+def run_dist_dropless(smoke=False, dev="cuda", seq=DROPLESS_DIST_SEQ):
+    """Phase 19b: ``launch.train --nproc DIST_PROCS --backend gloo
+    --dropless`` in each of DROPLESS_DIST_MODES, granite at full width cut
+    to DIST_LAYERS layers (``smoke``: the smoke config's widths), held to
+    the one-process dropless step (``dist_dropless_case``). Returns the
+    phase's line and the launches of path dist_dropless (every process's,
+    summed)."""
+    t_phase = time.perf_counter()
+    pcfg = dist_config(smoke)
+    t = time.perf_counter()
+    want = dist_dropless_case(pcfg, dev, seq)
+    want["seconds"] = time.perf_counter() - t
+    total = {k: 0 for k in COUNTERS}
+    modes = {}
+    spawn_s, rows = dist_runs(pcfg, [
+        dict(mode=mode, want=want, dropless=True)
+        for mode in DROPLESS_DIST_MODES], smoke=smoke, dev=dev, seq=seq)
+    for mode, (row, launches) in zip(DROPLESS_DIST_MODES, rows):
+        for k in COUNTERS:
+            total[k] += sum(r.get(k, 0) for r in launches)
+        modes[mode] = row
+    out = {"phase": "dist_dropless", "arch": ARCH, "n_layers": DIST_LAYERS,
+           "remat": pcfg.remat, "processes": DIST_PROCS,
+           "mesh": list(DIST_MESH),
+           "backend": "gloo (host-staged: one card)", "device": dev,
+           "seq": seq, "global_batch": DIST_BATCH, "steps": DIST_STEPS,
+           "dropless_ep": DIST_MESH[-1], "loss_tol": LOSS_TOL,
+           "grad_norm_tol": GNORM_TOL, "one_process": want,
+           "modes": modes, "spawn_wall_s": spawn_s,
+           "seconds": time.perf_counter() - t_phase}
     return out, total
 
 
@@ -3815,11 +3999,13 @@ def run_dist_tp(smoke=False, dev="cuda", seq=TRAIN_SEQ):
     runs, root = {}, tempfile.mkdtemp()
     try:
         want = dist_virtual_case(pcfg, "tp_sp", dev, seq)
-        for name, fsdp in DIST_TP_RUNS.items():
-            last = name == list(DIST_TP_RUNS)[-1]
-            row, launches = dist_run_case(
-                pcfg, "tp_sp", want, smoke=smoke, dev=dev, seq=seq,
-                fsdp=fsdp, ckpt=os.path.join(root, name) if last else None)
+        last = list(DIST_TP_RUNS)[-1]
+        spawn_s, rows = dist_runs(pcfg, [
+            dict(mode="tp_sp", want=want, fsdp=fsdp,
+                 ckpt=os.path.join(root, name) if name == last else None)
+            for name, fsdp in DIST_TP_RUNS.items()], smoke=smoke, dev=dev,
+            seq=seq)
+        for (name, fsdp), (row, launches) in zip(DIST_TP_RUNS.items(), rows):
             row["fsdp"] = fsdp
             for k in COUNTERS:
                 total[k] += sum(r.get(k, 0) for r in launches)
@@ -3837,8 +4023,8 @@ def run_dist_tp(smoke=False, dev="cuda", seq=TRAIN_SEQ):
            "backend": "gloo (host-staged: one card)", "device": dev,
            "seq": seq, "global_batch": DIST_BATCH, "steps": DIST_STEPS,
            "capacity_factor": EP_CF, "loss_tol": LOSS_TOL,
-           "grad_norm_tol": GNORM_TOL, "runs": runs, "families": families,
-           "seconds": time.perf_counter() - t_phase}
+           "grad_norm_tol": GNORM_TOL, "runs": runs, "spawn_wall_s": spawn_s,
+           "families": families, "seconds": time.perf_counter() - t_phase}
     return out, total
 
 
@@ -4753,6 +4939,9 @@ def main() -> int:
     emit(dist_out)
     path_launches["dist_train"] = dist_launches
     _free()
+    dropless_dist_out, path_launches["dist_dropless"] = run_dist_dropless()
+    emit(dropless_dist_out)
+    _free()
     tp_out, tp_launches = run_dist_tp()
     tp_out["script_seconds"] = time.perf_counter() - t_script
     emit(tp_out)
@@ -4802,17 +4991,23 @@ def main() -> int:
                 for x in rows if x["kernel"] == name
                 and x.get("shape", "").startswith(tags)]
         if name == "gmm":          # the dropless tiles' calls, fp32, E = 1
+            dist_fp32 = {body: sum(
+                s[i] for row in dropless_dist_out["modes"].values()
+                for st in row["gmm_per_process_per_step"] for s in st)
+                for i, body in ((1, "tiled"), (2, "small"))}
             kernels[-1]["fp32_tiled_body"] = {
                 "source": "src/repro_torch/kernels/csrc/gmm_fp32.cuh",
                 "launches_by_path": {
                     "dropless": dropless_out["gmm_fp32_tiled_launches"],
                     "serve_online":
-                        online_out["gmm_fp32_launches"]["tiled"]}}
+                        online_out["gmm_fp32_launches"]["tiled"],
+                    "dist_dropless": dist_fp32["tiled"]}}
             kernels[-1]["fp32_small_body"] = {
                 "source": "src/repro_torch/kernels/csrc/gmm_fp32_small.cuh",
                 "launches_by_path": {
                     "serve_online":
-                        online_out["gmm_fp32_launches"]["small"]},
+                        online_out["gmm_fp32_launches"]["small"],
+                    "dist_dropless": dist_fp32["small"]},
                 "decode_tiles": [dict(x, tile=r["tile"], K=r["K"], N=r["N"])
                                  for r in bits_rows for x in r["timed"]]}
             kernels[-1]["dropless_tiles"] = [

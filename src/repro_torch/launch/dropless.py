@@ -22,6 +22,13 @@ its output is cast back to x's dtype; the backward recomputes the saved
 activations with ``core.executor.reference_forward_plan`` (the same ``gmm``
 calls as the forward's tiles) and runs the backward-direction schedule.
 
+On a rank of a process mesh (``make_moe_dropless(mesh=, rules=)``, in
+tp_sp, zero1 and ep_dp) the router runs on the rank's rows, and
+:class:`MeshRows` gathers every token and every expert so that each rank
+runs the reference's fragment over the whole global batch and keeps its
+own rows of the output. The reference runs it once, on device 0; the port
+runs it on every rank.
+
 :class:`FusedDroplessMoE` runs K such layers as one multi-fragment taskflow
 (``core/fusion``) per direction, layer j's Combine joined to layer j+1's
 Dispatch by LayerBoundary tiles (``models.moe.fused_boundary_forward`` /
@@ -34,6 +41,7 @@ off lost ranks (``core/elastic``), re-keying the shared cache.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -116,17 +124,22 @@ def get_process_cache(max_entries: int = 64) -> SSCCache:
 
 
 class DroplessMoE:
-    """A dropless ``moe_impl`` plus its schedule cache handle."""
+    """A dropless ``moe_impl`` plus its schedule cache handle. ``mesh``,
+    ``rules`` and ``global_batch``: the impl of a rank of a process mesh
+    (:class:`MeshRows`)."""
 
     def __init__(self, dc: DroplessConfig, act: str = "swiglu",
-                 cache: Optional[SSCCache] = None):
+                 cache: Optional[SSCCache] = None, *, mesh=None, rules=None,
+                 global_batch: Optional[int] = None):
         if act != "swiglu":
             raise ValueError(
                 f"dropless schedules execute the SwiGLU fragment; act={act!r}")
         self.dc = dc
         self.cache = cache if cache is not None else get_process_cache(
             dc.cache_entries)
-        self.impl = _make_impl(dc, self.cache)
+        self.rows = (None if mesh is None
+                     else MeshRows(mesh, rules, global_batch))
+        self.impl = _make_impl(dc, self.cache, rows=self.rows)
         self._snapshot = self._counters()
 
     def _counters(self) -> tuple:
@@ -154,6 +167,9 @@ class DroplessMoE:
         new_ep = int(new_ep)
         if new_ep < 1:
             raise ValueError(f"new_ep must be >= 1, got {new_ep}")
+        if self.rows is not None:
+            raise ValueError("a process mesh's dropless impl keeps its "
+                             "mesh: rescale the one-process handle")
         self.cache.rekey_for_mesh(new_ep)
         return DroplessMoE(dataclasses.replace(self.dc, ep=new_ep),
                            cache=self.cache)
@@ -172,15 +188,107 @@ class DroplessMoE:
 
 
 def make_moe_dropless(model_cfg, dc: DroplessConfig,
-                      cache: Optional[SSCCache] = None) -> DroplessMoE:
-    """Build the dropless MoE impl for a model config (validates shapes)."""
+                      cache: Optional[SSCCache] = None, *, mesh=None,
+                      rules=None,
+                      global_batch: Optional[int] = None) -> DroplessMoE:
+    """Build the dropless MoE impl for a model config (validates shapes);
+    with a process ``mesh`` and its ``rules``, the impl of this rank
+    (:class:`MeshRows`; ``global_batch``: the whole batch's rows, by
+    default as many as split over every axis the mode splits rows over)."""
     mc = model_cfg.moe
     if mc is None:
         raise ValueError("dropless MoE requires a MoE model config")
     if mc.e_total % dc.ep:
         raise ValueError(f"e_total={mc.e_total} not divisible by "
                          f"dropless ep={dc.ep}")
-    return DroplessMoE(dc, act=model_cfg.act, cache=cache)
+    return DroplessMoE(dc, act=model_cfg.act, cache=cache, mesh=mesh,
+                       rules=rules, global_batch=global_batch)
+
+
+class MeshRows:
+    """Where a rank's rows of a process mesh (``launch.mesh.dist_mesh``)
+    sit in the whole batch, and the gathers that give every rank the whole
+    batch: the process-mesh seam of the dropless fragment.
+
+    The reference runs the fragment once over the whole global batch, its
+    ``pure_callback`` placed on device 0: every token's ``xt``, ``top_p``
+    and ``top_i`` and every expert's weights gathered there, ``y``
+    scattered back. Here every rank gathers them and runs the whole
+    fragment (``DroplessConfig.ep`` virtual source ranks, the plan built
+    from every token's routing, so every rank's SSC cache sees the
+    reference's lookups), then keeps its own rows of ``y``. The tokens are
+    in the reference's order, ``[B, S]`` flattened:
+
+    * tp_sp: the rank's sequence chunk (``parallel.tp.TensorParallel.moe``
+      says whether it holds one: ``moe_chunk``) gathered over ``model``,
+      then the rows over the axes the batch spec splits them over (the
+      data axes);
+    * zero1 and ep_dp: the rows over the axes the batch spec splits them
+      over; where ``model`` is not among them (too few rows for every rank)
+      every rank of a model group holds the group's rows, and each distinct
+      row is taken once.
+
+    The gathers are ``DistComm.all_gather_dim`` (``top_i`` without a grad),
+    whose backward reduce-scatters: the cotangent a rank feeds the
+    fragment's backward covers its own rows, zero elsewhere, so its
+    ``dxt``, ``dtop_p`` and expert grads are partial shares, which the
+    transposes sum (``parallel.comm``'s convention). The expert weights
+    arrive whole, gathered over ``model`` where the spec splits them (ep_dp
+    and tp_sp; tp_sp's FSDP gather over ``data`` is
+    ``TensorParallel.layer``'s, before the impl).
+    """
+
+    def __init__(self, mesh, rules, global_batch: Optional[int] = None):
+        if rules is None or not mesh.local_rows:
+            raise ValueError("MeshRows places a rank of a process mesh "
+                             "(launch.mesh.dist_mesh) with its rules")
+        self.mesh, self.rules = mesh, rules
+        self.global_batch = global_batch
+
+    def row_axes(self, b: int) -> tuple:
+        """The axes the batch spec splits the rows over, for a block of
+        ``b`` rows."""
+        from ..parallel.sharding import spec_axes
+        B = self.global_batch or b * math.prod(
+            n for a, n in self.mesh.shape.items()
+            if self.rules.mode != "tp_sp" or a != "model")
+        return spec_axes(self.rules.batch_spec({"labels": (B,)})["labels"])
+
+    def _chunk(self) -> bool:
+        """Whether the rank holds its sequence chunk of the rows."""
+        if self.rules.mode != "tp_sp":
+            return False
+        from ..parallel.ctx import current_tensor_parallel
+        tp = current_tensor_parallel()
+        return tp is not None and tp.moe_chunk
+
+    def whole(self, t):
+        """The rank's ``t`` [b, s, ...] as the whole batch's [B, S, ...]."""
+        if self._chunk():
+            t = self.mesh.comm.all_gather_dim(t, 1)
+        axes = self.row_axes(t.shape[0])
+        return self.mesh.axes_comm(axes).all_gather_dim(t, 0) if axes else t
+
+    def own(self, y, b: int, s: int):
+        """The rank's block [b, s, ...] of ``y`` [B, S, ...], as
+        :meth:`whole` placed it."""
+        axes = self.row_axes(b)
+        if axes:
+            y = y.narrow(0, self.mesh.axes_comm(axes).rank * b, b)
+        if self._chunk():
+            y = y.narrow(1, self.mesh.comm.rank * s, s)
+        return y
+
+    def experts(self, w, e_total: int):
+        """An expert leaf whole: gathered over ``model`` where its spec
+        splits the experts."""
+        if w.shape[0] == e_total:
+            return w
+        if w.shape[0] * self.mesh.shape["model"] != e_total:
+            raise ValueError(f"{w.shape[0]} experts on each of the "
+                             f"{self.mesh.shape['model']} ranks of the "
+                             f"model axis, not {e_total}")
+        return self.mesh.comm.all_gather_dim(w, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -375,27 +483,39 @@ class _Run:
             else self.dc
 
 
-def _make_impl(dc: DroplessConfig, cache: SSCCache, live=None):
+def _make_impl(dc: DroplessConfig, cache: SSCCache, live=None, rows=None):
     """Build ``moe_impl(params, x, mc)`` executing plan-sized schedules.
 
     ``live`` is the online-tuning seam: a host-side callable
     ``live(top_i, mc, direction) -> DroplessConfig`` called on every
     forward and backward with the batch's host ``top_i``; the returned
     config may differ only in the bucket spec and the pipeline. ``None``
-    (the training path) pins ``dc``.
+    (the training path) pins ``dc``. ``rows``: a :class:`MeshRows`, the
+    fragment of a rank of a process mesh, run on the whole batch.
     """
 
     def moe_impl(params, x, mc):
-        B, S, d = x.shape
+        b, s, d = x.shape
+        top_p, top_i = router_topk(params["router"], x.reshape(b * s, d), mc)
+        w_in, w_down = params["w_in"], params["w_down"]
+        if rows is not None:
+            k = top_p.shape[-1]
+            x = rows.whole(x)
+            top_p = rows.whole(top_p.reshape(b, s, k))
+            with torch.no_grad():
+                top_i = rows.whole(top_i.reshape(b, s, k))
+            w_in, w_down = (rows.experts(w, mc.e_total)
+                            for w in (w_in, w_down))
+        B, S = x.shape[:2]
         T = B * S
         if T % dc.ep:
             raise ValueError(f"T={T} tokens not divisible by dropless "
                              f"ep={dc.ep}")
-        xt = x.reshape(T, d)
-        top_p, top_i = router_topk(params["router"], xt, mc)
-        y = _Fragment.apply(xt, top_p, params["w_in"], params["w_down"],
-                            top_i, _Run(dc, cache, mc, live))
-        return y.to(x.dtype).reshape(B, S, d)
+        y = _Fragment.apply(x.reshape(T, d), top_p.reshape(T, -1), w_in,
+                            w_down, top_i.reshape(T, -1),
+                            _Run(dc, cache, mc, live))
+        y = y.to(x.dtype).reshape(B, S, d)
+        return y if rows is None else rows.own(y, b, s)
 
     # _Fragment saves only its inputs and recomputes the rest in its
     # backward, so the model's remat leaves it outside the checkpoint.

@@ -35,8 +35,11 @@ rules, mesh)``):
   replicated over ``model``). ``parallel.sharding.batch_block`` cuts a
   rank's block from a whole batch.
 
-The prefill and decode steps serve on the same blocks, each rank holding
-its ``cache_spec`` blocks of the cache (``make_steps``).
+With ``dropless`` the train step's MoE is the dropless fragment there too:
+each rank gathers the whole batch's tokens and experts and runs the
+reference's fragment over all of them (``launch.dropless.MeshRows``). The
+prefill and decode steps serve on the same blocks, each rank holding its
+``cache_spec`` blocks of the cache (``make_steps``), their MoE EP's.
 
 After the backward :func:`reduce_grads` sums each grad over the ranks that
 hold other rows for its block and takes the mean over the batch's shares.
@@ -129,10 +132,11 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
     :class:`~repro_torch.launch.dropless.DroplessMoE` handle (its cache is
     the process-level one) and ``metrics`` gain ``ssc_hits``,
     ``ssc_misses``, ``ssc_evictions``, ``ssc_entries`` and
-    ``ssc_pad_ratio`` for the step. ``ep``: an :class:`EPConfig` runs the
-    MoE expert-parallel over ``mesh``'s model axis (a mesh of virtual ranks
-    places nothing). ``grad_transform`` runs on the grads before the update
-    (``adamw.apply_updates``). ``rules`` and a process ``mesh``: the step
+    ``ssc_pad_ratio`` for the step; on a process mesh the fragment runs
+    over the whole batch on every rank, and replaces ``ep``. ``ep``: an
+    :class:`EPConfig` runs the MoE expert-parallel over ``mesh``'s model
+    axis (a mesh of virtual ranks places nothing). ``grad_transform`` runs
+    on the grads before the update (``adamw.apply_updates``). ``rules`` and a process ``mesh``: the step
     of this rank (see the module docstring); ``seq_parallel`` then places
     tp_sp's residual, and ``global_batch`` (the whole batch's rows; by
     default as many as split over every axis) decides whether zero1's and
@@ -145,9 +149,12 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
     tp = None
     if dist_step and rules.mode == "tp_sp":
         tp = TensorParallel(mesh, rules, seq=seq_parallel)
-    if dist_step and dropless is not None:
-        raise ValueError("the dropless path trains in one process; across "
-                         "processes the MoE runs the fixed-capacity EP")
+    dropless_moe = None
+    if dropless is not None and cfg.family == "moe":
+        dropless_moe = make_moe_dropless(
+            cfg, dropless, **({"mesh": mesh, "rules": rules,
+                               "global_batch": global_batch}
+                              if dist_step else {}))
     ep_moe = ep is not None and cfg.family == "moe"
     if ep_moe:
         if mesh is None:
@@ -158,11 +165,10 @@ def make_train_step(cfg, opt: Optional[adamw.OptConfig] = None, *,
                       ["labels"]))
         moe_impl = make_moe_ep(mesh, ep, cfg.act, mode=(
             rules.mode if dist_step else "tp_sp"), rows_repeat=repeat)
-    elif dist_step and rules.mode != "zero1" and cfg.family == "moe":
+    elif (dist_step and rules.mode != "zero1" and cfg.family == "moe"
+          and dropless_moe is None):
         raise ValueError(f"{rules.mode} holds each rank's experts: pass ep=")
-    dropless_moe = None
-    if dropless is not None and cfg.family == "moe":
-        dropless_moe = make_moe_dropless(cfg, dropless)
+    if dropless_moe is not None:
         moe_impl = dropless_moe.impl
     opt = opt or adamw.OptConfig()
     if accum_steps == 0:

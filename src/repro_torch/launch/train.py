@@ -40,7 +40,11 @@ each rank keeps its block of the optimizer state (ZeRO-1 in zero1 and
 ep_dp); rank 0 prints and writes the checkpoint. ``--mode tp_sp`` (the
 default) splits the heads, the vocabulary, the experts, the MLP's, SSM's
 and RG-LRU's channels and the residual's sequence over the model axis
-(``parallel.tp``), for every family the launcher trains.
+(``parallel.tp``), for every family the launcher trains. ``--dropless``
+trains the MoE through the dropless fragment in every mode: each rank
+gathers the whole batch and runs the fragment over it
+(``launch.dropless.MeshRows``), ``--dropless-ep`` defaulting to the model
+axis, as in the reference.
 ``main(fsdp=True)`` adds FSDP over ``data`` (the reference's launcher has
 no flag for it either: its default turns it on above 10 B parameters).
 ``--backend nccl``, the default on the card, puts rank r on ``cuda:r`` and
@@ -59,6 +63,9 @@ processes fit.
     PYTHONPATH=src python -m repro_torch.launch.train --nproc 4 --mesh 2x2 \
         --mode zero1 --backend gloo --n-layers 2 --seq 4096 \
         --global-batch 4 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \
+        --nproc 4 --mesh 2x2 --mode ep_dp --dropless --global-batch 4 \
+        --seq 16 --steps 2
 
 Params come from ``init_params`` (seed 0), cast to the compute dtype as the
 JAX launcher casts them; batches from ``SyntheticStream``. Each step logs
@@ -111,8 +118,9 @@ class TrainRun:
     params: dict
     opt_state: dict
     # Per step (from 0; with --ckpt-dir the steps before a resume too):
-    # step, loss, grad_norm, lr, step_ms, gmm_launches, peak_bytes (the
-    # card's peak so far; None off the card), ssc_* when dropless, and
+    # step, loss, grad_norm, lr, step_ms, gmm_launches (and by fp32 body,
+    # gmm_fp32_launches), peak_bytes (the card's peak so far; None off
+    # the card), ssc_* when dropless, and
     # collectives and comm_bytes_per_rank with --mesh, and with --nproc
     # over gloo comm_seconds (each kind's transfers' host seconds).
     metrics_log: list
@@ -120,8 +128,8 @@ class TrainRun:
     resumed_from: Optional[int] = None   # the checkpoint step resumed from
     # With --nproc: each rank's record (params and opt_state are None):
     # rank, coords, device, kernel launches, param and optimizer-state
-    # bytes, peak
-    # device bytes, checkpoint log and, with --ckpt-dir, its final blocks'
+    # bytes, peak device bytes, checkpoint log, its per_step gmm launches
+    # and ssc_* counters and, with --ckpt-dir, its final blocks'
     # CRC32s; metrics_log is rank 0's, each step's record with
     # grad_leaf_norms (the reduced grads', adamw.tree_leaves order).
     ranks: Optional[list] = None
@@ -143,6 +151,38 @@ def main(argv=None, *, inject_fault=None, fsdp=None) -> TrainRun:
     """Parse ``argv`` and train. ``inject_fault(step)`` is called before
     each step and may raise to simulate a node loss. ``fsdp``: the
     reference's ``make_steps(fsdp=)`` (``None``: by the parameter count)."""
+    args, cfg, dims, dropless = _parse(argv, fsdp)
+    if args.nproc:
+        return _spawn([(args, cfg, dropless)], inject_fault)[0]
+    return _train(args, cfg, dims, dropless, inject_fault,
+                  resolve_device(args.device))
+
+
+def main_runs(argvs, *, fsdp=None) -> list:
+    """Several ``--nproc`` runs in one spawn of their processes: each
+    ``argv`` as :func:`main` takes it (``fsdp``: one a run, default
+    ``None``), all with one ``--nproc``, ``--mesh``, ``--backend`` and
+    ``--device``. Each process runs them in turn, each from fresh launch
+    counts, peak memory and process-level SSC cache, as a spawn of its own
+    would, without starting its processes again. Returns each run's
+    :class:`TrainRun`, its ranks' records with their ``seconds``."""
+    fsdp = list(fsdp or [None] * len(argvs))
+    runs = [_parse(a, f) for a, f in zip(argvs, fsdp, strict=True)]
+    first = runs[0][0]
+    for args, *_ in runs:
+        if not args.nproc or (args.nproc, args.mesh, backend_of(args),
+                              args.device) != (
+                first.nproc, first.mesh, backend_of(first), first.device):
+            raise ValueError("main_runs shares one spawn: every run needs "
+                             "the same --nproc, --mesh, --backend and "
+                             "--device")
+    return _spawn([(args, cfg, dropless) for args, cfg, _, dropless in runs],
+                  None)
+
+
+def _parse(argv, fsdp) -> tuple:
+    """(args, cfg, mesh dims, DroplessConfig or None) of ``argv``,
+    checked; a ``--nproc`` run's before any process starts."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="granite-moe-3b-a800m")
     ap.add_argument("--smoke", action="store_true",
@@ -256,20 +296,16 @@ def main(argv=None, *, inject_fault=None, fsdp=None) -> TrainRun:
 
     args.fsdp = fsdp
     if args.nproc:
-        _check_processes(ap, args, cfg, dims, dropless)
-        return _spawn(args, cfg, inject_fault)
-    return _train(args, cfg, dims, dropless, inject_fault,
-                  resolve_device(args.device))
+        _check_processes(ap, args, dims)
+    return args, cfg, dims, dropless
 
 
-def _check_processes(ap, args, cfg, dims, dropless) -> None:
+def _check_processes(ap, args, dims) -> None:
     """Refuse a ``--nproc`` run the port does not cover, before any
     process starts."""
     if dims is None or math.prod(dims) != args.nproc:
         ap.error(f"--nproc {args.nproc} needs a --mesh of {args.nproc} "
                  f"ranks")
-    if dropless is not None:
-        ap.error("--dropless trains in one process")
     if args.global_batch % args.nproc:
         ap.error(f"--global-batch {args.global_batch} does not split over "
                  f"{args.nproc} processes")
@@ -293,58 +329,90 @@ def backend_of(args) -> str:
     return "gloo" if args.device == "cpu" else "nccl"
 
 
-def _spawn(args, cfg, inject_fault) -> TrainRun:
-    """``args.nproc`` processes, one rank each, over a ``file://``
-    rendezvous in a new temporary directory; returns rank 0's log and every
-    rank's record."""
+def _spawn(runs, inject_fault) -> list:
+    """``nproc`` processes, one rank each, over a ``file://`` rendezvous
+    in a new temporary directory, running each of ``runs`` (``(args, cfg,
+    dropless)``, one ``--nproc``) in turn; returns, a run each, rank 0's
+    log and every rank's record."""
     import shutil
     import tempfile
 
     import torch.multiprocessing as mp
+    nproc = runs[0][0].nproc
     d = tempfile.mkdtemp(prefix="train_nproc_")
     try:
         mp.start_processes(_rank_main, args=(
-            args, cfg, f"file://{os.path.join(d, 'init')}", d,
-            inject_fault),
-            nprocs=args.nproc, join=True, start_method="spawn")
-        ranks = [torch.load(os.path.join(d, f"rank{r}.pt"),
-                            weights_only=False) for r in range(args.nproc)]
+            runs, f"file://{os.path.join(d, 'init')}", d, inject_fault),
+            nprocs=nproc, join=True, start_method="spawn")
+        out = []
+        for i in range(len(runs)):
+            ranks = [torch.load(os.path.join(d, f"rank{r}_{i}.pt"),
+                                weights_only=False) for r in range(nproc)]
+            logs = [(r.pop("metrics_log"), r.pop("resumed_from"))
+                    for r in ranks]
+            out.append(TrainRun(params=None, opt_state=None,
+                                metrics_log=logs[0][0],
+                                resumed_from=logs[0][1], ranks=ranks))
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    logs = [(r.pop("metrics_log"), r.pop("resumed_from")) for r in ranks]
-    return TrainRun(params=None, opt_state=None, metrics_log=logs[0][0],
-                    resumed_from=logs[0][1], ranks=ranks)
+    return out
 
 
-def _rank_main(rank, args, cfg, init, out_dir, inject_fault) -> None:
+def _rank_main(rank, runs, init, out_dir, inject_fault) -> None:
+    import time
+
     import torch.distributed as dist
-    backend = backend_of(args)
-    dist.init_process_group(backend, init_method=init,
-                            world_size=args.nproc, rank=rank)
+
+    from . import dropless as dropless_mod
+    first = runs[0][0]
+    dist.init_process_group(backend_of(first), init_method=init,
+                            world_size=first.nproc, rank=rank)
     try:
-        dev = resolve_device(args.device)
+        dev = resolve_device(first.device)
         if dev.type == "cuda":
             dev = torch.device("cuda", rank % torch.cuda.device_count())
             torch.cuda.set_device(dev)
         # The ranks share the host's cores.
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.nproc))
-        run = _train(args, cfg, mesh_dims(args.mesh), None, inject_fault,
-                     dev)
-        rec = dict(run.ranks[0], metrics_log=run.metrics_log,
-                   resumed_from=run.resumed_from)
-        torch.save(rec, os.path.join(out_dir, f"rank{rank}.pt"))
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // first.nproc))
+        for i, (args, cfg, dropless) in enumerate(runs):
+            # Each run as a process of its own would start it.
+            dropless_mod._PROCESS_CACHE = None
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+            t = time.perf_counter()
+            run = _train(args, cfg, mesh_dims(args.mesh), dropless,
+                         inject_fault, dev)
+            rec = dict(run.ranks[0], metrics_log=run.metrics_log,
+                       resumed_from=run.resumed_from,
+                       seconds=time.perf_counter() - t)
+            torch.save(rec, os.path.join(out_dir, f"rank{rank}_{i}.pt"))
+            del run
         dist.barrier()
     finally:
         dist.destroy_process_group()
 
 
-def _kernel_launches() -> dict:
+def _kernel_launches(since=None) -> dict:
+    """Each GMM kernel's launches, and those on the tensor cores; with
+    ``since`` (an earlier reading), the launches after it."""
     from ..kernels import gmm_swiglu, gmm_swiglu_bwd
-    return {"gmm_swiglu": gmm_swiglu.launches, "gmm": gmm_kernel.launches,
-            "gmm_swiglu_bwd": gmm_swiglu_bwd.launches,
-            "tensor_cores": {"gmm_swiglu": gmm_swiglu.launches_tc,
-                             "gmm": gmm_kernel.launches_tc,
-                             "gmm_swiglu_bwd": gmm_swiglu_bwd.launches_tc}}
+    now = {"gmm_swiglu": gmm_swiglu.launches, "gmm": gmm_kernel.launches,
+           "gmm_swiglu_bwd": gmm_swiglu_bwd.launches,
+           "tensor_cores": {"gmm_swiglu": gmm_swiglu.launches_tc,
+                            "gmm": gmm_kernel.launches_tc,
+                            "gmm_swiglu_bwd": gmm_swiglu_bwd.launches_tc}}
+    if since is None:
+        return now
+    return {k: ({n: c - since[k][n] for n, c in v.items()}
+                if isinstance(v, dict) else v - since[k])
+            for k, v in now.items()}
+
+
+def _gmm_counts() -> tuple:
+    """``gmm``'s launches, all and by fp32 body (tiled, small-row)."""
+    return (gmm_kernel.launches, gmm_kernel.launches_fp32_tiled,
+            gmm_kernel.launches_fp32_small)
 
 
 def _crc32(tree) -> list:
@@ -369,7 +437,7 @@ def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
                       capacity_factor=4.0)
         fns = St.make_steps(cfg, mesh, opt=oc, ep=ep,
                             mode=args.mode or "tp_sp", dropless=dropless,
-                            fsdp=args.fsdp)
+                            fsdp=args.fsdp, global_batch=args.global_batch)
         step_fn = fns.train_step
     params = adamw.cast_params(
         M.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
@@ -386,17 +454,20 @@ def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
                              rules=rules)
     cuda = dev.type == "cuda"
     talk = not args.nproc or mesh.world.rank == 0
-    launches = gmm_kernel.launches
+    launches, since = _gmm_counts(), _kernel_launches()
     if mesh is not None:
         mesh.comm.stats.reset()
 
     def on_step(s, m, dt):
         nonlocal launches
+        now = _gmm_counts()
         rec = {"lr": m["lr"], "step_ms": 1e3 * dt,
-               "gmm_launches": gmm_kernel.launches - launches,
+               "gmm_launches": now[0] - launches[0],
+               "gmm_fp32_launches": {"tiled": now[1] - launches[1],
+                                     "small": now[2] - launches[2]},
                "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
                               else None)}
-        launches = gmm_kernel.launches
+        launches = now
         rec.update({k: v for k, v in m.items() if k.startswith("ssc_")})
         if mesh is not None:
             rec["collectives"] = dict(mesh.comm.stats.counts)
@@ -426,7 +497,7 @@ def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
         print(f"resumed from step {run.resumed_from}")
     if run.stragglers and talk:
         print("stragglers:", run.stragglers)
-    if dropless is not None:
+    if dropless is not None and talk:
         info = step_fn.dropless.cache.info()
         total = max(1, info["hits"] + info["misses"])
         print(f"dropless SSC cache: {info['entries']} entries "
@@ -443,7 +514,7 @@ def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
                         resumed_from=run.resumed_from)
     state = run.opt_state
     rank = {"rank": mesh.world.rank, "coords": mesh.coords,
-            "device": str(dev), "launches": _kernel_launches(),
+            "device": str(dev), "launches": _kernel_launches(since),
             "param_bytes": sum(t.numel() * t.element_size()
                                for t in adamw.tree_leaves(run.params)),
             "opt_state_bytes": sum(
@@ -451,7 +522,11 @@ def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
                 for t in adamw.tree_leaves(state[k])),
             "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
                            else None),
-            "ckpt_log": run.ckpt_log}
+            "ckpt_log": run.ckpt_log,
+            # This rank's own gmm launches and SSC counters (dropless) a
+            # step.
+            "per_step": [{k: v for k, v in m.items()
+                          if k.startswith(("ssc_", "gmm_"))} for m in log]}
     if args.ckpt_dir is not None:
         # What this rank saved last (the final state when the last step
         # saved): its blocks' CRC32s, leaf by leaf.

@@ -47,7 +47,9 @@ model reads it (``models.model``, ``models.layers``, ``models.ssm``,
   rank's rows; without ``seq`` on the rank's chunk of the replicated
   residual, the outputs all-gathered, or, where the sequence does not
   split (a decode step's one token), on the group's rows, which every rank
-  routes, as the reference's ``x_spec`` places them;
+  routes, as the reference's ``x_spec`` places them; ``moe_chunk`` tells
+  the program which (the dropless fragment gathers the whole batch from
+  either);
 * ``layer(p, part)``: a layer's FSDP leaves all-gathered over ``data``
   (their grads reduce-scattered) and the small leaves the rank reads whole
   all-gathered over ``model`` (the shared kv heads' ``wk``/``wv``, the
@@ -128,6 +130,7 @@ class TensorParallel:
         self.m, self.rank = self.comm.ep, self.comm.rank
         self.seq = seq
         self.split_tokens = split_tokens
+        self.moe_chunk = False          # set by ``moe``
         types = set(cfg.layer_types())
         # Query heads need not split (``head_range``); these channels do.
         need = {}
@@ -268,9 +271,18 @@ class TensorParallel:
     def moe(self, fn, h):
         """``fn`` (the EP program) on the rank's rows of ``h``: without
         ``seq`` its chunk, the outputs all-gathered over the sequence; where
-        the sequence does not split, the group's rows whole."""
+        the sequence does not split, the group's rows whole.
+
+        While ``fn`` runs, ``moe_chunk`` says which: ``True`` where its
+        rows are the rank's sequence chunk (the model rank's block of the
+        group's sequence), ``False`` where they are the group's rows whole,
+        which every rank of the group holds. A program that places its
+        rows in the whole batch (the dropless fragment on a process mesh,
+        ``launch.dropless``) reads it."""
         S = h.shape[1]
-        if self.seq or self.m == 1 or S == 1 or S % self.m:
+        whole = self.m == 1 or (not self.seq and (S == 1 or S % self.m))
+        self.moe_chunk = not whole
+        if whole or self.seq:
             return fn(h)
         return self.comm.all_gather_dim(fn(self.own_chunk(h)), 1)
 

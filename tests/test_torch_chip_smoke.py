@@ -1,7 +1,8 @@
 """Helpers of ``chip_smoke.py`` that run without a card: the precision
 control of the trainable expert FFN's end-to-end check, the reader of the
 compiler's register and spill report, the dropless tiles' body check,
-phase 9's SSC lookups check and the cases of phases 10-12 and 14-17."""
+phase 9's SSC lookups check and the cases of phases 10-12, 14-19b and
+20-21."""
 
 import dataclasses
 import sys
@@ -518,6 +519,55 @@ def test_dist_train_phase_runs_on_the_cpu():
     assert restore["blocks_checked"] > 0 and not restore["blocks_unequal"]
     # The plain versions ran on the CPU: no kernel launch was counted.
     assert set(launches) == set(chip_smoke.COUNTERS)
+
+
+def test_dist_dropless_phase_runs_on_the_cpu(monkeypatch):
+    """Phase 19b at the smoke config's widths on the CPU: ``launch.train
+    --nproc 4 --backend gloo --dropless`` on mesh 2x2 in ep_dp and tp_sp,
+    each within LOSS_TOL / GNORM_TOL of the one-process dropless steps,
+    every process 2 x layers SSC lookups a step (all misses on step 0),
+    its params and optimizer state its spec blocks (launches are checked
+    on the card only). The gates fire on the same run's records when the
+    yardstick's loss is wrong and when it wants twice the lookups. Both
+    modes run in one spawn of the processes."""
+    import copy
+    runs = []
+    main_runs = chip_smoke.train_mod.main_runs
+
+    def keep(argvs, **kw):
+        runs.extend(main_runs(argvs, **kw))
+        return copy.deepcopy(runs)
+    monkeypatch.setattr(chip_smoke.train_mod, "main_runs", keep)
+    out, launches = chip_smoke.run_dist_dropless(smoke=True, dev="cpu",
+                                                 seq=32)
+    assert len(runs) == len(chip_smoke.DROPLESS_DIST_MODES)  # one spawn
+    assert out["phase"] == "dist_dropless"
+    assert set(out["modes"]) == set(chip_smoke.DROPLESS_DIST_MODES)
+    n = 2 * chip_smoke.DIST_LAYERS
+    assert out["one_process"]["ssc_lookups"] == n
+    for row in out["modes"].values():
+        assert row["loss_rel_gap"] <= chip_smoke.LOSS_TOL
+        assert row["grad_leaf_norm_rel_gap_max"] <= chip_smoke.GNORM_TOL
+        assert row["opt_state_bytes_per_process"] == [
+            row["opt_state_bytes_by_spec"]] * chip_smoke.DIST_PROCS
+        assert row["param_bytes_per_process"] == [
+            row["param_bytes_by_spec"]] * chip_smoke.DIST_PROCS
+        assert len(row["losses"]) == chip_smoke.DIST_STEPS
+        assert "all-gather" in row["collectives_per_rank_per_step"]
+        for ssc in row["ssc_per_process"]:
+            assert [s["ssc_hits"] + s["ssc_misses"] for s in ssc] == [
+                n] * chip_smoke.DIST_STEPS
+            assert ssc[0]["ssc_misses"] == n
+    assert set(launches) == set(chip_smoke.COUNTERS)
+    # The gates, on the ep_dp run's own records.
+    pcfg, want = chip_smoke.dist_config(True), out["one_process"]
+    run = runs[chip_smoke.DROPLESS_DIST_MODES.index("ep_dp")]
+    for bad in (dict(want, loss=2 * want["loss"]),
+                dict(want, ssc_lookups=2 * n)):
+        with pytest.raises(AssertionError, match="ep_dp"):
+            chip_smoke.dist_run_case(pcfg, copy.deepcopy(run), mode="ep_dp",
+                                     want=bad, dev="cpu", seq=32,
+                                     dropless=True)
 
 
 def test_dist_tp_phase_runs_on_the_cpu():
