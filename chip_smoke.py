@@ -77,15 +77,19 @@ Phases, each printing one JSON line:
    DROPLESS_ROWS, GMM1 (K/N = 1536/1024) and GMM2 (512/1536), their
    activation-gradient products with w a transposed view, and their weight
    gradients with x a transposed view (a reduction over the rows); then the
-   tiled body's edges (DROPLESS_EDGES: ragged C, K and N, E = 3, all four
-   layouts); repeat calls bit-equal. Each row names its body
-   (``gmm.fp32_body``): every tile call of a tile of
-   ``gmm.FP32_TILED_MIN_ROWS`` rows or more must run the tiled body, and the tiled body's launch count must
-   grow by one for each row that names it. The six calls at C =
-   DROPLESS_TIMED_ROWS are timed. Then ``row_count_bits``: at E = 1 and
-   both GMM widths, the rows of ``gmm(x[:, :C], w)`` for C = 1 ...
-   ROW_BITS_MAX (the small-row body under the threshold, the tiled body
-   from it) must be bit-equal to the rows of the C = ROW_BITS_MAX call;
+   fp32 bodies' edges (DROPLESS_EDGES: ragged C, K and N, E = 3, all four
+   layouts, the narrow body's and the calls TMA cannot describe);
+   repeat calls bit-equal. Each row names its body (``gmm.fp32_body``):
+   every tile call must run the tiled body from ``first_tiled`` rows of
+   its own on (``gmm.tiled_takes``: the tiled body's grid fills the card,
+   or ``gmm.FP32_TILED_MIN_ROWS``) and the narrow body below, and the tiled
+   and narrow bodies' launch counts must grow by one for each row that
+   names them.
+   The six calls at C = DROPLESS_TIMED_ROWS are timed. Then
+   ``row_count_bits``: at E = 1 and both GMM widths, the rows of
+   ``gmm(x[:, :C], w)`` for C = 1 ... ROW_BITS_MAX (the narrow body, then
+   the tiled body up to ``gmm.FP32_TILED_MIN_ROWS`` + 8) must be bit-equal
+   to the rows of the C = ROW_BITS_MAX call;
 8. dropless_fragment — ``launch.bench_dropless`` on one full-width layer
    (T = 4096, the layer's own router, seed 0) at ep = 1 and ep = 4 (four
    virtual ranks on the card; their puts are device copies, not a
@@ -506,18 +510,24 @@ TILE_EDGES = (1, 2, 15, 16, 17, 27, 63, 64, 65, 127, 128, 129, 854)
 # F = 36 not a multiple of the 16-byte vectors (8 bf16 or 4 fp32).
 SWIGLU_ADD_CHECKS = [(M, F) for M in (256, 1000, 4096, 32768)
                      for F in (2048, 36)]
-# Row counts of the dropless fragment's tiles: ragged, across the small-row
-# body's tile edges and the tiled body's threshold, up to an expert's share
-# of a 4096-token batch and beyond.
-DROPLESS_ROWS = (1, 8, 9, 15, 17, 127, 683, 1001)
-# The tiled body's edges, fp32, E = 3, each in all four layouts: (C, K, N)
-# with C past a 32- or 64-row tile (65 ... 1004; where x is a transposed
-# view C is its contiguous dim, and only C = 68, 132, 684, 1004 keep it a
-# multiple of 4 floats: the others check the small-row body there), K not a
-# multiple of the 16-deep slab (1004: in the layouts that read K
-# contiguous), N not a multiple of the 64- or 128-wide tile (1000); and
-# the weight gradients' (M, K, N) with K, the rows summed, ragged (683,
-# 1001) where x is read transposed.
+# Row counts of the dropless fragment's tiles: ragged, across the narrow
+# body's CTA edges and on both sides of where the tiled body takes over
+# (``gmm.tiled_takes``: 65 rows at N = 1536, 129 at 1024, 257 at 512), up
+# to an expert's share of a 4096-token batch and beyond.
+DROPLESS_ROWS = (1, 8, 9, 15, 17, 64, 65, 127, 128, 129, 256, 257, 683,
+                 1001)
+# The fp32 bodies' edges, E = 3, each in all four layouts: (C, K, N) with C
+# past a 32- or 64-row tile (65 ... 1004; where x is a transposed view C is
+# its contiguous dim, and only C = 68, 132, 684, 1004 keep it a multiple of
+# 4 floats: the others check the small-row body there), K not a multiple
+# of the 16-deep slab (1004: in the layouts that read K contiguous), N not
+# a multiple of the 64- or 128-wide tile (1000); the weight gradients' (M,
+# K, N) with K, the rows summed, ragged (683, 1001) where x is read
+# transposed; and calls too small for the tiled body (C = 5 ... 31): K =
+# 1004 ends in a partial 32-k stage and N = 996 in a partial 8-column
+# block of the narrow body; K = 1538 read contiguous (not a multiple of 4
+# floats) and N = 1002 where w is stored [K][N] are not TMA's, and run the
+# small-row body, as does x read transposed.
 DROPLESS_EDGES = (
     [(C, K, N, lay) for C in (65, 68, 129, 132, 683, 684, 1001, 1004)
      for K, N in ((1536, 1024), (512, 1536), (1024, 512))
@@ -525,11 +535,15 @@ DROPLESS_EDGES = (
     + [(C, K, N, lay) for C, K, N in ((684, 1004, 512), (132, 512, 1000))
        for lay in ((0, 0), (0, 1), (1, 0), (1, 1))]
     + [(M, K, N, (1, 0)) for M, N in ((1536, 1024), (512, 1536))
-       for K in (683, 1001)])
+       for K in (683, 1001)]
+    + [(C, K, N, lay) for C in (5, 17, 31)
+       for K, N in ((1004, 996), (1538, 1024), (1536, 1002))
+       for lay in ((0, 0), (0, 1), (1, 0), (1, 1))])
 DROPLESS_TIMED_ROWS = 683       # an expert's mean share: 4096 x 8 / 48
 # fp32 gmm's rows must not depend on the call's row count: C = 1 ... this,
-# across both fp32 bodies (the small-row body under FP32_TILED_MIN_ROWS).
-ROW_BITS_MAX = 32
+# across the narrow body and the tiled body (which takes every call from
+# FP32_TILED_MIN_ROWS rows on).
+ROW_BITS_MAX = gmm_mod.FP32_TILED_MIN_ROWS + 8
 # Full-depth dropless training: steps of 1 x 4096 tokens, the first warm-up
 # (cut from 3 to make room for phase 19b: a step there is host-bound in
 # good part, the executor's walk and a compile a lookup).
@@ -743,6 +757,7 @@ def reset_launches() -> None:
     gmm_mod.launches_tc = 0
     swiglu_mod.launches_tc = 0
     gmm_mod.launches_fp32_tiled = 0
+    gmm_mod.launches_fp32_narrow = 0
     gmm_mod.launches_fp32_small = 0
 
 
@@ -810,8 +825,9 @@ def cuda_ms(fn, iters: int = 20, reps: int = 3) -> float:
 def ptxas_report(log: str) -> list:
     """Registers, static shared memory and spills of each tensor-core
     kernel (namespaces ``gmmtc`` and ``gsbtc``) and of each instance of
-    ``gmm``'s fp32 tiled body (``gmmf``; its ring is dynamic shared memory)
-    and small-row body (``gmms``) in a ``-Xptxas -v`` build log."""
+    ``gmm``'s fp32 tiled body (``gmmf``; its ring is dynamic shared
+    memory), narrow body (``gmmn``; the same) and small-row body (``gmms``)
+    in a ``-Xptxas -v`` build log."""
     out, cur = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -820,6 +836,7 @@ def ptxas_report(log: str) -> list:
             b = re.search(r"gsbtc10bwd_kernelI(.*)EEv", m.group(1))
             f = re.search(r"gmmf12tiled_kernelI(.*)EEv", m.group(1))
             g = re.search(r"gmms12small_kernelI(.*)EEv", m.group(1))
+            n = re.search(r"gmmn13narrow_kernelI(.*)EEv", m.group(1))
             cur = None
             if t:
                 a = re.findall(r"L[ib](\d+)E", t.group(1) + "E")
@@ -841,6 +858,10 @@ def ptxas_report(log: str) -> list:
                                                 g.group(1) + "E")]
                 cur = {"kernel": "gmms::small_kernel", "rb": a[0],
                        "ta": a[1], "tb": a[2], "w16": bool(a[3])}
+            elif n:
+                a = [int(v) for v in re.findall(r"Li(\d+)E", n.group(1) + "E")]
+                cur = {"kernel": "gmmn::narrow_kernel", "tm": a[0],
+                       "tn": a[1], "tb": a[2]}
             if cur:
                 out.append(cur)
             continue
@@ -890,9 +911,10 @@ def kernel_case(name, E, C, K, N, dtype, gen, timed, layouts=(0, 0),
                      generator=gen, device="cuda") * K ** -0.5).to(dtype)
     x = x.transpose(1, 2) if la else x
     w = w.transpose(1, 2) if lb else w
-    tiled = gmm_mod.launches_fp32_tiled
+    tiled, narrow = gmm_mod.launches_fp32_tiled, gmm_mod.launches_fp32_narrow
     got = spec["fn"](x, w)
     tiled = gmm_mod.launches_fp32_tiled - tiled
+    narrow = gmm_mod.launches_fp32_narrow - narrow
     want = spec["plain"](x.contiguous(), w.contiguous())
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs()
@@ -902,7 +924,8 @@ def kernel_case(name, E, C, K, N, dtype, gen, timed, layouts=(0, 0),
            "dtype": str(dtype).replace("torch.", ""),
            "max_abs_err": float(err.max()), "tol": tol, "ok": ok}
     if name == "gmm" and dtype == torch.float32:
-        row.update(body=gmm_mod.fp32_body(x, w), tiled_launches=tiled)
+        row.update(body=gmm_mod.fp32_body(x, w), tiled_launches=tiled,
+                   narrow_launches=narrow)
     if layouts != (0, 0):
         row["layouts"] = {"x": "transposed view" if la else "contiguous",
                           "w": "transposed view" if lb else "contiguous"}
@@ -1519,29 +1542,45 @@ def run_train(cfg, rows):
     return out, launches
 
 
-def check_fp32_bodies(rows, min_rows) -> int:
+def first_tiled(E, N) -> int:
+    """The fewest rows of an fp32 ``gmm`` call of E experts and N columns
+    that the tiled body takes: ``gmm.FP32_TILED_MIN_ROWS``, or fewer where
+    its 32 x 64 tile's grid reaches ``gmm.FP32_TILED_MIN_CTAS`` CTAs."""
+    most = gmm_mod.FP32_TILED_MIN_ROWS
+    return next(C for C in range(1, most + 1) if C == most or E * -(-C // 32)
+                * -(-N // 64) >= gmm_mod.FP32_TILED_MIN_CTAS)
+
+
+def check_fp32_bodies(rows) -> dict:
     """The dropless tiles' body check on their ``kernel_case`` rows: the
-    checked call of each row grew ``gmm.launches_fp32_tiled`` by one if the
-    row names the tiled body and by none if not, and each of the six
-    dropless tile calls (shape ``dropless_tile``) of a tile with at least
-    ``min_rows`` rows names it. (A tile of one row makes the weight
-    gradients' x a [1536, 1] view that reads as contiguous, K = 1 floats
-    wide: the small-row body's by the rule.) Returns the tiled launches of the
-    checked calls; raises AssertionError naming the rows at fault."""
+    checked call of each row grew ``gmm.launches_fp32_tiled`` and
+    ``launches_fp32_narrow`` by one if the row names that body and by none
+    if not; each of the six dropless tile calls (shape ``dropless_tile``)
+    names the tiled body from ``first_tiled(1, N)`` rows of its own (C) on
+    and the narrow body below (their widths and bases are TMA's). A tile of
+    one row makes the weight gradients' x a [1536, 1] view that reads as
+    contiguous, K = 1 floats wide: the small-row body's by the rule.
+    Returns the tiled and narrow launches of the checked calls; raises
+    AssertionError naming the rows at fault."""
+    def want(r):
+        if r["K"] == 1:
+            return "small"
+        return "tiled" if r["C"] >= first_tiled(1, r["N"]) else "narrow"
     bad = [r for r in rows
            if r["tiled_launches"] != (r["body"] == "tiled")
-           or (r["shape"] == "dropless_tile" and r["rows"] >= min_rows
-               and r["body"] != "tiled")]
+           or r["narrow_launches"] != (r["body"] == "narrow")
+           or (r["shape"] == "dropless_tile" and r["body"] != want(r))]
     if bad:
         raise AssertionError(f"gmm's fp32 calls ran the wrong body: {bad}")
-    return sum(r["tiled_launches"] for r in rows)
+    return {body: sum(r[f"{body}_launches"] for r in rows)
+            for body in ("tiled", "narrow")}
 
 
 def run_dropless_tiles(cfg):
     """Phase 7: ``gmm`` at the dropless tiles' calls, fp32, E = 1: GMM1 and
     GMM2 (x·W), their activation gradients (x·Wᵀ, w a transposed view) and
     their weight gradients (xᵀ·dy, x a transposed view, summing over the
-    rows); then the tiled body's edges (DROPLESS_EDGES). Each row names
+    rows); then the fp32 bodies' edges (DROPLESS_EDGES). Each row names
     its body; ``check_fp32_bodies`` holds them to the rule."""
     D, F2, Fe = cfg.d_model, 2 * cfg.moe.d_expert, cfg.moe.d_expert
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1563,16 +1602,18 @@ def run_dropless_tiles(cfg):
                         layouts=lay, repeat=True)
         r["shape"] = "dropless_edge"
         rows.append(r)
-    return rows, check_fp32_bodies(rows, gmm_mod.FP32_TILED_MIN_ROWS)
+    return rows, check_fp32_bodies(rows)
 
 
 def row_count_bits(cfg):
     """fp32 ``gmm`` at E = 1 and both GMM widths (GMM1 K/N = d/2F, GMM2
     F/d): for every C from 1 to ROW_BITS_MAX, the rows of
     ``gmm(x[:, :C], w)`` must be bit-equal to ``gmm(x, w)[:, :C]`` at C =
-    ROW_BITS_MAX, across both fp32 bodies (each output one ascending-k fmaf
-    chain). A bucket ladder that pads a tile's rows then cannot change a
-    served token. Raises naming the row counts at fault."""
+    ROW_BITS_MAX, across the narrow and the tiled body (each output one
+    ascending-k fmaf chain), and the bodies must be the rule's: narrow
+    under ``first_tiled(1, N)`` rows, tiled from there. A bucket ladder
+    that pads a tile's rows then cannot change a served token. Raises
+    naming the row counts at fault."""
     D, F2, Fe = cfg.d_model, 2 * cfg.moe.d_expert, cfg.moe.d_expert
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = []
@@ -1590,8 +1631,9 @@ def row_count_bits(cfg):
         row = {"tile": tile, "K": K, "N": N, "rows": [1, ROW_BITS_MAX],
                "bodies": {b: [min(c), max(c)] for b, c in bodies.items()},
                "rows_not_bit_equal": bad, "max_abs_err": err}
-        if bad or set(bodies) != {"small", "tiled"} or err > TOL[
-                torch.float32]:
+        b = first_tiled(1, N)
+        want = {"narrow": [1, b - 1], "tiled": [b, ROW_BITS_MAX]}
+        if bad or row["bodies"] != want or err > TOL[torch.float32]:
             raise AssertionError(f"fp32 gmm's rows depend on the call's "
                                  f"row count: {row}")
         row["timed"] = []
@@ -1689,6 +1731,7 @@ def run_dropless_train(cfg):
     wall = time.perf_counter() - t
     launches = read_launches()
     tiled = gmm_mod.launches_fp32_tiled
+    narrow = gmm_mod.launches_fp32_narrow
     log = run.metrics_log
     if not all(math.isfinite(m["loss"]) and math.isfinite(m["grad_norm"])
                for m in log):
@@ -1713,6 +1756,7 @@ def run_dropless_train(cfg):
            "tokens_per_s": tokens / (step_ms / 1e3),
            "max_memory_allocated_bytes": max(m["peak_bytes"] for m in log),
            "launches": launches, "gmm_fp32_tiled_launches": tiled,
+           "gmm_fp32_narrow_launches": narrow,
            "ssc_lookups_per_step": lookups,
            "whole_block_checkpoint": WHOLE_BLOCK_CHECKPOINT,
            "cache": {k: v for k, v in run.dropless.cache.info().items()
@@ -2143,7 +2187,9 @@ def run_serve_online(cfg, fixed):
     b, stats = serve_mod.main(argv)
     wall = time.perf_counter() - t
     launches = read_launches()
-    small, tiled = gmm_mod.launches_fp32_small, gmm_mod.launches_fp32_tiled
+    fp32 = {"tiled": gmm_mod.launches_fp32_tiled,
+            "narrow": gmm_mod.launches_fp32_narrow,
+            "small": gmm_mod.launches_fp32_small}
     rep = stats.pop("report")
     verdicts = stats.pop("verdicts")
     want_shed = REQUESTS - ONLINE_QUEUE
@@ -2154,12 +2200,11 @@ def run_serve_online(cfg, fixed):
     if stats["nonfinite_steps"]:
         raise AssertionError(f"serve_online: {stats['nonfinite_steps']} "
                              f"steps had non-finite logits")
-    if (launches["gmm_swiglu"] or launches["gmm"] != small + tiled
-            or small + tiled == 0 or any(
+    if (launches["gmm_swiglu"] or launches["gmm"] != sum(fp32.values())
+            or launches["gmm"] == 0 or any(
                 v for k, v in launches.items() if k not in ("gmm",))):
         raise AssertionError(f"serve_online launches {launches} (fp32 "
-                             f"small {small}, tiled {tiled}): fp32 gmm "
-                             f"only, at least once")
+                             f"{fp32}): fp32 gmm only, at least once")
     cache = rep.get("cache", {})
     out.update({
         "argv": argv, "slo_us_predicted": slo, "wall_s": wall,
@@ -2179,7 +2224,7 @@ def run_serve_online(cfg, fixed):
                                  "live": rep.get("sched_live")},
         "admission": rep.get("admission"),
         "launches": launches,
-        "gmm_fp32_launches": {"small": small, "tiled": tiled},
+        "gmm_fp32_launches": fp32,
         "fixed_capacity_decode_step_ms_median":
             fixed["decode_step_ms_median"],
         "fixed_capacity_prefill_ms_median": fixed["prefill_ms_median"],
@@ -2588,7 +2633,9 @@ def run_ft(cfg):
         shutil.rmtree(root, ignore_errors=True)
     out = {"phase": "ft", **train_out, "harness": cells,
            "harness_launches": harness_launches,
-           "harness_gmm_fp32_small_launches": gmm_mod.launches_fp32_small,
+           "harness_gmm_fp32_launches": {
+               "narrow": gmm_mod.launches_fp32_narrow,
+               "small": gmm_mod.launches_fp32_small},
            "seconds": time.perf_counter() - t}
     return out, {"ft": train_launches, "ft_harness": harness_launches}
 
@@ -3868,9 +3915,11 @@ def run_dist_train(smoke=False, dev="cuda", seq=TRAIN_SEQ, nccl=True):
 
 
 def _gmm_step(rec) -> list:
-    """A step record's ``gmm`` launches: [all, fp32 tiled, small-row]."""
+    """A step record's ``gmm`` launches: [all, fp32 tiled, narrow,
+    small-row]."""
     fp32 = rec["gmm_fp32_launches"]
-    return [rec["gmm_launches"], fp32["tiled"], fp32["small"]]
+    return [rec["gmm_launches"], fp32["tiled"], fp32["narrow"],
+            fp32["small"]]
 
 
 def dist_dropless_check(mode, ranks, launches, tc, want, cuda,
@@ -3902,9 +3951,10 @@ def dist_dropless_check(mode, ranks, launches, tc, want, cuda,
                    f"{want['ssc_lookups']} (step 0 all misses)")
     most = FRAGMENT_GMM_PER_EXPERT * DIST_LAYERS * e_real
     if cuda and (any(g != gmm[0] for g in gmm) or any(
-            n != tiled + small or n % FRAGMENT_GMM_PER_EXPERT
-            or not 0 < n <= most for n, tiled, small in gmm[0])):
-        bad.append(f"gmm launches a step [all, tiled, small] {gmm}: want "
+            n != tiled + narrow + small or n % FRAGMENT_GMM_PER_EXPERT
+            or not 0 < n <= most for n, tiled, narrow, small in gmm[0])):
+        bad.append(f"gmm launches a step [all, tiled, narrow, small] "
+                   f"{gmm}: want "
                    f"them equal, on the fp32 bodies, "
                    f"{FRAGMENT_GMM_PER_EXPERT} a routed expert a layer "
                    f"(at most {most})")
@@ -3922,7 +3972,8 @@ def dist_dropless_case(cfg, dev="cuda", seq=DROPLESS_DIST_SEQ):
     (``make_train_step(cfg, dropless=DroplessConfig(ep=DIST_MESH[-1]))``,
     the launcher's optimizer) on the launcher's first global batch from
     the same params: its loss and each leaf's grad norm (before clipping),
-    its ``gmm`` launches ([all, fp32 tiled, small-row]) and SSC lookups."""
+    its ``gmm`` launches ([all, fp32 tiled, narrow, small-row]) and SSC
+    lookups."""
     dev = torch.device(dev)
     seen = {}
 
@@ -3945,6 +3996,7 @@ def dist_dropless_case(cfg, dev="cuda", seq=DROPLESS_DIST_SEQ):
     out = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
            "grad_leaf_norms": seen["norms"],
            "gmm": [[gmm_mod.launches, gmm_mod.launches_fp32_tiled,
+                    gmm_mod.launches_fp32_narrow,
                     gmm_mod.launches_fp32_small]],
            "ssc": {k: v for k, v in m.items() if k.startswith("ssc_")},
            "ssc_lookups": 2 * cfg.n_layers}
@@ -4894,12 +4946,13 @@ def main() -> int:
         "audio_vlm": dryrun_grid() + list(run_cells().values()),
         "prod": prod_cells()})
 
-    tile_rows, tiled = run_dropless_tiles(cfg)
+    tile_rows, body_launches = run_dropless_tiles(cfg)
     bits_rows = row_count_bits(cfg)
     emit({"phase": "dropless_tiles",
           "fp32_tiled_min_rows": gmm_mod.FP32_TILED_MIN_ROWS,
-          "fp32_tiled_launches": tiled, "rows": tile_rows,
-          "row_count_bits": bits_rows})
+          "fp32_tiled_launches": body_launches["tiled"],
+          "fp32_narrow_launches": body_launches["narrow"],
+          "rows": tile_rows, "row_count_bits": bits_rows})
     rows += tile_rows
     emit(run_dropless_fragment())
     dropless_out, dropless_launches = run_dropless_train(cfg)
@@ -4994,7 +5047,7 @@ def main() -> int:
             dist_fp32 = {body: sum(
                 s[i] for row in dropless_dist_out["modes"].values()
                 for st in row["gmm_per_process_per_step"] for s in st)
-                for i, body in ((1, "tiled"), (2, "small"))}
+                for i, body in ((1, "tiled"), (2, "narrow"), (3, "small"))}
             kernels[-1]["fp32_tiled_body"] = {
                 "source": "src/repro_torch/kernels/csrc/gmm_fp32.cuh",
                 "launches_by_path": {
@@ -5002,14 +5055,21 @@ def main() -> int:
                     "serve_online":
                         online_out["gmm_fp32_launches"]["tiled"],
                     "dist_dropless": dist_fp32["tiled"]}}
+            kernels[-1]["fp32_narrow_body"] = {
+                "source": "src/repro_torch/kernels/csrc/gmm_fp32_narrow.cuh",
+                "launches_by_path": {
+                    "dropless": dropless_out["gmm_fp32_narrow_launches"],
+                    "serve_online":
+                        online_out["gmm_fp32_launches"]["narrow"],
+                    "dist_dropless": dist_fp32["narrow"]},
+                "decode_tiles": [dict(x, tile=r["tile"], K=r["K"], N=r["N"])
+                                 for r in bits_rows for x in r["timed"]]}
             kernels[-1]["fp32_small_body"] = {
                 "source": "src/repro_torch/kernels/csrc/gmm_fp32_small.cuh",
                 "launches_by_path": {
                     "serve_online":
                         online_out["gmm_fp32_launches"]["small"],
-                    "dist_dropless": dist_fp32["small"]},
-                "decode_tiles": [dict(x, tile=r["tile"], K=r["K"], N=r["N"])
-                                 for r in bits_rows for x in r["timed"]]}
+                    "dist_dropless": dist_fp32["small"]}}
             kernels[-1]["dropless_tiles"] = [
                 {k: x[k] for k in ("tile", "C", "K", "N", "body", *timing)}
                 for x in tile_rows if "ms" in x]

@@ -23,8 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-HEADERS = ("gmm_common.cuh", "gmm_fp32.cuh", "gmm_fp32_small.cuh",
-           "gmm_tc.cuh")
+HEADERS = ("gmm_common.cuh", "gmm_fp32.cuh", "gmm_fp32_narrow.cuh",
+           "gmm_fp32_small.cuh", "gmm_tc.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # The tensor-core GEMMs encode their TMA tensor maps with the driver API's

@@ -26,17 +26,22 @@
 // C = 1 and 2 it runs in about half the FMA body's time (PERF.md).
 //
 // fp32 calls: the wrapper picks the body (kernels/gmm.py, fp32_tile). The
-// dropless fragment's tiles (E = 1, hundreds of rows, fp32) run the
-// register-blocked tiled body (gmm_fp32.cuh) at the tile the wrapper names;
-// small C, and calls whose widths or bases it cannot take, run the
-// small-row body (gmm_fp32_small.cuh). Both sum each output in one fmaf
-// chain over ascending k, so an fp32 row's bits do not depend on the
-// call's row count or on the body. bf16 calls whose bases or row strides a
-// tensor map cannot take (N = 18 in the ragged checks) run the first
-// design's FMA body (gmm_common.cuh). All the bodies read the same layouts.
+// dropless fragment's tiles (E = 1, fp32) that fill the card
+// (gmm.tiled_takes) run the register-blocked tiled body (gmm_fp32.cuh) at
+// the tile the wrapper names; smaller ones run the narrow body
+// (gmm_fp32_narrow.cuh: 8-column CTAs fed by TMA through an mbarrier ring)
+// at the configuration the wrapper names, where TMA can describe the call;
+// the rest (x a transposed view in the narrow body's range, widths or
+// bases neither body takes) run the small-row body (gmm_fp32_small.cuh). All three sum
+// each output in one fmaf chain over ascending k, so an fp32 row's bits do
+// not depend on the call's row count or on the body. bf16 calls whose
+// bases or row strides a tensor map cannot take (N = 18 in the ragged
+// checks) run the first design's FMA body (gmm_common.cuh). All the bodies
+// read the same layouts.
 
 #include "gmm_common.cuh"
 #include "gmm_fp32.cuh"
+#include "gmm_fp32_narrow.cuh"
 #include "gmm_fp32_small.cuh"
 #include "gmm_tc.cuh"
 
@@ -44,13 +49,18 @@
 // view). b_layout: 0 = w is [E, K, N]; 1 = w is stored [E, N, K]. body:
 // 0 = for bf16 the tensor cores (where a tensor map fits) or the FMA body,
 // for fp32 the small-row body (gmms::launch); 1-3 = the fp32 tiled body at
-// that tile (gmmf::launch), refused with an error for bf16 or a call it
-// cannot take. dtype: 0 = float32,
+// that tile (gmmf::launch); 4 and up = the fp32 narrow body at that
+// configuration (gmmn::launch). A tiled or narrow code is refused with an
+// error for bf16 or a call its body cannot take. dtype: 0 = float32,
 // 1 = bfloat16. Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int gmm_launch(const void* x, const void* w, void* y, int E, int C,
                           int K, int N, int a_layout, int b_layout, int body,
                           int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (body >= 4)
+    return dtype == 0 ? gmmn::launch(x, w, y, E, C, K, N, a_layout, b_layout,
+                                     body, s)
+                      : static_cast<int>(cudaErrorInvalidValue);
   if (body != 0)
     return dtype == 0 ? gmmf::launch(x, w, y, E, C, K, N, a_layout, b_layout,
                                      body, s)

@@ -4,12 +4,12 @@
 //
 // y[e, m, n] = sum_k x[e, m, k] * w[e, k, n], fp32 in, fp32 sums, fp32 out.
 //
-// Replaces, for fp32 calls the tiled body (gmm_fp32.cuh) does not take, the
-// TPU kernel src/repro/kernels/gmm.py::gmm (body _gmm_kernel). Its callers
-// are the dropless fragment's GMM tiles with fewer than
-// gmm.FP32_TILED_MIN_ROWS rows (core/executor.py: E = 1; in decode an
-// expert gets one to a few routed rows: 8 slots x top-8 = 64 rows over 48
-// experts) and fp32 calls whose widths or bases the tiled body cannot take.
+// Replaces, for fp32 calls that neither the tiled body (gmm_fp32.cuh) nor
+// the narrow body (gmm_fp32_narrow.cuh) takes, the TPU kernel
+// src/repro/kernels/gmm.py::gmm (body _gmm_kernel): calls whose widths or
+// bases are not multiples of 16 bytes (a one-row tile's weight gradient
+// reads x as K = 1 float wide), and x passed as a transposed view where
+// the call is too small for the tiled body.
 //
 // Why its sums are one ascending-k chain: the tiled body sums each output
 // in one fmaf chain over ascending k, so its result does not depend on the

@@ -12,13 +12,17 @@ dtype.
 Each operand is contiguous or the transpose of a contiguous tensor in its
 last two dims (``operand_layout``); the kernel reads either in place.
 
-The C entry has four bodies: bf16 calls run the tensor cores where a
+The C entry has five bodies: bf16 calls run the tensor cores where a
 tensor map describes them, else the first design's FMA body; fp32 calls
-with enough rows run the register-blocked tiled body
-(``csrc/gmm_fp32.cuh``) at a tile the wrapper picks (``fp32_tile``), the
-rest the small-row body (``csrc/gmm_fp32_small.cuh``). Both fp32 bodies sum
-each output in one fmaf chain over ascending k, so on the card an fp32
-row's bits do not depend on how many rows the call has.
+large enough to fill the card (``tiled_takes``) run the register-blocked
+tiled body (``csrc/gmm_fp32.cuh``) at a tile the wrapper picks, smaller
+ones the narrow body (``csrc/gmm_fp32_narrow.cuh``: 8-column CTAs fed by
+TMA) at a configuration the wrapper picks, and the calls neither takes (x
+a transposed view in the narrow body's range, widths or bases that are not
+multiples of 16 bytes) the small-row body (``csrc/gmm_fp32_small.cuh``).
+``fp32_tile`` gives the body code, ``fp32_body`` names the body. All three
+fp32 bodies sum each output in one fmaf chain over ascending k, so on the
+card an fp32 row's bits do not depend on how many rows the call has.
 
 ``gmm_trainable`` adds the gradient that the JAX ``gmm`` lacks (it is a bare
 ``pallas_call`` with no VJP): two more calls of the same kernel on
@@ -38,11 +42,12 @@ from .ref import gmm_ref
 _DTYPES = (torch.float32, torch.bfloat16)
 
 # Kernel launches since the last reset (CPU calls not counted): all, and
-# those of the bf16 tensor-core body and of the fp32 tiled and small-row
-# bodies.
+# those of the bf16 tensor-core body and of the fp32 tiled, narrow and
+# small-row bodies.
 launches = 0
 launches_tc = 0
 launches_fp32_tiled = 0
+launches_fp32_narrow = 0
 launches_fp32_small = 0
 
 # The fp32 tiled body's tiles (rows x columns of one CTA's output), by the
@@ -50,9 +55,25 @@ launches_fp32_small = 0
 # within 1% of the fastest at each dropless call at C = 683, and 9% at
 # C = 1001 (launch/bench_gmm_fma.py --tiles on an H100; PERF.md).
 FP32_TILES = {1: (64, 128), 2: (64, 64), 3: (32, 64)}
-# fp32 calls with fewer rows run the small-row body (bench_gmm_fma.py
-# --tiles times both bodies at C = 1 ... 17 on an H100; PERF.md).
-FP32_TILED_MIN_ROWS = 9
+# The fp32 narrow body's configurations (TM, TN, W, CL) by the code the C
+# entry takes: W consumer warps of 32 / CL row lanes by CL column lanes,
+# each thread TM rows by TN columns, so that a CTA owns (32 / CL)·TM·W rows
+# by CL·TN columns: 4, 8, 32 and 64 rows, all 8 columns wide.
+FP32_NARROW = {4: (1, 1, 1, 8), 5: (1, 1, 2, 8), 6: (2, 1, 4, 8),
+               7: (1, 4, 4, 2)}
+# The narrow body's pick by rows: (most rows, code), the first that takes
+# C; calls of more rows take the last code (bench_gmm_fma.py --tiles times
+# every code on an H100; PERF.md).
+NARROW_BY_ROWS = ((4, 4), (16, 5), (32, 6), (None, 7))
+# fp32 calls run the tiled body from FP32_TILED_MIN_ROWS rows, or once the
+# grid of its smallest tile, E·⌈C/32⌉·⌈N/64⌉ CTAs, reaches
+# FP32_TILED_MIN_CTAS; smaller calls run the narrow body. On an H100 (132
+# SMs; bench_gmm_fma.py --tiles at C = 1 ... 256, PERF.md) the narrow body
+# is faster while that grid stays under 72 CTAs (N = 1536 to C = 64,
+# N = 1024 to C = 128, N = 512 to C = 256) and slower at 72 (N = 1536,
+# C = 96); the sweep ends at 256 rows.
+FP32_TILED_MIN_ROWS = 257
+FP32_TILED_MIN_CTAS = 72
 # SMs of the card the tiles are picked for, where a tensor lies on the CPU
 # (an H100 SXM's 132).
 CPU_SMS = 132
@@ -101,23 +122,68 @@ def _sms(device) -> int:
 
 def fp32_tile(x, w) -> int:
     """The body code a ``gmm(x, w)`` call passes to its C entry: 0 for the
-    tensor cores, the FMA body (bf16) or the small-row body (fp32), else the
-    ``FP32_TILES`` code of the fp32 tiled body.
+    tensor cores, the FMA body (bf16) or the small-row body (fp32), an
+    ``FP32_TILES`` code for the fp32 tiled body, an ``FP32_NARROW`` code for
+    the fp32 narrow body.
 
-    The tiled body takes fp32 calls with at least ``FP32_TILED_MIN_ROWS``
-    rows whose operands' contiguous dims (x: K, or C if a transposed view;
-    w: N, or K) and N are multiples of 4 and whose bases are 16-byte
-    aligned. Its tile is the largest whose grid, E·⌈C/BM⌉·⌈N/BN⌉ CTAs, has
-    at least two CTAs per SM of the card; else the smallest.
+    fp32 calls the tiled body takes by size (``tiled_takes``) run it where
+    their operands' contiguous dims (x: K, or C if a transposed view; w: N,
+    or K) and N are multiples of 4 and their bases 16-byte aligned. Its
+    tile is the largest whose grid, E·⌈C/BM⌉·⌈N/BN⌉ CTAs, has at least two
+    CTAs per SM of the card; else the smallest. Smaller calls run the
+    narrow body where TMA can describe them (``narrow_usable``), at
+    ``narrow_code(C)``. Every other fp32 call runs the small-row body.
     """
     return _tile(x, w, operand_layout(x, "x"), operand_layout(w, "w"))
+
+
+def tiled_takes(E: int, C: int, N: int) -> bool:
+    """Whether an fp32 call of E experts, C rows and N columns is the tiled
+    body's by size: from ``FP32_TILED_MIN_ROWS`` rows, or once its smallest
+    tile's grid reaches ``FP32_TILED_MIN_CTAS`` CTAs."""
+    bm, bn = FP32_TILES[max(FP32_TILES)]
+    return (C >= FP32_TILED_MIN_ROWS
+            or E * -(-C // bm) * -(-N // bn) >= FP32_TILED_MIN_CTAS)
+
+
+def narrow_usable(x, w, x_layout: int, w_layout: int) -> bool:
+    """Whether the narrow body's tensor maps describe the call (its
+    ``gmmn::usable``): x contiguous with K a multiple of 4 floats, w's
+    contiguous dim (N, or K if a transposed view) a multiple of 4, and both
+    bases 16-byte aligned."""
+    K, N = x.shape[2], w.shape[2]
+    return (x_layout == 0 and K > 0 and K % 4 == 0
+            and (w_layout == 1 or N % 4 == 0)
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def narrow_rows(code: int) -> int:
+    """Rows of one CTA of the narrow body at configuration ``code``."""
+    tm, _, warps, cl = FP32_NARROW[code]
+    return 32 // cl * tm * warps
+
+
+def narrow_cols(code: int) -> int:
+    """Columns of one CTA of the narrow body at configuration ``code``."""
+    _, tn, _, cl = FP32_NARROW[code]
+    return cl * tn
+
+
+def narrow_code(C: int) -> int:
+    """The narrow body's configuration for a call of C rows: the first of
+    ``NARROW_BY_ROWS`` whose row bound takes C."""
+    return next(code for most, code in NARROW_BY_ROWS
+                if most is None or C <= most)
 
 
 def _tile(x, w, x_layout: int, w_layout: int) -> int:
     E, C, K = x.shape
     N = w.shape[-1]
-    if x.dtype != torch.float32 or C < FP32_TILED_MIN_ROWS:
+    if x.dtype != torch.float32:
         return 0
+    if not tiled_takes(E, C, N):
+        return (narrow_code(C) if narrow_usable(x, w, x_layout, w_layout)
+                else 0)
     x_dim = C if x_layout else K
     w_dim = K if w_layout else N
     if (x_dim % 4 or w_dim % 4 or N % 4 or x.data_ptr() % 16
@@ -145,17 +211,26 @@ def tensor_core_body(x, w, out, layouts=(0, 0)) -> bool:
 
 def fp32_body(x, w) -> str:
     """Which body a ``gmm(x, w)`` call on the card runs in fp32: "tiled"
-    (``csrc/gmm_fp32.cuh``) or "small" (``csrc/gmm_fp32_small.cuh``);
-    "none" for a bf16 call, which runs neither fp32 body."""
-    if x.dtype != torch.float32:
+    (``csrc/gmm_fp32.cuh``), "narrow" (``csrc/gmm_fp32_narrow.cuh``) or
+    "small" (``csrc/gmm_fp32_small.cuh``); "none" for a bf16 call, which
+    runs none of them."""
+    return body_name(x.dtype, fp32_tile(x, w))
+
+
+def body_name(dtype, code: int) -> str:
+    """The fp32 body that body code ``code`` runs (``fp32_body``)."""
+    if dtype != torch.float32:
         return "none"
-    return "tiled" if fp32_tile(x, w) else "small"
+    if code in FP32_TILES:
+        return "tiled"
+    return "narrow" if code in FP32_NARROW else "small"
 
 
 def gmm(x, w):
     """x: [E, C, K] expert-grouped tokens; w: [E, K, N] → [E, C, N]. Either
     operand may be a transposed view (``operand_layout``)."""
-    global launches, launches_tc, launches_fp32_tiled, launches_fp32_small
+    global launches, launches_tc, launches_fp32_tiled, launches_fp32_narrow
+    global launches_fp32_small
     check_operands(x, w, w.shape[-1] if w.dim() == 3 else -1)
     layouts = operand_layout(x, "x"), operand_layout(w, "w")
     if x.device.type == "cpu":
@@ -176,8 +251,10 @@ def gmm(x, w):
                  dtype=x.dtype)
     launches += 1
     launches_tc += tensor_core_body(x, w, out, layouts)
-    launches_fp32_tiled += body > 0
-    launches_fp32_small += body == 0 and x.dtype == torch.float32
+    name = body_name(x.dtype, body)
+    launches_fp32_tiled += name == "tiled"
+    launches_fp32_narrow += name == "narrow"
+    launches_fp32_small += name == "small"
     return out
 
 

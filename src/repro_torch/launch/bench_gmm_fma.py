@@ -1,17 +1,19 @@
 """Per-call times of the grouped GEMMs' fp32 bodies: the FMA body
-(``csrc/gmm_common.cuh``), ``gmm``'s tiled body (``csrc/gmm_fp32.cuh``) and
-its small-row body (``csrc/gmm_fp32_small.cuh``).
+(``csrc/gmm_common.cuh``) and ``gmm``'s tiled, narrow and small-row bodies
+(``csrc/gmm_fp32.cuh``, ``csrc/gmm_fp32_narrow.cuh``,
+``csrc/gmm_fp32_small.cuh``).
 
 Every fp32 ``gmm_swiglu`` call runs the FMA body; an fp32 ``gmm`` call runs
-the body ``gmm.fp32_body`` names (the tiled body from
-``gmm.FP32_TILED_MIN_ROWS`` rows on, else the small-row body). This script holds each call against
-its plain version and times it beside its bound, at the shapes those
-callers give it on granite-moe-3b-a800m (d 1536, 48 experts of F = 512,
-top-8, T = 4096 tokens):
+the body ``gmm.fp32_body`` names (the tiled body where ``gmm.tiled_takes``
+the call, the narrow body for smaller calls, the small-row body where
+neither takes it). This script holds each call
+against its plain version and times it beside its bound, at the shapes
+those callers give it on granite-moe-3b-a800m (d 1536, 48 experts of
+F = 512, top-8, T = 4096 tokens):
 
-* the dropless fragment's GMM tiles: E = 1, fp32, at ragged row counts
-  (GMM1 and GMM2 x·W), and at an expert's mean share of rows, C = 683,
-  their activation gradients (x·Wᵀ, w a transposed view) and weight
+* the dropless fragment's GMM tiles: E = 1, fp32, at ragged row counts:
+  GMM1 and GMM2 (x·W) and their activation gradients (x·Wᵀ, w a transposed
+  view); at an expert's mean share of rows, C = 683, also their weight
   gradients (xᵀ·dy, x a transposed view, summing over the rows);
 * the fixed-capacity layer in fp32, E = 48 at its training capacity
   C = 854: ``gmm_swiglu`` (GMM1 + SwiGLU) and ``gmm`` (GMM2).
@@ -27,21 +29,25 @@ checkout's kernels: run this file with that checkout's ``src`` first on
 ``PYTHONPATH`` (each checkout builds its own libraries under its own
 ``build/``). Each output row names the body it ran and, by one hash
 (``fp32_bodies``), the fp32 bodies' headers it was built from (a checkout
-without the small-row body runs the FMA body under the threshold, one
-without the tiled body the FMA body only).
+without the narrow body runs the small-row body under the threshold).
 
 ``--tiles`` also times each fp32 ``gmm`` call through its C entry with
-every body code, 0 (the small-row body, or the FMA body in a checkout
-without it) and each of the tiled body's tiles (``gmm.FP32_TILES``),
-whatever ``gmm.fp32_tile`` would pick: the measurement behind the tile
-rule and the row threshold. Every tile's result must be bit-equal to the
-others', and the small-row body's to theirs.
+every body code the call can take, whatever ``gmm.fp32_tile`` would pick:
+0 (the small-row body, or the FMA body in a checkout without it), each of
+the tiled body's tiles (``gmm.FP32_TILES``) and, where its tensor maps
+describe the call, each of the narrow body's configurations
+(``gmm.FP32_NARROW``): the measurement behind the tile rule, the narrow
+body's rule and the row threshold. Every body's result must be bit-equal
+to the others'.
 
 ``ms`` is the device time per call by CUDA-graph replay; ``bound_ms`` the
 larger of the bytes (each input read once, the output written once, over
 HBM) and the operations (2 per multiply-add, over fp32's peak) over the
-H100 SXM's data-sheet rates. Output: one JSON object per line, the card's
-``name, power.limit``, then a JSON summary (also written to ``--out``).
+H100 SXM's data-sheet rates; ``chain_ms`` the K dependent FMAs of one
+output at ``FMA_CYCLES`` cycles each and ``CLOCK_GHZ``, which no fp32 body
+can beat (each output is one chain). Output: one JSON object per line, the
+card's ``name, power.limit``, then a JSON summary (also written to
+``--out``).
 """
 
 from __future__ import annotations
@@ -68,6 +74,9 @@ TOKENS = 4096
 ROWS = (8, 9, 17, 127, 683, 1001)    # 683: an expert's mean share
 GRAD_ROWS = 683
 TOL = 1e-4                      # fp32, |got - want| <= TOL·(1 + |want|)
+# The chain floor: an FMA's latency in cycles and the H100 SXM's boost
+# clock (the small-row body's header).
+FMA_CYCLES, CLOCK_GHZ = 4, 1.76
 
 
 def cases(cfg, rows):
@@ -77,11 +86,11 @@ def cases(cfg, rows):
     out = []
     for C in rows:
         out += [("dropless_gmm1", 1, C, D, 2 * F, 0, 0, False),
-                ("dropless_gmm2", 1, C, F, D, 0, 0, False)]
+                ("dropless_gmm2", 1, C, F, D, 0, 0, False),
+                ("dropless_gmm1_act_grad", 1, C, 2 * F, D, 0, 1, False),
+                ("dropless_gmm2_act_grad", 1, C, D, F, 0, 1, False)]
     C = GRAD_ROWS if GRAD_ROWS in rows else rows[-1]
-    out += [("dropless_gmm1_act_grad", 1, C, 2 * F, D, 0, 1, False),
-            ("dropless_gmm2_act_grad", 1, C, D, F, 0, 1, False),
-            ("dropless_gmm1_wgrad", 1, D, C, 2 * F, 1, 0, False),
+    out += [("dropless_gmm1_wgrad", 1, D, C, 2 * F, 1, 0, False),
             ("dropless_gmm2_wgrad", 1, F, C, D, 1, 0, False)]
     cap = capacity(TOKENS, cfg.moe)
     out += [("fixed_gmm_swiglu", E, cap, D, F, 0, 0, True),
@@ -118,8 +127,10 @@ def cuda_ms(fn, iters: int = 20, reps: int = 3) -> float:
 
 
 # Body code 0's fp32 body: the small-row body, or the FMA body in a
-# checkout without it.
+# checkout without it; the narrow body's codes (none in a checkout without
+# it).
 CODE0 = "small" if hasattr(gmm_mod, "launches_fp32_small") else "fma"
+NARROW = getattr(gmm_mod, "FP32_NARROW", {})
 
 
 def body_of(x, w, swiglu) -> str:
@@ -129,15 +140,37 @@ def body_of(x, w, swiglu) -> str:
     return "fma" if swiglu or fp32_body is None else fp32_body(x, w)
 
 
+def body_codes(x, w, layouts):
+    """(code, body, shape) of every body code the call can take: 0, each
+    tiled tile (BM, BN), each narrow configuration (TM, TN, W, CL) where
+    the narrow body's tensor maps describe the call."""
+    out = [(0, CODE0, None)]
+    out += [(c, "tiled", t) for c, t in gmm_mod.FP32_TILES.items()]
+    if NARROW and gmm_mod.narrow_usable(x, w, *layouts):
+        out += [(c, "narrow", t) for c, t in NARROW.items()]
+    return out
+
+
+def ctas(E, C, N, code, body):
+    """CTAs of body code ``code`` on a call; None for code 0."""
+    if body == "tiled":
+        bm, bn = gmm_mod.FP32_TILES[code]
+    elif body == "narrow":
+        bm, bn = gmm_mod.narrow_rows(code), gmm_mod.narrow_cols(code)
+    else:
+        return None
+    return E * -(-C // bm) * -(-N // bn)
+
+
 def tile_rows(row, x, w, want, dev):
     """The ``--tiles`` rows of one gmm call: each body code through the C
-    entry, checked against ``want``, timed; tiled results bit-equal, and
-    the small-row body's equal to theirs."""
+    entry, checked against ``want``, timed; every body's result bit-equal
+    to the others' (the FMA body of an old checkout excepted)."""
     E, C, K = x.shape
     N = w.shape[-1]
     layouts = gmm_mod.operand_layout(x, "x"), gmm_mod.operand_layout(w, "w")
-    out, tiled = [], None
-    for code in (0, *gmm_mod.FP32_TILES):
+    out, first = [], None
+    for code, body, shape in body_codes(x, w, layouts):
         y = torch.empty((E, C, N), device=dev)
 
         def call():
@@ -148,17 +181,17 @@ def tile_rows(row, x, w, want, dev):
         if not bool((err <= TOL + TOL * want.abs()).all()):
             raise AssertionError(f"{row['call']} at body code {code} "
                                  f"disagrees with its plain version")
-        if code or CODE0 == "small":
-            if tiled is not None and not torch.equal(y, tiled):
+        if body != "fma":
+            if first is not None and not torch.equal(y, first):
                 raise AssertionError(f"{row['call']}: body code {code} "
                                      f"differs from another's result")
-            tiled = y.clone()
-        bm, bn = gmm_mod.FP32_TILES.get(code, (None, None))
+            first = y.clone()
         out.append({"call": row["call"], "C": C, "K": K, "N": N,
-                    "body": "tiled" if code else CODE0, "tile": [bm, bn],
-                    "ctas": (E * -(-C // bm) * -(-N // bn)) if code else None,
+                    "code": code, "body": body, "shape": shape,
+                    "ctas": ctas(E, C, N, code, body),
                     "max_abs_err": float(err.max()),
-                    "ms": cuda_ms(call), "bound_ms": row["bound_ms"]})
+                    "ms": cuda_ms(call), "bound_ms": row["bound_ms"],
+                    "chain_ms": row["chain_ms"]})
     return out
 
 
@@ -187,7 +220,8 @@ def run_case(case, gen, dev, tiles=False):
         raise AssertionError(f"{name} disagrees with its plain version: "
                              f"{row}")
     b_ms, b_by = bound(E, C, K, N, swiglu)
-    row.update(bound_ms=b_ms, bound_by=b_by)
+    row.update(bound_ms=b_ms, bound_by=b_by,
+               chain_ms=K * FMA_CYCLES / (CLOCK_GHZ * 1e6))
     if dev.type == "cuda":
         if not torch.equal(got, fn(x, w)):
             raise AssertionError(f"{name}: two calls on the same input "
@@ -220,7 +254,8 @@ def main(argv=None) -> dict:
     cfg = get_smoke_config(ARCH) if args.smoke else get_config(ARCH)
     csrc = Path(gmm_mod.__file__).resolve().parent / "csrc"
     h = hashlib.sha256()
-    for name in ("gmm_common.cuh", "gmm_fp32.cuh", "gmm_fp32_small.cuh"):
+    for name in ("gmm_common.cuh", "gmm_fp32.cuh", "gmm_fp32_narrow.cuh",
+                 "gmm_fp32_small.cuh"):
         if (csrc / name).exists():
             h.update((csrc / name).read_bytes())
     bodies = h.hexdigest()[:12]

@@ -20,7 +20,7 @@ time.
 the dropless fragment at ep = 4 under an ``OnlineTuner`` seeded with the
 ladder fitted on the decode population (MoE archs only). The line then also
 gives, per decode step over the unprofiled steps, ``gmm`` launches by body
-(the fp32 small-row and tiled bodies), SSC hits and misses (a miss is a
+(the fp32 narrow, small-row and tiled bodies), SSC hits and misses (a miss is a
 compile), and the tuner's refits and swaps. Needs a CUDA device.
 """
 
@@ -53,6 +53,7 @@ def _device_us(evt) -> float:
 
 def _counters(online) -> dict:
     c = {"gmm": gmm_mod.launches,
+         "gmm_fp32_narrow": gmm_mod.launches_fp32_narrow,
          "gmm_fp32_small": gmm_mod.launches_fp32_small,
          "gmm_fp32_tiled": gmm_mod.launches_fp32_tiled}
     if online is not None:

@@ -18,9 +18,9 @@ unprofiled and the profiled host ms per step, the device's busy ms per step
 overlap), the idle share of the unprofiled step, the kernel launches per
 step, the device ms per step of the port's own CUDA kernels by namespace
 (``OWN``: the tensor-core body of ``gmm_swiglu`` and ``gmm``, their FMA
-body, ``gmm``'s fp32 tiled and small-row bodies, the tensor-core and FMA
-bodies of ``gmm_swiglu_bwd``, ``swiglu_add``) against all other kernels,
-each of the port's own kernels by name, the ``TOP`` kernels with the
+body, ``gmm``'s fp32 tiled, narrow and small-row bodies, the tensor-core
+and FMA bodies of ``gmm_swiglu_bwd``, ``swiglu_add``) against all other
+kernels, each of the port's own kernels by name, the ``TOP`` kernels with the
 most device time, and the card's peak allocated bytes over the run. ``--dropless`` trains the MoE through the dropless tile
 taskflow (``launch.dropless``, its default config), as ``launch.train
 --dropless`` does. ``--mesh DxM`` runs the MoE expert-parallel over the
@@ -61,6 +61,7 @@ TOP = 25   # kernels listed by device time
 OWN = {"gmm_swiglu and gmm, tensor cores (gmmtc::)": "gmmtc::",
        "gmm_swiglu and bf16 gmm, FMA body (gmmk::)": "gmmk::",
        "gmm fp32 tiled body (gmmf::)": "gmmf::",
+       "gmm fp32 narrow body (gmmn::)": "gmmn::",
        "gmm fp32 small-row body (gmms::)": "gmms::",
        "gmm_swiglu_bwd, tensor cores (gsbtc::)": "gsbtc::",
        "gmm_swiglu_bwd, FMA body (gsb::)": "gsb::",

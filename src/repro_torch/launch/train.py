@@ -410,9 +410,10 @@ def _kernel_launches(since=None) -> dict:
 
 
 def _gmm_counts() -> tuple:
-    """``gmm``'s launches, all and by fp32 body (tiled, small-row)."""
+    """``gmm``'s launches, all and by fp32 body (tiled, narrow,
+    small-row)."""
     return (gmm_kernel.launches, gmm_kernel.launches_fp32_tiled,
-            gmm_kernel.launches_fp32_small)
+            gmm_kernel.launches_fp32_narrow, gmm_kernel.launches_fp32_small)
 
 
 def _crc32(tree) -> list:
@@ -464,7 +465,8 @@ def _train(args, cfg, dims, dropless, inject_fault, dev) -> TrainRun:
         rec = {"lr": m["lr"], "step_ms": 1e3 * dt,
                "gmm_launches": now[0] - launches[0],
                "gmm_fp32_launches": {"tiled": now[1] - launches[1],
-                                     "small": now[2] - launches[2]},
+                                     "narrow": now[2] - launches[2],
+                                     "small": now[3] - launches[3]},
                "peak_bytes": (torch.cuda.max_memory_allocated(dev) if cuda
                               else None)}
         launches = now

@@ -118,6 +118,22 @@ def test_ptxas_report_reads_each_fp32_tiled_instance():
          "registers": 228, "static_smem": 0}]
 
 
+def test_ptxas_report_reads_each_fp32_narrow_instance():
+    """``gmmn::narrow_kernel`` instances are read with the thread's rows
+    and columns and w's layout."""
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_ZN4gmmn13narrow_kernelILi4ELi2ELi1EEEv14CUtensorMap_stS1_Pfiiiii'"
+        " for 'sm_90a'",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 149 registers, used 1 barriers",
+    ])
+    assert chip_smoke.ptxas_report(log) == [
+        {"kernel": "gmmn::narrow_kernel", "tm": 4, "tn": 2, "tb": 1,
+         "spill_stores": 0, "spill_loads": 0, "registers": 149,
+         "static_smem": 0}]
+
+
 def test_ptxas_report_reads_each_fp32_small_row_instance():
     """``gmms::small_kernel`` instances are read with their rows per CTA,
     the two layouts and whether w is copied in 16-byte chunks."""
@@ -135,33 +151,55 @@ def test_ptxas_report_reads_each_fp32_small_row_instance():
          "registers": 90, "static_smem": 41472}]
 
 
-def _tile_row(rows, body, launched, shape="dropless_tile"):
-    row = {"kernel": "gmm", "C": rows, "body": body,
-           "tiled_launches": launched, "shape": shape}
+def _tile_row(rows, body, launched, shape="dropless_tile", N=1024, K=1536):
+    row = {"kernel": "gmm", "C": rows, "K": K, "N": N, "body": body,
+           "tiled_launches": launched if body != "narrow" else 0,
+           "narrow_launches": launched if body == "narrow" else 0,
+           "shape": shape}
     if shape == "dropless_tile":
         row["rows"] = rows
     return row
 
 
+def test_first_tiled_rows_follow_the_tiled_bodys_grid():
+    """The tiled body takes a one-expert call once its 32 x 64 tile's grid
+    reaches 72 CTAs: 65 rows at N = 1536, 129 at 1024, and at 512 columns
+    the row cap, 257."""
+    assert [chip_smoke.first_tiled(1, n) for n in (1536, 1024, 512)] == [
+        65, 129, 257]
+    assert chip_smoke.first_tiled(48, 1536) == 1
+
+
 def test_dropless_body_check_counts_the_tiled_rows():
     wgrad_of_one_row = dict(_tile_row(1, "small", 0), C=1536, K=1)
-    rows = [_tile_row(683, "tiled", 1), _tile_row(1, "small", 0),
-            wgrad_of_one_row, _tile_row(15, "tiled", 1),
-            _tile_row(129, "small", 0, shape="dropless_edge")]
-    assert chip_smoke.check_fp32_bodies(rows, 16) == 2
+    wgrad_of_fifteen = dict(_tile_row(15, "tiled", 1), C=1536, K=15)
+    rows = [_tile_row(683, "tiled", 1), _tile_row(1, "narrow", 1),
+            wgrad_of_one_row, wgrad_of_fifteen, _tile_row(15, "narrow", 1),
+            _tile_row(64, "narrow", 1, N=1536),
+            _tile_row(65, "tiled", 1, N=1536),
+            _tile_row(129, "small", 0, shape="dropless_edge"),
+            _tile_row(5, "small", 0, shape="dropless_edge")]
+    assert chip_smoke.check_fp32_bodies(rows) == {"tiled": 3, "narrow": 3}
 
 
 @pytest.mark.parametrize("bad", [
     _tile_row(683, "small", 0),             # a tile call the rule sends on
     dict(_tile_row(683, "small", 0), C=1536, K=683),   # its weight gradient
-    _tile_row(16, "small", 0),              # the threshold itself
+    _tile_row(129, "small", 0),             # where the tiled body takes over
+    _tile_row(129, "narrow", 1),            # ... on the narrow body
+    _tile_row(65, "narrow", 1, N=1536),     # ... at N = 1536
     _tile_row(683, "tiled", 0),           # named, but not launched
     _tile_row(1, "small", 1, shape="dropless_edge"),   # launched, not named
+    _tile_row(1, "small", 0),               # under it, TMA's: not narrow
+    _tile_row(15, "tiled", 1),              # under it on the tiled body
+    dict(_tile_row(8, "narrow", 1), narrow_launches=0),   # named only
+    dict(_tile_row(5, "small", 0, shape="dropless_edge"),
+         narrow_launches=1),                # launched, not named
 ])
 def test_dropless_body_check_fails_on_a_wrong_body(bad):
     rows = [_tile_row(683, "tiled", 1), bad]
     with pytest.raises(AssertionError, match="wrong body"):
-        chip_smoke.check_fp32_bodies(rows, 16)
+        chip_smoke.check_fp32_bodies(rows)
 
 
 def test_fused_pp_and_elastic_phases_run_on_the_cpu():

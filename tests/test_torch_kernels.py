@@ -283,12 +283,17 @@ def test_fma_bench_checks_every_call_on_the_cpu():
     assert all(r["ok"] and r["bound_ms"] > 0 and "ms" not in r
                for r in out["rows"])
     # Each row names the fp32 body the card would run it on.
-    assert all(r["body"] in ("tiled", "small", "fma") for r in out["rows"])
+    assert all(r["body"] in ("tiled", "narrow", "small", "fma")
+               for r in out["rows"])
     assert all(r["body"] == "fma" for r in out["rows"]
                if r["kernel"] == "gmm_swiglu")
-    assert all(r["body"] == "small" for r in out["rows"]
+    # Calls too small for the tiled body: the narrow body, the small-row
+    # body where x is a transposed view (the weight gradients at the smoke
+    # widths).
+    assert all(r["body"] == ("small" if r["x"] == "transposed view"
+                             else "narrow") for r in out["rows"]
                if r["kernel"] == "gmm"
-               and r["C"] < gmm_mod.FP32_TILED_MIN_ROWS)
+               and not gmm_mod.tiled_takes(r["E"], r["C"], r["N"]))
     assert out["fp32_bodies"] and all(
         r["fp32_bodies"] == out["fp32_bodies"] for r in out["rows"])
     if not torch.cuda.is_available():
